@@ -1,0 +1,162 @@
+"""Direct-sum force and fused substep: the CUDA kernel's wrappers, each with
+its plain PyTorch version beside it.
+
+Counterparts of ``fused_substep`` and ``pallas_acc`` in
+``nbody_tpu/ops/pallas_forces.py``. One kernel, ``csrc/direct_forces.cu``,
+replaces both TPU kernels there (``_substep_kernel`` with resident sources
+and ``_stream_kernel`` with streamed ones): it stages sources through shared
+memory tile by tile, masks its own ragged edges, and reads sources straight
+from ``pos[:S]`` and ``gm``.
+
+Dispatch is by the device of the tensors: CPU tensors take the plain
+version; CUDA tensors launch the kernel, and anything wrong there raises.
+Nothing falls back from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import forces
+
+# Kernel launches made by the wrappers in this process (plain-version calls
+# are not counted). A run resets it to 0 and reads it back to show which
+# path it took.
+LAUNCHES = 0
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % 8:
+        raise ValueError(f"{name} must be 8-byte aligned for the kernel")
+
+
+def _device_of(t: torch.Tensor) -> torch.device:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"direct_forces runs on CPU (plain version) or CUDA (kernel) "
+            f"tensors, got {t.device}")
+    return t.device
+
+
+def _kernel_args(tgt_pos, tgt_vel, tgt_radius, src_pos, src_gm, dt, pos_dt,
+                 precise, acc, pos_out, vel_out) -> tuple:
+    """Arguments of the C entry point ``nbody_direct_forces``, stream aside.
+    The source count is len(src_gm): ``src_pos`` may hold more rows (the
+    fused substep passes all of ``pos`` and reads its first S rows)."""
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    return (tgt_pos.data_ptr(), ptr(tgt_vel), tgt_radius.data_ptr(),
+            src_pos.data_ptr(), src_gm.data_ptr(),
+            tgt_pos.shape[0], src_gm.shape[0], float(dt), float(pos_dt),
+            int(precise), int(pos_out is not None),
+            acc.data_ptr(), ptr(pos_out), ptr(vel_out))
+
+
+def _launch(*args) -> None:
+    """Launch the kernel on the current stream of the targets' device with
+    the arguments of :func:`_kernel_args`; raise if the launch failed."""
+    global LAUNCHES
+    from . import _build
+
+    fn = _build.load().nbody_direct_forces
+    with torch.cuda.device(args[0].device):
+        err = fn(*_kernel_args(*args), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"direct_forces kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+
+
+def force_acc_plain(tgt_pos, tgt_radius, src_pos, src_gm, *,
+                    precise: bool = False) -> torch.Tensor:
+    """Plain version of :func:`force_acc`."""
+    return forces.direct_sum_acc(tgt_pos, tgt_radius, src_pos, src_gm,
+                                 precise=precise)
+
+
+def force_acc(
+    tgt_pos: torch.Tensor,     # (T, 2)
+    tgt_radius: torch.Tensor,  # (T,)
+    src_pos: torch.Tensor,     # (S, 2)
+    src_gm: torch.Tensor,      # (S,) G * mass
+    *,
+    precise: bool = False,
+) -> torch.Tensor:
+    """(T, 2) fp32 accelerations of every target from all S sources (the
+    ``pallas_acc`` counterpart). Any T and S, S = 0 included."""
+    device = _device_of(tgt_pos)
+    t, s = tgt_pos.shape[0], src_pos.shape[0]
+    _check("tgt_pos", tgt_pos, (t, 2), device)
+    _check("tgt_radius", tgt_radius, (t,), device)
+    _check("src_pos", src_pos, (s, 2), device)
+    _check("src_gm", src_gm, (s,), device)
+    if device.type == "cpu":
+        return force_acc_plain(tgt_pos, tgt_radius, src_pos, src_gm,
+                               precise=precise)
+    acc = torch.empty((t, 2), dtype=torch.float32, device=device)
+    _launch(tgt_pos, None, tgt_radius, src_pos, src_gm, 0.0, 1.0, precise,
+            acc, None, None)
+    return acc
+
+
+def _pos_dt_times_dt(pos_dt: float, dt: float) -> float:
+    """pos_dt * dt rounded as the kernel (and _finalize) form it: in fp32."""
+    return float(np.float32(pos_dt) * np.float32(dt))
+
+
+def fused_substep_plain(dt, pos, vel, radius, gm, *, precise: bool = False,
+                        pos_dt: float = 1.0):
+    """Plain version of :func:`fused_substep`."""
+    acc = forces.direct_sum_acc(pos, radius, pos[:gm.shape[0]], gm,
+                                precise=precise)
+    nvel = vel + dt * acc
+    npos = pos + _pos_dt_times_dt(pos_dt, dt) * nvel
+    return npos, nvel, acc
+
+
+def fused_substep(
+    dt: float,
+    pos: torch.Tensor,     # (N, 2); sources are pos[:S]
+    vel: torch.Tensor,     # (N, 2)
+    radius: torch.Tensor,  # (N,)
+    gm: torch.Tensor,      # (S,) G * mass of the massive prefix, S <= N
+    *,
+    precise: bool = False,
+    pos_dt: float = 1.0,
+):
+    """One substep, force and integration, in one kernel launch (the
+    ``fused_substep`` counterpart).
+
+    Sources are the first S = len(gm) rows of ``pos``. ``pos_dt=1.0`` is
+    the reference's semi-implicit Euler (v += a*dt; x += v*dt); ``0.5`` is
+    the kick and half-drift of a DKD stage. ``dt`` is a Python float, so
+    the call makes no host sync. Returns new (pos, vel, acc), each (N, 2),
+    in fresh buffers: the inputs are not modified.
+    """
+    device = _device_of(pos)
+    n, s = pos.shape[0], gm.shape[0]
+    if s > n:
+        raise ValueError(f"gm has {s} sources but pos only {n} rows")
+    _check("pos", pos, (n, 2), device)
+    _check("vel", vel, (n, 2), device)
+    _check("radius", radius, (n,), device)
+    _check("gm", gm, (s,), device)
+    if device.type == "cpu":
+        return fused_substep_plain(dt, pos, vel, radius, gm, precise=precise,
+                                   pos_dt=pos_dt)
+    acc = torch.empty((n, 2), dtype=torch.float32, device=device)
+    npos = torch.empty_like(acc)
+    nvel = torch.empty_like(acc)
+    _launch(pos, vel, radius, pos, gm, dt, pos_dt, precise, acc, npos, nvel)
+    return npos, nvel, acc

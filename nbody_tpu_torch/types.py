@@ -1,0 +1,145 @@
+"""Core particle state types and constants, on PyTorch tensors.
+
+Counterpart of ``nbody_tpu/types.py``. State is a structure of arrays of
+float32 tensors with the same field names and layouts as the JAX package:
+``pos``, ``vel`` and ``acc`` are (N, 2); ``mass`` and ``radius`` are (N,).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from .integrators import INTEGRATORS
+
+# Gravitational constant; `g = G * mass / dist^2` (reference include/nbody.h:8).
+G = 10.0
+
+# Default dtype of all physical state (the reference is fp32 throughout).
+DTYPE = torch.float32
+
+# Additive floor folded into the target radius wherever the softened
+# r2 = dist_sq + radius is formed. Absorbed bitwise in fp32 for any real
+# radius (>= 0.5); it turns the 0/0 of a zero-gm source coincident with a
+# radius-0 target into an exact 0 (see nbody_tpu/types.py for the bound).
+SOFTENING_FLOOR = 1e-18
+
+
+@dataclass
+class Particles:
+    """Structure-of-arrays particle state: fp32 tensors on one device."""
+
+    pos: torch.Tensor
+    vel: torch.Tensor
+    acc: torch.Tensor
+    mass: torch.Tensor
+    radius: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.pos.shape[0]
+
+    def __len__(self) -> int:
+        return self.n
+
+    def slice_to(self, n: int) -> "Particles":
+        return Particles(
+            pos=self.pos[:n],
+            vel=self.vel[:n],
+            acc=self.acc[:n],
+            mass=self.mass[:n],
+            radius=self.radius[:n],
+        )
+
+    def to(self, device: torch.device | str) -> "Particles":
+        return Particles(*(x.to(device) for x in astuple_shallow(self)))
+
+
+def astuple_shallow(p: Particles) -> tuple:
+    return (p.pos, p.vel, p.acc, p.mass, p.radius)
+
+
+def make_particles(
+    pos: Any, vel: Any = None, mass: Any = None, radius: Any = None, acc: Any = None
+) -> Particles:
+    """Build Particles from array-likes, filling defaults (vel/acc 0, mass 0,
+    radius 1). Tensors keep their device; numpy input lands on the CPU."""
+    pos = torch.as_tensor(pos, dtype=DTYPE)
+    n = pos.shape[0]
+    if tuple(pos.shape) != (n, 2):
+        raise ValueError(f"pos must have shape (N, 2), got {tuple(pos.shape)}")
+
+    def _arr(x, shape, default):
+        if x is None:
+            return torch.full(shape, default, dtype=DTYPE, device=pos.device)
+        x = torch.as_tensor(x, dtype=DTYPE, device=pos.device)
+        if tuple(x.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got {tuple(x.shape)}")
+        return x
+
+    return Particles(
+        pos=pos,
+        vel=_arr(vel, (n, 2), 0.0),
+        acc=_arr(acc, (n, 2), 0.0),
+        mass=_arr(mass, (n,), 0.0),
+        radius=_arr(radius, (n,), 1.0),
+    )
+
+
+@dataclass(frozen=True)
+class SimConfig:
+    """Simulation configuration: the fields of ``nbody_tpu.types.SimConfig``
+    that the direct-sum path reads, with the same defaults.
+
+    ``precise=True`` uses exact sqrt and divide (the reference shader,
+    particle_cs.glsl:42-48); False uses rsqrt cubed. ``integrator`` is
+    "euler" (the reference's semi-implicit Euler), "leapfrog" or "yoshida4"
+    (see integrators.py).
+    """
+
+    g: float = G
+    precise: bool = False
+    integrator: str = "euler"
+
+    def __post_init__(self):
+        if self.integrator not in INTEGRATORS:
+            raise ValueError(
+                "integrator must be 'euler', 'leapfrog', or 'yoshida4', "
+                f"got {self.integrator!r}"
+            )
+
+
+# Galaxy generation constants, mirroring include/galaxy.h:10-61.
+@dataclass(frozen=True)
+class GalaxyConfig:
+    pi: float = 3.1415927
+    min_spirals: int = 2
+    max_spirals: int = 4
+    gc_min_r: float = 200.0
+    gc_max_r: float = 600.0
+    gc_density: float = 30.0
+    np_min_r: float = 1.5
+    np_max_r: float = 9.5
+    np_density: float = 10.0
+    min_particles_per_galaxy: int = 100
+    min_particle_dist_cr_f: float = 5.0
+    max_particle_dist_cr_f: float = 10.0
+    max_particle_dist_pc_f: float = 300.0
+    min_galaxy_separation: float = 1.4
+    max_galaxy_separation: float = 2.0
+    # Massless tracer parameters (galaxy.c:205-206).
+    tracer_radius: float = 0.5
+
+    def r_to_m(self, r, density) -> Any:
+        """Mass from radius: m = (4*pi*rho/3) * r^3 (galaxy.h:21-24)."""
+        return (4.0 * self.pi * density / 3.0) * r * r * r
+
+    @property
+    def min_gc_mass(self) -> float:
+        return float(self.r_to_m(self.gc_min_r, self.gc_density))
+
+
+DEFAULT_GALAXY_CONFIG = GalaxyConfig()
+DEFAULT_SIM_CONFIG = SimConfig()
