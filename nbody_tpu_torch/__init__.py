@@ -1,10 +1,11 @@
-"""nbody-tpu's PyTorch / CUDA port: 2D direct-sum gravity on an NVIDIA GPU.
+"""nbody-tpu's PyTorch / CUDA port: 2D gravity on an NVIDIA GPU.
 
 The same public names as ``nbody_tpu`` for the ported subset: scene
-generation (numpy), world creation on an explicit device, substeps of exact
-direct-sum gravity through a hand-written CUDA kernel ("cuda" backend) or
-plain PyTorch ("torch" backend), and readback. Imports neither JAX nor
-``nbody_tpu``.
+generation (numpy), world creation (on the GPU unless the caller asks for
+the CPU), substeps of exact direct-sum gravity through a hand-written CUDA
+kernel ("cuda" backend) or plain PyTorch ("torch" backend), the
+particle-mesh ("pm") and P³M ("p3m") solvers, and readback. Imports neither
+JAX nor ``nbody_tpu``.
 """
 
 from .types import (
@@ -19,6 +20,8 @@ from .types import (
 )
 from .forces import direct_sum_acc, pair_acc
 from .galaxy import make_galaxies
+from .ops.p3m_forces import p3m_acc, p3m_cell_overflow
+from .ops.pm_forces import pm_acc, suggest_grid
 from .world import World, create_world, partition_massive_first
 
 __version__ = "0.1.0"
@@ -35,6 +38,10 @@ __all__ = [
     "direct_sum_acc",
     "pair_acc",
     "make_galaxies",
+    "pm_acc",
+    "p3m_acc",
+    "p3m_cell_overflow",
+    "suggest_grid",
     "World",
     "create_world",
     "partition_massive_first",

@@ -35,9 +35,18 @@
 // separate buffers. Updating positions in place while other blocks still
 // read them as sources would be a race.
 //
-// The C entry point launches on the stream it is handed, does not
-// synchronise, allocates nothing, and returns cudaGetLastError() of the
-// launch.
+// Source split (nbody_direct_forces_split): a few targets against many
+// sources (P3M's 64 exact-core rows against S = 524,704) give too few
+// target blocks to fill 132 SMs; one block ran the whole sum alone. The
+// split form gives each of n_split blocks per target block a contiguous
+// range of whole source tiles, writes per-split partial sums to a scratch
+// the wrapper allocates, and a second kernel sums them in split order, so
+// the result is the same on every run. The wrapper picks n_split
+// (ops/direct_forces._split_plan).
+//
+// The C entry points launch on the stream they are handed, do not
+// synchronise, allocate nothing, and return cudaGetLastError() of the
+// launches.
 
 #include <cuda_runtime.h>
 
@@ -46,6 +55,52 @@ namespace {
 constexpr int kBlock = 256;           // threads per block = targets per block
 constexpr int kTile = kBlock;         // sources staged per shared-memory tile
 constexpr float kSofteningFloor = 1e-18f;
+
+// Adds to (ax, ay) the force on the target at p from source tiles
+// [tile_begin, tile_end) of kTile sources each, staged through `tile` by all
+// threads of the block. Each tile sums into fresh registers and then into
+// the total, so a rounding error grows with kTile + n_src / kTile terms, not
+// n_src (the TPU kernel's 128 column partials did the same). Warps with no
+// live target stage sources but skip the arithmetic.
+template <bool kPrecise>
+__device__ __forceinline__ void accumulate_tiles(
+    float2 p, float soft, bool warp_live, const float2* __restrict__ src_pos,
+    const float* __restrict__ src_gm, int n_src, int tile_begin,
+    int tile_end, float4* tile, float& ax, float& ay) {
+  for (int t = tile_begin; t < tile_end; ++t) {
+    const int base = t * kTile;
+    const int j = base + threadIdx.x;
+    if (j < n_src) {
+      const float2 s = src_pos[j];
+      tile[threadIdx.x] = make_float4(s.x, s.y, src_gm[j], 0.f);
+    }
+    __syncthreads();
+    if (warp_live) {
+      // The ragged last tile stops at n_src: no padding source is computed.
+      const int len = min(kTile, n_src - base);
+      float tx = 0.f, ty = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < len; ++k) {
+        const float4 s = tile[k];
+        const float dx = s.x - p.x;
+        const float dy = s.y - p.y;
+        const float r2 = dx * dx + dy * dy + soft;
+        float f;
+        if (kPrecise) {
+          f = s.z / (sqrtf(r2) * r2);
+        } else {
+          const float inv = rsqrtf(r2);
+          f = s.z * (inv * inv * inv);
+        }
+        tx += dx * f;
+        ty += dy * f;
+      }
+      ax += tx;
+      ay += ty;
+    }
+    __syncthreads();
+  }
+}
 
 template <bool kPrecise, bool kIntegrate>
 __global__ void __launch_bounds__(kBlock)
@@ -62,44 +117,15 @@ direct_forces_kernel(const float2* __restrict__ tgt_pos,
 
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const bool live = i < n_tgt;
+  const bool warp_live =
+      static_cast<int>(blockIdx.x * kBlock + (threadIdx.x & ~31u)) < n_tgt;
   // Threads past the last target still help stage sources.
   const float2 p = live ? tgt_pos[i] : make_float2(0.f, 0.f);
   const float soft = live ? tgt_radius[i] + kSofteningFloor : 1.f;
 
   float ax = 0.f, ay = 0.f;
-  for (int base = 0; base < n_src; base += kTile) {
-    const int j = base + threadIdx.x;
-    if (j < n_src) {
-      const float2 s = src_pos[j];
-      tile[threadIdx.x] = make_float4(s.x, s.y, src_gm[j], 0.f);
-    }
-    __syncthreads();
-    // The ragged last tile stops at n_src: no padding source is computed.
-    const int len = min(kTile, n_src - base);
-    // Each tile sums into fresh registers and then into the total, so a
-    // rounding error grows with kTile + n_src / kTile terms, not n_src (the
-    // TPU kernel's 128 column partials did the same).
-    float tx = 0.f, ty = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < len; ++k) {
-      const float4 s = tile[k];
-      const float dx = s.x - p.x;
-      const float dy = s.y - p.y;
-      const float r2 = dx * dx + dy * dy + soft;
-      float f;
-      if (kPrecise) {
-        f = s.z / (sqrtf(r2) * r2);
-      } else {
-        const float inv = rsqrtf(r2);
-        f = s.z * (inv * inv * inv);
-      }
-      tx += dx * f;
-      ty += dy * f;
-    }
-    ax += tx;
-    ay += ty;
-    __syncthreads();
-  }
+  accumulate_tiles<kPrecise>(p, soft, warp_live, src_pos, src_gm, n_src, 0,
+                             (n_src + kTile - 1) / kTile, tile, ax, ay);
 
   if (!live) return;
   acc_out[i] = make_float2(ax, ay);
@@ -111,6 +137,54 @@ direct_forces_kernel(const float2* __restrict__ tgt_pos,
     vel_out[i] = make_float2(nvx, nvy);
     pos_out[i] = make_float2(p.x + pdt * nvx, p.y + pdt * nvy);
   }
+}
+
+// Source-split force: block (x, y) sums the force on its kBlock targets
+// from the y-th of n_split contiguous ranges of whole source tiles into
+// partial[y * n_tgt + i]. Used when the target blocks alone cannot fill the
+// card (a few rows against many sources: P3M's exact-core rows).
+template <bool kPrecise>
+__global__ void __launch_bounds__(kBlock)
+direct_forces_split_kernel(const float2* __restrict__ tgt_pos,
+                           const float* __restrict__ tgt_radius,
+                           const float2* __restrict__ src_pos,
+                           const float* __restrict__ src_gm,
+                           int n_tgt, int n_src, int n_split,
+                           float2* __restrict__ partial) {
+  __shared__ float4 tile[kTile];
+
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  const bool live = i < n_tgt;
+  const bool warp_live =
+      static_cast<int>(blockIdx.x * kBlock + (threadIdx.x & ~31u)) < n_tgt;
+  const float2 p = live ? tgt_pos[i] : make_float2(0.f, 0.f);
+  const float soft = live ? tgt_radius[i] + kSofteningFloor : 1.f;
+
+  const int n_tiles = (n_src + kTile - 1) / kTile;
+  const int per = (n_tiles + n_split - 1) / n_split;
+  const int begin = min(static_cast<int>(blockIdx.y) * per, n_tiles);
+  const int end = min(begin + per, n_tiles);
+  float ax = 0.f, ay = 0.f;
+  accumulate_tiles<kPrecise>(p, soft, warp_live, src_pos, src_gm, n_src,
+                             begin, end, tile, ax, ay);
+  if (live) partial[static_cast<size_t>(blockIdx.y) * n_tgt + i] =
+      make_float2(ax, ay);
+}
+
+// acc[i] = sum over splits, in split order, of partial[k * n_tgt + i]: the
+// same order on every run (no atomics).
+__global__ void __launch_bounds__(kBlock)
+sum_splits_kernel(const float2* __restrict__ partial, int n_tgt, int n_split,
+                  float2* __restrict__ acc_out) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n_tgt) return;
+  float ax = 0.f, ay = 0.f;
+  for (int k = 0; k < n_split; ++k) {
+    const float2 a = partial[static_cast<size_t>(k) * n_tgt + i];
+    ax += a.x;
+    ay += a.y;
+  }
+  acc_out[i] = make_float2(ax, ay);
 }
 
 template <bool kPrecise, bool kIntegrate>
@@ -162,4 +236,49 @@ extern "C" int nbody_direct_forces(const void* tgt_pos, const void* tgt_vel,
       launch<false, false>(tp, tv, tr, sp, sg, n_tgt, n_src, dt, pos_dt, ao, po, vo, st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Force on n_tgt targets from the first n_src sources, with the sources cut
+// into n_split contiguous ranges of whole tiles summed by separate blocks
+// into `partial` (n_split, n_tgt, 2) fp32 scratch, then summed in split
+// order into acc_out (n_tgt, 2). Two launches on `stream`; returns the
+// cudaError_t of the launches (0 on success).
+extern "C" int nbody_direct_forces_split(const void* tgt_pos,
+                                         const void* tgt_radius,
+                                         const void* src_pos,
+                                         const void* src_gm, int n_tgt,
+                                         int n_src, int n_split, int precise,
+                                         void* partial, void* acc_out,
+                                         void* stream) {
+  if (n_tgt <= 0) return static_cast<int>(cudaSuccess);
+  if (n_split < 1 || n_split > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* tp = static_cast<const float2*>(tgt_pos);
+  const auto* tr = static_cast<const float*>(tgt_radius);
+  const auto* sp = static_cast<const float2*>(src_pos);
+  const auto* sg = static_cast<const float*>(src_gm);
+  auto* part = static_cast<float2*>(partial);
+  auto st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n_tgt + kBlock - 1) / kBlock, n_split);
+  if (precise)
+    direct_forces_split_kernel<true><<<grid, kBlock, 0, st>>>(
+        tp, tr, sp, sg, n_tgt, n_src, n_split, part);
+  else
+    direct_forces_split_kernel<false><<<grid, kBlock, 0, st>>>(
+        tp, tr, sp, sg, n_tgt, n_src, n_split, part);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_splits_kernel<<<grid.x, kBlock, 0, st>>>(
+      part, n_tgt, n_split, static_cast<float2*>(acc_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The number of SMs of the current device into *out; returns the
+// cudaError_t of the query.
+extern "C" int nbody_sm_count(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev));
 }

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``nbody_tpu_torch/csrc/*.cu`` have a plain C interface. At
-first use they are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library, ``build/kernels/libnbody_kernels-<sha>.so`` under the repository
-root, where ``<sha>`` hashes the sources and the flags; the library is then
-loaded with ctypes. A library already built from the same sources and flags
-is loaded as it is. No PyTorch header is compiled, so a build takes seconds.
+Each source ``nbody_tpu_torch/csrc/<name>.cu`` has a plain C interface. At
+first use it is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library, ``build/kernels/lib<name>-<sha>.so`` under the repository root,
+where ``<sha>`` hashes the source and the flags; the library is then loaded
+with ctypes. A library already built from the same source and flags is
+loaded as it is. No PyTorch header is compiled, so a build takes seconds,
+and :func:`build_all` runs one ``nvcc`` per source, all at once.
 
 ``nvcc`` is looked up in ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``,
 then on ``PATH``; if none has it, loading raises.
@@ -26,9 +27,36 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
-# No --use_fast_math: the precise path relies on IEEE sqrtf and division.
+# No --use_fast_math: the precise paths rely on IEEE sqrtf and division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of each library's entry points: every pointer and the stream
+# as c_void_p, so that ctypes does not cut them to 32 bits.
+SIGNATURES = {
+    "direct_forces": {
+        "nbody_direct_forces": [
+            _vp, _vp, _vp, _vp, _vp,   # tgt pos/vel/radius, src pos/gm
+            _i32, _i32, _f32, _f32,    # n_tgt, n_src, dt, pos_dt
+            _i32, _i32,                # precise, integrate
+            _vp, _vp, _vp, _vp],       # acc/pos/vel out, stream
+        "nbody_direct_forces_split": [
+            _vp, _vp, _vp, _vp,        # tgt pos/radius, src pos/gm
+            _i32, _i32, _i32, _i32,    # n_tgt, n_src, n_split, precise
+            _vp, _vp, _vp],            # partial scratch, acc out, stream
+        "nbody_sm_count": [_vp],       # int* out
+    },
+    "p3m_pp": {
+        "nbody_p3m_pp": [
+            _vp, _vp, _vp,             # tx, ty, tr (gc, gc, cap_t)
+            _vp, _vp, _vp,             # sx, sy, sg (gc, gc, cap_s)
+            _vp, _vp,                  # counts_t, counts_s (gc*gc,) int32 or NULL
+            _i32, _i32, _i32,          # gc, cap_t, cap_s
+            _vp,                       # (rc, eps2, 1/rc) fp32 on the device
+            _i32, _vp, _vp],           # precise, out (gc*gc, cap_t, 2), stream
+    },
+}
 
 
 def find_nvcc() -> str:
@@ -45,56 +73,62 @@ def find_nvcc() -> str:
         "the CUDA kernels cannot be built")
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def source(name: str) -> Path:
+    return CSRC / f"{name}.cu"
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(name: str) -> Path:
+    """Where the library for the current source and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libnbody_kernels-{h.hexdigest()[:16]}.so"
+    h.update(source(name).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, float]:
-    """Compile the sources unless the library exists. Returns (path, seconds
-    spent compiling). nvcc's output (``-Xptxas -v``: registers, shared memory
-    and spills per kernel) is kept next to the library as ``.log``."""
-    out = library_path()
-    if out.exists():
-        return out, 0.0
+def build_all(names=None) -> dict[str, tuple[Path, float]]:
+    """Compile every named source (all of ``SIGNATURES`` by default) whose
+    library does not exist, one nvcc process per source, all started at
+    once. Returns {name: (path, seconds that source's nvcc took)}; a library
+    found built reports 0 s. nvcc's output (``-Xptxas -v``: registers,
+    shared memory and spills per kernel) is kept next to each library as
+    ``.log``. Raises if any build fails."""
+    names = list(SIGNATURES if names is None else names)
+    out = {n: (library_path(n), 0.0) for n in names}
+    todo = [n for n in names if not out[n][0].exists()]
+    if not todo:
+        return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    out.with_suffix(".log").write_text(log)
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    return out, seconds
-
-
-_vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# nbody_direct_forces: every pointer and the stream as c_void_p, so that
-# ctypes does not cut them to 32 bits.
-ARGTYPES = [_vp, _vp, _vp, _vp, _vp,   # tgt pos/vel/radius, src pos/gm
-            _i32, _i32, _f32, _f32,    # n_tgt, n_src, dt, pos_dt
-            _i32, _i32,                # precise, integrate
-            _vp, _vp, _vp, _vp]        # acc/pos/vel out, stream
+    procs = {}
+    for n in todo:
+        tmp = out[n][0].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(n))]
+        procs[n] = (cmd, tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (cmd, tmp, t0, proc) in procs.items():
+        text, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        log = f"$ {' '.join(cmd)}\n{text}"
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {n} ({proc.returncode}):\n{log}")
+            continue
+        path = out[n][0]
+        path.with_suffix(".log").write_text(log)
+        os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
+        out[n] = (path, seconds)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """Build if needed, load the library, and declare its C signatures."""
-    path, _ = build()
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed, load it, and declare its C
+    signatures."""
+    path, _ = build_all([name])[name]
     lib = ctypes.CDLL(str(path))
-    lib.nbody_direct_forces.argtypes = ARGTYPES
-    lib.nbody_direct_forces.restype = _i32
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _i32
     return lib

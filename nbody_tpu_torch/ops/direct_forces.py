@@ -8,6 +8,10 @@ and ``_stream_kernel`` with streamed ones): it stages sources through shared
 memory tile by tile, masks its own ragged edges, and reads sources straight
 from ``pos[:S]`` and ``gm``.
 
+``force_acc`` splits the source sum over several blocks when its targets
+alone cannot fill the card (:func:`_split_plan`); ``fused_substep`` always
+makes one launch, since the main path's N fills the card by itself.
+
 Dispatch is by the device of the tensors: CPU tensors take the plain
 version; CUDA tensors launch the kernel, and anything wrong there raises.
 Nothing falls back from the kernel to the plain version.
@@ -15,10 +19,17 @@ Nothing falls back from the kernel to the plain version.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from .. import forces
+
+# The kernel's threads per block (= targets per block) and sources per
+# shared-memory tile (csrc/direct_forces.cu kBlock, kTile).
+BLOCK = 256
+TILE = 256
 
 # Kernel launches made by the wrappers in this process (plain-version calls
 # are not counted). A run resets it to 0 and reads it back to show which
@@ -64,18 +75,53 @@ def _kernel_args(tgt_pos, tgt_vel, tgt_radius, src_pos, src_gm, dt, pos_dt,
             acc.data_ptr(), ptr(pos_out), ptr(vel_out))
 
 
+def _lib():
+    from . import _build
+
+    return _build.load("direct_forces")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
 def _launch(*args) -> None:
     """Launch the kernel on the current stream of the targets' device with
     the arguments of :func:`_kernel_args`; raise if the launch failed."""
     global LAUNCHES
-    from . import _build
-
-    fn = _build.load().nbody_direct_forces
     with torch.cuda.device(args[0].device):
-        err = fn(*_kernel_args(*args), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"direct_forces kernel launch failed: cudaError {err}")
+        err = _lib().nbody_direct_forces(
+            *_kernel_args(*args), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "direct_forces")
     LAUNCHES += 1
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``
+    (cudaDeviceGetAttribute, read once per device)."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _raise_on(_lib().nbody_sm_count(ctypes.addressof(out)), "sm count")
+    return out.value
+
+
+def _split_plan(t: int, s: int, sms: int) -> int:
+    """Number of source ranges ``force_acc`` cuts its sum into for T targets,
+    S sources on a card of ``sms`` SMs: 1 (one launch, one block per 256
+    targets) when the target blocks fill two blocks per SM; else enough
+    ranges of whole 256-source tiles for about two blocks per SM, with no
+    range left empty."""
+    blocks = -(-t // BLOCK)
+    tiles = -(-s // TILE)
+    if t == 0 or tiles <= 1 or blocks >= 2 * sms:
+        return 1
+    n = min(-(-2 * sms // blocks), tiles)
+    per = -(-tiles // n)
+    return -(-tiles // per)
 
 
 def force_acc_plain(tgt_pos, tgt_radius, src_pos, src_gm, *,
@@ -94,7 +140,9 @@ def force_acc(
     precise: bool = False,
 ) -> torch.Tensor:
     """(T, 2) fp32 accelerations of every target from all S sources (the
-    ``pallas_acc`` counterpart). Any T and S, S = 0 included."""
+    ``pallas_acc`` counterpart). Any T and S, S = 0 included. On the card,
+    few targets against many sources take the source-split launch
+    (:func:`_split_plan`); either way it counts as one launch."""
     device = _device_of(tgt_pos)
     t, s = tgt_pos.shape[0], src_pos.shape[0]
     _check("tgt_pos", tgt_pos, (t, 2), device)
@@ -105,8 +153,23 @@ def force_acc(
         return force_acc_plain(tgt_pos, tgt_radius, src_pos, src_gm,
                                precise=precise)
     acc = torch.empty((t, 2), dtype=torch.float32, device=device)
-    _launch(tgt_pos, None, tgt_radius, src_pos, src_gm, 0.0, 1.0, precise,
-            acc, None, None)
+    n_split = _split_plan(t, s, sm_count(device.index
+                                         if device.index is not None
+                                         else torch.cuda.current_device()))
+    if n_split == 1:
+        _launch(tgt_pos, None, tgt_radius, src_pos, src_gm, 0.0, 1.0,
+                precise, acc, None, None)
+        return acc
+    global LAUNCHES
+    partial = torch.empty((n_split, t, 2), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = _lib().nbody_direct_forces_split(
+            tgt_pos.data_ptr(), tgt_radius.data_ptr(), src_pos.data_ptr(),
+            src_gm.data_ptr(), t, s, n_split, int(precise),
+            partial.data_ptr(), acc.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "direct_forces (source split)")
+    LAUNCHES += 1
     return acc
 
 

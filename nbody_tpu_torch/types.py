@@ -91,17 +91,40 @@ def make_particles(
 @dataclass(frozen=True)
 class SimConfig:
     """Simulation configuration: the fields of ``nbody_tpu.types.SimConfig``
-    that the direct-sum path reads, with the same defaults.
+    that the port's direct-sum, pm and p3m paths read, with the same
+    defaults and the same ``ValueError``s.
 
     ``precise=True`` uses exact sqrt and divide (the reference shader,
     particle_cs.glsl:42-48); False uses rsqrt cubed. ``integrator`` is
     "euler" (the reference's semi-implicit Euler), "leapfrog" or "yoshida4"
     (see integrators.py).
+
+    Mesh backends (``ops/pm_forces.py``, ``ops/p3m_forces.py``):
+    ``pm_grid`` is the mesh resolution and ``pm_softening`` the global
+    Plummer length of the mesh kernel. P³M tapers the mesh kernel at
+    rc = ``p3m_rc_cells`` grid cells, corrects pairs closer than rc from
+    cells holding up to ``p3m_cell_capacity`` heaviest sources (and as many
+    targets), and gives the ``p3m_exact_targets`` largest-radius targets a
+    direct-sum row. ``p3m_rebin_interval`` rebuilds the cell sorts every
+    that many substeps (1 = every substep).
+
+    ``p3m_pp_chunk`` and ``p3m_pp_compact`` are accepted, validated as in
+    ``nbody_tpu``, and change nothing: there they pick bit-identical
+    schedules of a sequential TPU map (chunk skipping, active-cell
+    compaction); here the pair-correction kernel skips empty cells itself.
     """
 
     g: float = G
     precise: bool = False
     integrator: str = "euler"
+    pm_grid: int = 512
+    pm_softening: float = 2.0
+    p3m_rc_cells: int = 4
+    p3m_cell_capacity: int = 96
+    p3m_exact_targets: int = 64
+    p3m_rebin_interval: int = 1
+    p3m_pp_chunk: int = 64
+    p3m_pp_compact: int = 0
 
     def __post_init__(self):
         if self.integrator not in INTEGRATORS:
@@ -109,6 +132,41 @@ class SimConfig:
                 "integrator must be 'euler', 'leapfrog', or 'yoshida4', "
                 f"got {self.integrator!r}"
             )
+        if self.pm_grid < 64:
+            raise ValueError(f"pm_grid must be >= 64, got {self.pm_grid}")
+        if self.pm_softening <= 0:
+            raise ValueError(
+                f"pm_softening must be > 0, got {self.pm_softening}")
+        if self.p3m_rc_cells < 2:
+            raise ValueError(
+                f"p3m_rc_cells must be >= 2, got {self.p3m_rc_cells}")
+        if self.p3m_cell_capacity < 8:
+            raise ValueError(
+                f"p3m_cell_capacity must be >= 8, got {self.p3m_cell_capacity}")
+        if self.p3m_exact_targets < 0:
+            raise ValueError(
+                f"p3m_exact_targets must be >= 0, got {self.p3m_exact_targets}")
+        if self.p3m_rebin_interval < 1:
+            raise ValueError(
+                f"p3m_rebin_interval must be >= 1, got "
+                f"{self.p3m_rebin_interval}")
+        if self.p3m_pp_chunk < 0:
+            raise ValueError(
+                f"p3m_pp_chunk must be >= 0 (0 = off), got "
+                f"{self.p3m_pp_chunk}")
+        if self.p3m_pp_compact < 0:
+            raise ValueError(
+                f"p3m_pp_compact must be >= 0 (0 = off), got "
+                f"{self.p3m_pp_compact}")
+        if self.p3m_pp_compact:
+            if not self.p3m_pp_chunk:
+                raise ValueError(
+                    "p3m_pp_compact requires p3m_pp_chunk > 0 (the "
+                    "compacted panel is iterated in pp_chunk-cell pieces)")
+            if self.p3m_pp_compact % self.p3m_pp_chunk:
+                raise ValueError(
+                    f"p3m_pp_compact ({self.p3m_pp_compact}) must be a "
+                    f"multiple of p3m_pp_chunk ({self.p3m_pp_chunk})")
 
 
 # Galaxy generation constants, mirroring include/galaxy.h:10-61.

@@ -1,16 +1,22 @@
 """World: particle state on one device, the backend switch and the substep
-loop. Counterpart of ``nbody_tpu/world.py`` for the direct-sum path.
+loop. Counterpart of ``nbody_tpu/world.py`` for the direct-sum, pm and p3m
+paths.
 
   * Creation partitions particles massive-first with a stable sort
     (world.c:33-46; the same order as ``nbody_tpu``), moves them to the
-    device named by the caller, and forms ``gm = g * mass[:mass_len]``.
+    device ("cuda" unless the caller names another), and forms
+    ``gm = g * mass[:mass_len]``.
     State has exactly N rows: the CUDA kernel masks its own ragged edges,
     so no target or source padding is needed.
   * ``update(dt, n)`` is a Python loop of n substeps. On the "cuda" backend
     each substep (each DKD stage for leapfrog/yoshida4) is one launch of
     the fused force-and-integrate kernel; "torch" is the plain PyTorch
-    version. The loop never syncs with the host: ``dt`` stays a Python
-    float, and only ``particles`` and ``block_until_ready`` wait.
+    version. "pm" and "p3m" are the mesh solvers (``ops/pm_forces.py``,
+    ``ops/p3m_forces.py``) with the integrator's stage loop around them;
+    p3m's pair correction and exact-core rows run through the CUDA kernels
+    on a CUDA world and their plain versions on a CPU one. The loop never
+    syncs with the host: ``dt`` stays a Python float, and only
+    ``particles`` and ``block_until_ready`` wait.
   * Jacobi substeps: every launch reads (pos, vel) and writes new buffers,
     and the World swaps them in, as the reference double-buffers its
     storage (sim_gpu.c:19). PyTorch's caching allocator hands the freed
@@ -23,14 +29,17 @@ from typing import Literal
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import forces, integrators
 from .ops.direct_forces import fused_substep
+from .ops.p3m_forces import exact_core_rows, p3m_acc_from_bins, p3m_bins
+from .ops.pm_forces import pm_acc
 from .types import (DEFAULT_SIM_CONFIG, DTYPE, Particles, SimConfig,
                     astuple_shallow)
 
-Backend = Literal["torch", "cuda"]
-BACKENDS = ("torch", "cuda")
+Backend = Literal["torch", "cuda", "pm", "p3m"]
+BACKENDS = ("torch", "cuda", "pm", "p3m")
 
 
 def partition_massive_first(mass) -> tuple[torch.Tensor, int]:
@@ -57,7 +66,7 @@ class World:
     (nbody.h:61-73): create, update, read back."""
 
     def __init__(self, particles: Particles, *, config: SimConfig = DEFAULT_SIM_CONFIG,
-                 device: torch.device | str):
+                 device: torch.device | str = "cuda"):
         self.device = _resolve_device(device)
         order, mass_len = partition_massive_first(particles.mass)
 
@@ -70,6 +79,13 @@ class World:
             acc=put(particles.acc), mass=put(particles.mass),
             radius=put(particles.radius))
         self.gm = (config.g * self.state.mass[:mass_len]).contiguous()
+        # The mesh solvers take max(mass_len, 1) sources (a world with no
+        # mass gets one inert gm = 0 source), as nbody_tpu's
+        # effective_src_len does.
+        self._mesh_gm = (self.gm if mass_len else
+                         torch.zeros(1, dtype=DTYPE, device=self.device))
+        self._softening = torch.tensor(config.pm_softening, dtype=DTYPE,
+                                       device=self.device)
         self.total_len = self.state.n
         self.mass_len = mass_len
         self.config = config
@@ -80,7 +96,9 @@ class World:
     # -- update ---------------------------------------------------------
     def update(self, dt: float, n: int = 1, backend: Backend | None = None) -> "World":
         """n substeps of size dt on ``backend`` (default: "cuda" on a CUDA
-        device, "torch" on the CPU)."""
+        device, "torch" on the CPU). "p3m" builds its cell bins at the first
+        substep of the call and again at every substep index that is a
+        multiple of ``p3m_rebin_interval``, as ``nbody_tpu`` does."""
         backend = backend or self.default_backend
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -90,11 +108,59 @@ class World:
                 f"on {self.device}")
         if n <= 0:
             return self
-        step = self._step_cuda if backend == "cuda" else self._step_torch
-        for _ in range(n):
-            step(float(dt))
+        dt = float(dt)
+        if backend == "p3m":
+            self._update_p3m(dt, n)
+        else:
+            step = {"cuda": self._step_cuda, "torch": self._step_torch,
+                    "pm": self._step_pm}[backend]
+            for _ in range(n):
+                step(dt)
         self._host_cache = None
         return self
+
+    def _advance(self, force_at, dt: float) -> None:
+        st = self.state
+        pos, vel, acc = integrators.advance(
+            self.config.integrator, force_at, st.pos, st.vel, dt)
+        self.state = Particles(pos=pos, vel=vel, acc=acc, mass=st.mass,
+                               radius=st.radius)
+
+    def _step_pm(self, dt: float) -> None:
+        s = self._mesh_gm.shape[0]
+
+        def force_at(p):
+            return pm_acc(p, p[:s], self._mesh_gm, self._softening,
+                          grid=self.config.pm_grid)
+
+        self._advance(force_at, dt)
+
+    def _update_p3m(self, dt: float, n: int) -> None:
+        cfg = self.config
+        radius = self.state.radius
+        s = self._mesh_gm.shape[0]
+        # radius is constant: the exact-core rows are chosen once per call
+        big = exact_core_rows(radius, cfg.p3m_exact_targets)
+
+        def bins_of(pos):
+            with record_function("p3m.bins"):
+                return p3m_bins(pos, radius, pos[:s], self._mesh_gm,
+                                grid=cfg.pm_grid, rc_cells=cfg.p3m_rc_cells,
+                                exact_targets=cfg.p3m_exact_targets, big=big)
+
+        bins = bins_of(self.state.pos)
+        for i in range(n):
+            if i > 0 and i % cfg.p3m_rebin_interval == 0:
+                bins = bins_of(self.state.pos)
+
+            # every stage of a substep shares the substep's bins
+            def force_at(p, bins=bins):
+                return p3m_acc_from_bins(
+                    bins, p, radius, p[:s], self._mesh_gm, self._softening,
+                    grid=cfg.pm_grid, rc_cells=cfg.p3m_rc_cells,
+                    cell_capacity=cfg.p3m_cell_capacity, precise=cfg.precise)
+
+            self._advance(force_at, dt)
 
     def _step_cuda(self, dt: float) -> None:
         st = self.state
@@ -112,16 +178,13 @@ class World:
                                radius=st.radius)
 
     def _step_torch(self, dt: float) -> None:
-        st = self.state
+        radius = self.state.radius
 
         def force_at(p):
-            return forces.direct_sum_acc(p, st.radius, p[:self.mass_len],
+            return forces.direct_sum_acc(p, radius, p[:self.mass_len],
                                          self.gm, precise=self.config.precise)
 
-        pos, vel, acc = integrators.advance(
-            self.config.integrator, force_at, st.pos, st.vel, dt)
-        self.state = Particles(pos=pos, vel=vel, acc=acc, mass=st.mass,
-                               radius=st.radius)
+        self._advance(force_at, dt)
 
     # Reference API names (nbody.h:69-73): "CPU" = the plain PyTorch
     # version, "GPU" = the CUDA kernel.
@@ -151,6 +214,7 @@ class World:
 
 
 def create_world(particles: Particles, *, config: SimConfig = DEFAULT_SIM_CONFIG,
-                 device: torch.device | str) -> World:
-    """CreateWorld (nbody.h:61) on ``device`` ("cpu" or "cuda[:k]")."""
+                 device: torch.device | str = "cuda") -> World:
+    """CreateWorld (nbody.h:61) on ``device`` ("cuda[:k]", the default, or
+    "cpu"). Without a GPU, "cuda" raises."""
     return World(particles, config=config, device=device)

@@ -157,7 +157,8 @@ def test_kernel_args_take_the_source_count_from_gm():
     pos, vel, radius, gm = _t(*_inputs())
     out = [torch.empty((T, 2)) for _ in range(3)]
     args = df._kernel_args(pos, vel, radius, pos, gm, 0.01, 0.5, True, *out)
-    assert len(args) == len(_build.ARGTYPES) - 1   # the stream comes last
+    argtypes = _build.SIGNATURES["direct_forces"]["nbody_direct_forces"]
+    assert len(args) == len(argtypes) - 1   # the stream comes last
     assert args[5:11] == (T, S, 0.01, 0.5, 1, 1)
     assert args[3] == pos.data_ptr() and args[4] == gm.data_ptr()
     args = df._kernel_args(pos, None, radius, pos[:S], gm, 0.0, 1.0, False,
@@ -175,8 +176,11 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_library_name_follows_the_sources():
-    path = _build.library_path()
+    """One library per source, and every source has declared signatures."""
+    path = _build.library_path("direct_forces")
     assert path.parent == _build.BUILD_DIR
-    assert path.name.startswith("libnbody_kernels-") and path.suffix == ".so"
-    assert "direct_forces.cu" in [p.name for p in _build.sources()]
+    assert path.name.startswith("libdirect_forces-") and path.suffix == ".so"
+    assert _build.source("direct_forces").name == "direct_forces.cu"
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert names == sorted(_build.SIGNATURES)
 

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor nbody_tpu, so it runs on a machine that has only
@@ -22,6 +22,7 @@ from torch_helpers import cuda, random_arrays, rel_err  # noqa: F401 (fixture)
 
 import nbody_tpu_torch as nt
 from nbody_tpu_torch.ops import direct_forces as df
+from nbody_tpu_torch.ops import p3m_forces, p3m_pp
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +111,116 @@ def test_world_cuda_matches_torch_backend(cuda, integrator, per_substep):
     for name in ("pos", "vel", "acc"):
         got, want = getattr(w_k.particles, name), getattr(w_p.particles, name)
         assert rel_err(got, want) < TOL, name
+
+
+# --- the source-split force_acc ---
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("t,n_src", [(64, 140_000), (1000, 333)])
+def test_force_acc_source_split_matches_plain(cuda, precise, t, n_src):
+    """Few targets: the launch splits the source sum (_split_plan > 1)."""
+    assert df._split_plan(t, n_src, df.sm_count(cuda.index or 0)) > 1
+    pos, _, radius, gm = _inputs(cuda, max(t, n_src), n_src, seed=5)
+    tp, tr = pos[:t].contiguous(), radius[:t].contiguous()
+    before = df.LAUNCHES
+    got = df.force_acc(tp, tr, pos[:n_src], gm, precise=precise)
+    assert df.LAUNCHES == before + 1
+    want = df.force_acc_plain(tp, tr, pos[:n_src], gm, precise=precise)
+    assert rel_err(got.cpu(), want.cpu()) < (1e-4 if n_src > 100_000 else TOL)
+    # the split sums in a fixed order: the same bits on every run
+    again = df.force_acc(tp, tr, pos[:n_src], gm, precise=precise)
+    assert torch.equal(got, again)
+
+
+# --- K4: the P3M pair correction ---
+
+def _random_blocks(device, gc=8, cap=32, seed=0):
+    """Random cells: slot positions inside their own cell of a unit grid,
+    radii 0.5-9.5 and gm 10-1e4 in a random number of live slots."""
+    rng = np.random.default_rng(seed)
+    counts_t = rng.integers(0, cap + 1, gc * gc).astype(np.int32)
+    counts_s = rng.integers(0, cap + 1, gc * gc).astype(np.int32)
+    ij = np.stack(np.meshgrid(np.arange(gc), np.arange(gc), indexing="ij"), -1)
+    cell = 4.0
+
+    def slots(counts):
+        xy = (ij[:, :, None, :] + rng.uniform(size=(gc, gc, cap, 2))) * cell
+        live = np.arange(cap)[None, :] < counts[:, None]
+        return xy.astype(np.float32), live.reshape(gc, gc, cap)
+
+    txy, _ = slots(counts_t)
+    sxy, live_s = slots(counts_s)
+    tr = rng.uniform(0.5, 9.5, (gc, gc, cap)).astype(np.float32)
+    sg = np.where(live_s, rng.uniform(10, 1e4, (gc, gc, cap)), 0).astype(np.float32)
+    arrays = (txy[..., 0], txy[..., 1], tr, sxy[..., 0], sxy[..., 1], sg)
+    blocks = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+    counts = [torch.from_numpy(c).to(device) for c in (counts_t, counts_s)]
+    return blocks, cell, counts
+
+
+def _galaxy_blocks(device, n=20_000, grid=512, cap=96):
+    """The blocks a p3m world packs for a two-galaxy scene."""
+    w = nt.create_world(nt.make_galaxies(n, 2, seed=11037), device=device)
+    pos, rad, gm = w.state.pos, w.state.radius, w.gm
+    bins = p3m_forces.p3m_bins(pos, rad, pos[:w.mass_len], gm, grid=grid,
+                               rc_cells=4, exact_targets=0)
+    gc = grid // 4
+    src = p3m_forces._pack_source_blocks(pos[:w.mass_len], gm,
+                                         bins["order_s"], bins["counts_s"],
+                                         gc, cap)
+    trow = torch.cat([pos, rad[:, None]], -1)[bins["order_t"]]
+    tgt = p3m_forces._gather_blocks(
+        [(trow[:, 0], 0.0), (trow[:, 1], 0.0), (trow[:, 2], 1.0)],
+        bins["counts_t"], gc, cap)
+    return [*tgt, *src], float(4 * bins["h"]), [bins["counts_t"], bins["counts_s"]]
+
+
+@pytest.mark.parametrize("counts", [False, True])
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("scene", ["random", "galaxies"])
+def test_pp_blocks_matches_plain(cuda, scene, precise, counts):
+    """K4 against its plain version on the same blocks: fp32 sums of at
+    most 9·cap terms in another order, FMA contraction and the hardware
+    rsqrt; a pair on the rc boundary may flip (see test_torch_p3m.py).
+    Bound 1e-5 of max|ref|."""
+    if scene == "random":
+        blocks, rc, cnt = _random_blocks(cuda)
+    else:
+        blocks, rc, cnt = _galaxy_blocks(cuda)
+    kw = dict(counts_t=cnt[0], counts_s=cnt[1]) if counts else {}
+    before = p3m_pp.LAUNCHES
+    got = p3m_pp.pp_blocks(*blocks, rc, 4.0, precise=precise, **kw)
+    assert p3m_pp.LAUNCHES == before + 1
+    want = p3m_pp.pp_blocks_plain(*blocks, rc, 4.0, precise=precise, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+def test_pp_blocks_zero_counts_write_zeros(cuda):
+    blocks, rc, cnt = _random_blocks(cuda)
+    zero = torch.zeros_like(cnt[0])
+    got = p3m_pp.pp_blocks(*blocks, rc, 4.0, counts_t=zero)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+def test_world_p3m_on_the_card(cuda, integrator):
+    """The p3m world on the card (K4 and the split force_acc) against the
+    same scene's plain path on the CPU, 5 substeps. The card's CIC scatter
+    sums by atomics in a varying order and its FFT is cuFFT, so the mesh
+    force differs from the CPU's at fp32 noise. Bounds: pos 1e-6, vel and
+    acc 2e-5 of max, the CPU-vs-JAX tolerances of test_torch_p3m.py."""
+    cfg = nt.SimConfig(pm_grid=256, p3m_cell_capacity=32,
+                       integrator=integrator)
+    scene = nt.make_galaxies(4000, 2, seed=11037)
+    w_k = nt.create_world(scene, config=cfg, device=cuda)
+    w_p = nt.create_world(scene, config=cfg, device="cpu")
+    df.LAUNCHES = p3m_pp.LAUNCHES = 0
+    w_k.update(0.01, 5, backend="p3m")
+    assert (df.LAUNCHES, p3m_pp.LAUNCHES) == (5, 5)
+    w_p.update(0.01, 5, backend="p3m")
+    for name, tol in (("pos", 1e-6), ("vel", 2e-5), ("acc", 2e-5)):
+        got, want = getattr(w_k.particles, name), getattr(w_p.particles, name)
+        assert torch.isfinite(got).all()
+        assert rel_err(got, want) < tol, name

@@ -33,9 +33,26 @@ def test_constants_match():
     assert nt.DTYPE == torch.float32
 
 
-@pytest.mark.parametrize("field", ["g", "precise", "integrator"])
+@pytest.mark.parametrize("field", [
+    "g", "precise", "integrator", "pm_grid", "pm_softening", "p3m_rc_cells",
+    "p3m_cell_capacity", "p3m_exact_targets", "p3m_rebin_interval",
+    "p3m_pp_chunk", "p3m_pp_compact"])
 def test_sim_config_defaults_match(field):
     assert getattr(nt.SimConfig(), field) == getattr(nb.SimConfig(), field)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(pm_grid=32), dict(pm_softening=0.0), dict(p3m_rc_cells=1),
+    dict(p3m_cell_capacity=4), dict(p3m_exact_targets=-1),
+    dict(p3m_rebin_interval=0), dict(p3m_pp_chunk=-1),
+    dict(p3m_pp_compact=-1), dict(p3m_pp_chunk=0, p3m_pp_compact=512),
+    dict(p3m_pp_chunk=64, p3m_pp_compact=96)])
+def test_sim_config_same_errors(kw):
+    with pytest.raises(ValueError) as want:
+        nb.SimConfig(**kw)
+    with pytest.raises(ValueError) as got:
+        nt.SimConfig(**kw)
+    assert str(got.value) == str(want.value)
 
 
 def test_galaxy_config_matches():
