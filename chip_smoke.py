@@ -33,7 +33,24 @@ Phases, each of which raises on failure:
   9. p3m accuracy against the direct kernel: the JAX package's envelope
      scene (N=2048, grid 256) and the N=1M slice config at its initial
      state, each bound fatal; then the sources and targets that full cells
-     drop at the candidate p3m configs (no bound).
+     drop at the candidate p3m configs (no bound);
+ 10. the ring hop kernel (K3) against its plain version: N=1000 targets, a
+     slot of 400 rows with 333 real sources and with none, rsqrt and
+     precise, a middle hop and a last hop with pos_dt 1 and 0.5;
+ 11. the race check: ShardedWorld with force_backend "cuda_ring" and
+     "cuda", each with D = 2, 3, 4 and 8 shards on one card at N=65536 for
+     5 substeps, bit-equal to the same run with the card synchronised after
+     every hop and copy; against the single-device World: D=1 bit-equal
+     after 10 substeps, D=4 after 10 substeps on eight seeds and on one
+     evaluation of the same state; golden parity of the bit-exact IC
+     through "cuda_ring" at D=4;
+ 12. the sharded main path at full width on one card: N=65536 with D=1 and
+     D=4, and N=1M with D=4: ShardedWorld -> update(1.0, 2) -> timed update
+     with no host sync and exactly D² hop launches per substep ->
+     particles (finite), for "cuda_ring" and "cuda"; each backend's kernel
+     against its plain version at the path's shapes; a profiler window
+     that sums the hop kernel's device time; the "torch" backend timed
+     beside them.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -58,6 +75,30 @@ BIG_N = 1 << 20
 SUBSET = 4096                   # targets the plain version computes at N=1M
 KERNEL_SRC = "nbody_tpu_torch/csrc/direct_forces.cu"
 PP_SRC = "nbody_tpu_torch/csrc/p3m_pp.cu"
+RING_SRC = "nbody_tpu_torch/csrc/ring_forces.cu"
+# Sharded runs: the race check's shard counts, the main path's (N, D) and
+# its timed substeps per backend ("torch" is the plain version).
+RACE_SHARDS = (2, 3, 4, 8)
+SHARDED = ((BENCH_N, 1), (BENCH_N, 4), (BIG_N, 4))
+SHARDED_SUBSTEPS = {BENCH_N: {"cuda_ring": 20, "cuda": 20, "torch": 2},
+                    BIG_N: {"cuda_ring": 3, "cuda": 3, "torch": 1}}
+# The D=4 sharded world against the single-device World after 10 substeps
+# of dt 0.01, on eight seeds. One evaluation on the same state differs by
+# the order of the fp32 sums only (per-hop sums against one sum; measured
+# 4.7e-7 of max|a| on an H100, held to BOUND_SMALL), but close pairs
+# amplify that rounding from substep to substep, by an amount that depends
+# on the scene. Measured on an H100 over the eight seeds, as max|d|/max:
+# pos 1.2e-8 to 1.7e-7, vel 5.1e-6 to 3.9e-4, acc 1.1e-5 to 2.7e-3; the
+# plain World (another order of the same sums on one device) against the
+# kernel's World: pos up to 2.5e-7, vel up to 2.8e-4, acc up to 2.3e-3.
+# The bounds are 5x the largest sharded reading, rounded up to one digit;
+# and the largest sharded gap over the seeds may be at most SHARD_VS_PLAIN
+# times the plain World's largest (measured 0.68x pos, 1.4x vel, 1.2x acc).
+SHARD_VS_WORLD = {"pos": 1e-6, "vel": 2e-3, "acc": 2e-2}
+SHARD_VS_PLAIN = 3.0
+SHARD_VS_WORLD_SEEDS = (SEED, 1, 2, 3, 4, 5, 6, 7)
+# Substeps of the profiler window over the D > 1 cuda_ring worlds.
+PROFILE_SUBSTEPS = {BENCH_N: 5, BIG_N: 2}
 # The slice's p3m config at N=1M: the JAX defaults with the grid and the
 # cell capacity sized by the package's overflow rule (PERF.md, "p3m sizing
 # at N=1M"); and the defaults themselves.
@@ -591,6 +632,324 @@ def phase_accuracy(nt, df, slice_w, device) -> None:
         f"cells (the box of the sources alone)")
 
 
+def phase_ring_hop(rf, df, device) -> None:
+    log("[10] K3 (ring hop) against its plain version on the card")
+    pos, vel, radius, gm = random_state(1000, 400, device)
+    valid = (torch.arange(1000, device=device) < 990).to(torch.float32)
+    # a running sum from an earlier hop, so the hop adds into it
+    run0 = df.force_acc_plain(pos, radius, pos[:50], gm[:50])
+    for n_src in (333, 0):
+        for precise in (False, True):
+            tag = f"S={n_src} of a 400-row slot, {'precise' if precise else 'rsqrt'}"
+            run_k, run_p = run0.clone(), run0.clone()
+            kw = dict(accumulate=True, precise=precise)
+            rf.ring_hop(pos, radius, pos[:400], gm[:n_src], run_k, **kw)
+            rf.ring_hop_plain(pos, radius, pos[:400], gm[:n_src], run_p, **kw)
+            check(f"{tag} middle hop running sum", rel(run_k, run_p), BOUND_SMALL)
+            for pos_dt in (1.0, 0.5):
+                run = run0.clone()
+                last = dict(vel=vel, valid=valid, dt=0.01, pos_dt=pos_dt, **kw)
+                npos, nvel, acc = rf.ring_hop(pos, radius, pos[:400], gm[:n_src],
+                                              run, **last)
+                want = rf.ring_hop_plain(pos, radius, pos[:400], gm[:n_src],
+                                         run0.clone(), **last)[2]
+                what = f"{tag} last hop pos_dt={pos_dt}"
+                check(f"{what} acc", rel(acc, want), BOUND_SMALL)
+                if not (torch.equal(acc[990:], torch.zeros_like(acc[990:]))
+                        and torch.equal(run, run0)):
+                    raise SystemExit(f"chip_smoke: {what}: padding rows not "
+                                     "masked or the running sum changed")
+                check(f"{what} vel (epilogue)", rel(nvel, vel + 0.01 * acc),
+                      BOUND_EPILOGUE)
+                check(f"{what} pos (epilogue)",
+                      rel(npos, pos + df._pos_dt_times_dt(pos_dt, 0.01) * nvel),
+                      BOUND_EPILOGUE)
+
+
+def sharded(sh, scene, d: int, device, backend: str = "cuda_ring", **cfg):
+    return sh.ShardedWorld(scene, sh.make_mesh(devices=[device] * d),
+                           config=sh.SimConfig(**cfg), force_backend=backend)
+
+
+def phase_race(nt, sh, rf, df, galaxy_ref, load_hex_dump, scene_bench,
+               device) -> None:
+    log(f"[11] race check: the sharded backends on one card, N={BENCH_N}, "
+        "overlapped streams against a run synchronised after every hop and copy")
+    for backend, counter in (("cuda_ring", rf), ("cuda", df)):
+        for d in RACE_SHARDS:
+            runs = []
+            for serial in (False, True):
+                w = sharded(sh, scene_bench, d, device, backend)
+                w.ring.serial = serial
+                counter.LAUNCHES = 0
+                w.update(1.0, 5)
+                if counter.LAUNCHES != 5 * d * d:
+                    raise SystemExit(f"chip_smoke: {backend} D={d}: "
+                                     f"{counter.LAUNCHES} launches, expected "
+                                     f"{5 * d * d}")
+                runs.append(w.particles)
+            same = all(torch.equal(getattr(runs[0], f), getattr(runs[1], f))
+                       for f in ("pos", "vel", "acc"))
+            finite = all(torch.isfinite(getattr(runs[0], f)).all()
+                         for f in ("pos", "vel", "acc"))
+            log(f"  {backend} D={d} (t_loc {w.t_loc}, s_loc {w.s_loc}, real "
+                f"sources {w.ring.n_real}): {counter.LAUNCHES} launches, "
+                f"bit-equal to the serial run: {same}, finite: {finite}")
+            if not (same and finite):
+                raise SystemExit(f"chip_smoke: {backend} D={d}: the overlapped "
+                                 "ring differs from the serial one (a race) or "
+                                 "is not finite")
+    ref = nt.create_world(scene_bench, device=device)
+    ref.update(0.01, 10)
+    one = sharded(sh, scene_bench, 1, device)
+    one.update(0.01, 10)
+    same = all(torch.equal(getattr(one.particles, f), getattr(ref.particles, f))
+               for f in ("pos", "vel", "acc"))
+    log(f"  D=1 after 10 substeps bit-equal to World 'cuda' (the same sums): {same}")
+    if not same:
+        raise SystemExit("chip_smoke: D=1 differs from the World's kernel")
+    # every seed's gap is logged before any is checked
+    gaps, plain_gaps = {}, {}
+    for seed in SHARD_VS_WORLD_SEEDS:
+        scene = scene_bench if seed == SEED else nt.make_galaxies(BENCH_N, 2,
+                                                                  seed=seed)
+        world = ref if seed == SEED else nt.create_world(scene, device=device)
+        if seed != SEED:
+            world.update(0.01, 10)
+        w = sharded(sh, scene, 4, device)
+        w.update(0.01, 10)
+        gaps[seed] = {f: rel(getattr(w.particles, f), getattr(world.particles, f))
+                      for f in SHARD_VS_WORLD}
+        plain = nt.create_world(scene, device=device)
+        plain.update(0.01, 10, backend="torch")
+        plain_gaps[seed] = {f: rel(getattr(plain.particles, f),
+                                   getattr(world.particles, f))
+                            for f in SHARD_VS_WORLD}
+        log(f"  seed {seed}: D=4 against World 'cuda' after 10 substeps, "
+            + ", ".join(f"{f} {e:.3e}" for f, e in gaps[seed].items())
+            + "; World 'torch' against World 'cuda', "
+            + ", ".join(f"{f} {e:.3e}" for f, e in plain_gaps[seed].items()))
+    for f, b in SHARD_VS_WORLD.items():
+        most = max(g[f] for g in gaps.values())
+        check(f"D=4 against World 'cuda' after 10 substeps, {f}, largest of "
+              f"{len(gaps)} seeds", most, b)
+        plain_most = max(g[f] for g in plain_gaps.values())
+        ratio = most / plain_most if plain_most else (np.inf if most else 0.0)
+        ok = ratio < SHARD_VS_PLAIN
+        log(f"  {f}: largest sharded gap / largest World 'torch' gap "
+            f"({plain_most:.3e}) = {ratio:.3f} (bound {SHARD_VS_PLAIN:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the D=4 world's {f} drifts from "
+                             "World more than another order of the sums does")
+    st = ref.state
+    again = sharded(sh, sh.Particles(st.pos, st.vel, st.acc, st.mass, st.radius),
+                    4, device)
+    again.update(0.01, 1)
+    check("D=4 one evaluation on the World's state, acc",
+          rel(again.particles.acc,
+              df.force_acc(st.pos, st.radius, st.pos[:ref.mass_len],
+                           ref.gm).cpu()),
+          BOUND_SMALL)
+    ic = galaxy_ref.make_galaxies_libc(2000, 2, seed=SEED)
+    perm, _ = nt.partition_massive_first(ic.mass)
+    steps, pos_bound, vel_bound = GOLDEN_BOUNDS[0]
+    golden = load_hex_dump(ROOT / GOLDEN.format(steps=steps))[perm.numpy()]
+    w = sharded(sh, ic, 4, device, precise=True)
+    w.update(0.01, steps)
+    got = w.particles
+    dpos = float(np.abs(got.pos.numpy() - golden[:, :2]).max()
+                 / np.abs(golden[:, :2]).max())
+    dvel = float(np.abs(got.vel.numpy() - golden[:, 2:4]).max()
+                 / np.abs(golden[:, 2:4]).max())
+    check(f"golden through cuda_ring D=4, {steps} steps rel pos", dpos, pos_bound)
+    check(f"golden through cuda_ring D=4, {steps} steps rel vel", dvel, vel_bound)
+
+
+def time_sharded(world, n: int, counter, per_substep: int) -> dict:
+    """After a warm-up substep: a checked run of n substeps with host syncs
+    turned into errors and the launch count from 0, which must be exactly
+    per_substep * n; then device and host ms per substep of a timed run of
+    n substeps without the debug mode (it adds host time to every
+    operation, and this path is bound by the host)."""
+    world.update(1.0, 1)
+    world.block_until_ready()
+    counter.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        world.update(1.0, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = counter.LAUNCHES
+    if launches != per_substep * n:
+        raise SystemExit(f"chip_smoke: {launches} launches over {n} "
+                         f"substeps, expected {per_substep * n}")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    world.update(1.0, n)
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return {"ms": start.elapsed_time(end) / n, "enqueue_ms": enqueue_ms / n,
+            "launches": launches}
+
+
+def visiting(world) -> tuple:
+    """The real sources of shard 1 (of shard 0 when D = 1), positions and
+    gm, as they visit shard 0 at a hop of the world's ring."""
+    k = min(1, world.n_devices - 1)
+    n = world.ring.n_real[k]
+    src = torch.cat(world.pos)[k * world.s_loc:k * world.s_loc + n]
+    return src, world.ring.gm_src[k][:n]
+
+
+def hop_error(rf, world, rows=None) -> float:
+    """max|kernel - plain| of the last hop at the world's shapes: shard 0's
+    targets against the sources of :func:`visiting`, with the epilogue;
+    with ``rows`` the plain version computes only those targets."""
+    src, gm = visiting(world)
+    n = gm.shape[0]
+    pos, vel, radius, valid = (x[0] for x in (world.pos, world.vel,
+                                              world.radius, world.valid))
+    kw = dict(accumulate=False, dt=1.0, pos_dt=1.0)
+    acc = rf.ring_hop(pos, radius, src, gm, torch.empty_like(pos),
+                      vel=vel, valid=valid, **kw)[2]
+    label = "" if rows is None else f" ({len(rows)} targets)"
+    rows = torch.arange(pos.shape[0], device=pos.device) if rows is None else rows
+    want = rf.ring_hop_plain(pos[rows], radius[rows], src, gm,
+                             torch.empty_like(pos[rows]), vel=vel[rows],
+                             valid=valid[rows], **kw)[2]
+    bound_ = BOUND_BIG if pos.shape[0] > BENCH_N else BOUND_SMALL
+    check(f"hop kernel vs plain at T={pos.shape[0]} S={n}{label}",
+          rel(acc[rows], want), bound_)
+    return float((acc[rows] - want).abs().max())
+
+
+def union_ms(spans) -> float:
+    """Total length in ms of the union of (start, end) µs intervals."""
+    spans = sorted(spans)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    return (busy + hi - lo) / 1e3
+
+
+def profile_overlap(world, n: int, kernel: str) -> dict:
+    """Device time of a torch.profiler window over n substeps of a sharded
+    world, per substep: the kernels' and copies' summed time, the time the
+    card had at least one of them running (the union of their intervals;
+    the shards' streams overlap), the idle share of the wall time; and the
+    summed and the union time of the kernels whose name holds ``kernel``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    world.block_until_ready()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        world.update(1.0, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise SystemExit("chip_smoke: the profiler saw no device time")
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    mine = [(e.time_range.start, e.time_range.end) for e in events
+            if kernel in e.name]
+    if not mine:
+        raise SystemExit(f"chip_smoke: the profiler saw no {kernel} among "
+                         f"{sorted({e.name for e in events})}")
+    busy = union_ms(spans)
+    return {"sum_ms": sum(b - a for a, b in spans) / 1e3 / n,
+            "busy_ms": busy / n, "wall_ms": wall_ms / n,
+            "idle": 1.0 - busy / wall_ms,
+            "kernel_launches": len(mine) / n,
+            "kernel_sum_ms": sum(b - a for a, b in mine) / 1e3 / n,
+            "kernel_busy_ms": union_ms(mine) / n}
+
+
+def force_acc_error(df, world, rows=None) -> float:
+    """max|kernel - plain| of the "cuda" backend's hop at the world's
+    shapes: force_acc on shard 0's targets against the sources of
+    :func:`visiting`; with ``rows`` the plain version computes only those
+    targets."""
+    src, gm = visiting(world)
+    n = gm.shape[0]
+    pos, radius = world.pos[0], world.radius[0]
+    t = pos.shape[0]
+    splits = df._split_plan(t, n, df.sm_count(pos.device.index or 0))
+    acc = df.force_acc(pos, radius, src, gm)
+    label = "" if rows is None else f" ({len(rows)} targets)"
+    rows = torch.arange(t, device=pos.device) if rows is None else rows
+    want = df.force_acc_plain(pos[rows], radius[rows], src, gm)
+    check(f"force_acc ('cuda' backend) vs plain at T={t} S={n}, "
+          f"{splits} source range(s){label}", rel(acc[rows], want),
+          BOUND_BIG if t > BENCH_N else BOUND_SMALL)
+    return float((acc[rows] - want).abs().max())
+
+
+def finite_state(world, what: str) -> None:
+    p = world.particles
+    if not all(torch.isfinite(x).all() for x in (p.pos, p.vel, p.acc)):
+        raise SystemExit(f"chip_smoke: non-finite sharded state, {what}")
+
+
+def phase_sharded(sh, rf, df, scene_bench, scene_big, device) -> dict:
+    log("[12] sharded main path on one card (no NVLink: D shards share it)")
+    out = {}
+    for n, d in SHARDED:
+        scene = scene_bench if n == BENCH_N else scene_big
+        steps = SHARDED_SUBSTEPS[n]
+        res = {}
+        w = sharded(sh, scene, d, device)
+        w.update(1.0, 2)
+        res["cuda_ring"] = time_sharded(w, steps["cuda_ring"], rf, d * d)
+        finite_state(w, f"cuda_ring N={n} D={d}")
+        if d > 1:
+            k = PROFILE_SUBSTEPS[n]
+            prof = profile_overlap(w, k, "ring_hop_kernel")
+            log(f"  N={n} D={d} cuda_ring profiler over {k} substeps, per "
+                f"substep: kernels and copies {prof['sum_ms']:.4f} ms summed, "
+                f"card busy {prof['busy_ms']:.4f} ms of {prof['wall_ms']:.4f} ms "
+                f"wall (idle {prof['idle']:.2%}); ring_hop_kernel "
+                f"{prof['kernel_launches']:g} launches, {prof['kernel_sum_ms']:.4f} "
+                f"ms summed, {prof['kernel_busy_ms']:.4f} ms union")
+            res["profile"] = prof
+        rows = None
+        if n == BIG_N:
+            rows = torch.from_numpy(np.random.default_rng(4).choice(
+                w.t_loc, SUBSET, replace=False)).to(device)
+        res["max_abs_err"] = hop_error(rf, w, rows)
+        res["layout"] = (w.t_loc, w.s_loc, list(w.ring.n_real))
+        res["mass_len"] = w.mass_len
+        res["n_pad"] = w.n_pad
+        del w
+        w = sharded(sh, scene, d, device, backend="cuda")
+        res["cuda"] = time_sharded(w, steps["cuda"], df, d * d)
+        finite_state(w, f"cuda N={n} D={d}")
+        res["cuda"]["max_abs_err"] = force_acc_error(df, w, rows)
+        del w
+        w = sharded(sh, scene, d, device, backend="torch")
+        w.block_until_ready()
+        res["torch"] = {"ms": cuda_ms(lambda: w.update(1.0, steps["torch"]))
+                        / steps["torch"]}
+        del w
+        pairs = n * res["mass_len"]
+        for backend in ("cuda_ring", "cuda", "torch"):
+            r = res[backend]
+            extra = (f", host {r['enqueue_ms']:.4f} ms/substep to enqueue, "
+                     f"launches {r['launches']}" if "launches" in r else "")
+            log(f"  N={n} D={d} {backend:9s}: {r['ms']:.4f} ms/substep device, "
+                f"{pairs / (r['ms'] * 1e-3):.4e} pairs/s{extra}")
+        log(f"  N={n} D={d}: t_loc {res['layout'][0]}, s_loc {res['layout'][1]}, "
+            f"real sources per shard {res['layout'][2]}")
+        out[(n, d)] = res
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -604,6 +963,8 @@ def main() -> int:
     from nbody_tpu_torch.ops import direct_forces as df
     from nbody_tpu_torch.ops import p3m_forces
     from nbody_tpu_torch.ops import p3m_pp as pp
+    from nbody_tpu_torch.ops import ring_forces as rf
+    from nbody_tpu_torch.parallel import sharding as sh
     from nbody_tpu_torch.utils.ref_dump import load_hex_dump
 
     log("[0] environment")
@@ -695,12 +1056,26 @@ def main() -> int:
     phase_accuracy(nt, df, slice_w, device)
     sizing_table(nt, p3m_forces, device)
 
+    phase_ring_hop(rf, df, device)
+    phase_race(nt, sh, rf, df, galaxy_ref, load_hex_dump, scene_bench, device)
+    shard = phase_sharded(sh, rf, df, scene_bench, scene_big, device)
+
     log(f"card: {smi}")
     log(f"rsqrt path vs fp64 at N={BENCH_N}: max|d|/max|a| {acc64['rsqrt'][0]:.3e}, "
         f"precise {acc64['precise'][0]:.3e}")
     log(f"p3m ms/substep: N={BIG_N} slice config {p3m['ms']:.4f} (direct "
         f"{big_ms:.4f}); N={BENCH_N} default config {p3m['bench']['ms']:.4f} "
         f"(direct {kernel_ms:.4f})")
+    log("sharded cuda_ring ms/substep on one card: " + ", ".join(
+        f"N={n} D={d} {shard[(n, d)]['cuda_ring']['ms']:.4f}" for n, d in SHARDED)
+        + f" (World 'cuda': N={BENCH_N} {kernel_ms:.4f}, N={BIG_N} {big_ms:.4f})")
+    # the shards' launches overlap, so their summed durations overstate the
+    # card's time; the kernels line takes the union of their intervals
+    log("ring_hop_kernel device ms/substep (profiler; the union of its "
+        "launches' intervals, their sum in brackets): " + ", ".join(
+            f"N={n} D={d} {shard[(n, d)]['profile']['kernel_busy_ms']:.4f} "
+            f"({shard[(n, d)]['profile']['kernel_sum_ms']:.4f})"
+            for n, d in SHARDED if d > 1))
 
     def fused_row(n, s, replaces, launches, err, ms, plain):
         b_ms, b_by = bound(FLOPS_DIRECT * n * s, 44 * n + 4 * s)
@@ -721,6 +1096,20 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None}
 
+    def ring_row(n, d):
+        r = shard[(n, d)]
+        b_ms, b_by = bound(FLOPS_DIRECT * n * r["mass_len"],
+                           48 * r["n_pad"] + 4 * r["mass_len"])
+        return {"name": f"ring_forces hop, sharded substep N={n} D={d} "
+                        f"S={r['mass_len']}, D shards on one card",
+                "route": "cuda", "source": RING_SRC,
+                "replaces": "nbody_tpu/ops/ring_forces.py:58",
+                "launches": r["cuda_ring"]["launches"],
+                "max_abs_err": r["max_abs_err"],
+                "ms": r["profile"]["kernel_busy_ms"],
+                "plain_ms": r["torch"]["ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}
+
     log(json.dumps({"kernels": [
         fused_row(BENCH_N, world.mass_len, "nbody_tpu/ops/pallas_forces.py:220",
                   launches_bench, err_bench, kernel_ms, plain_ms),
@@ -736,6 +1125,8 @@ def main() -> int:
          "bound_by": split["bound_by"], "library_ms": None},
         pp_row("sized", P3M_SIZED, p3m["launches"]["pp"]),
         pp_row("default", P3M_DEFAULT, p3m["bench"]["launches"]["pp"]),
+        ring_row(BENCH_N, 4),
+        ring_row(BIG_N, 4),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

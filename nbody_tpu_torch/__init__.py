@@ -4,8 +4,9 @@ The same public names as ``nbody_tpu`` for the ported subset: scene
 generation (numpy), world creation (on the GPU unless the caller asks for
 the CPU), substeps of exact direct-sum gravity through a hand-written CUDA
 kernel ("cuda" backend) or plain PyTorch ("torch" backend), the
-particle-mesh ("pm") and P³M ("p3m") solvers, and readback. Imports neither
-JAX nor ``nbody_tpu``.
+particle-mesh ("pm") and P³M ("p3m") solvers, and readback; and, in
+``nbody_tpu_torch.parallel``, the world sharded over a list of devices with
+the ring of source tiles. Imports neither JAX nor ``nbody_tpu``.
 """
 
 from .types import (

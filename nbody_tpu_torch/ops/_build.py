@@ -3,7 +3,8 @@
 Each source ``nbody_tpu_torch/csrc/<name>.cu`` has a plain C interface. At
 first use it is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library, ``build/kernels/lib<name>-<sha>.so`` under the repository root,
-where ``<sha>`` hashes the source and the flags; the library is then loaded
+where ``<sha>`` hashes the source, the headers beside it (``csrc/*.cuh``)
+and the flags; the library is then loaded
 with ctypes. A library already built from the same source and flags is
 loaded as it is. No PyTorch header is compiled, so a build takes seconds,
 and :func:`build_all` runs one ``nvcc`` per source, all at once.
@@ -47,6 +48,15 @@ SIGNATURES = {
             _vp, _vp, _vp],            # partial scratch, acc out, stream
         "nbody_sm_count": [_vp],       # int* out
     },
+    "ring_forces": {
+        "nbody_ring_hop": [
+            _vp, _vp, _vp, _vp,        # tgt pos/radius, src pos/gm
+            _i32, _i32,                # n_tgt, n_src
+            _vp, _i32, _i32,           # acc_run, accumulate, last
+            _vp, _vp, _f32, _f32,      # tgt vel, valid, dt, pos_dt
+            _i32,                      # precise
+            _vp, _vp, _vp, _vp],       # acc/pos/vel out, stream
+    },
     "p3m_pp": {
         "nbody_p3m_pp": [
             _vp, _vp, _vp,             # tx, ty, tr (gc, gc, cap_t)
@@ -78,9 +88,11 @@ def source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for the current source and flags lives."""
+    """Where the library for the current source, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

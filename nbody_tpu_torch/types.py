@@ -91,8 +91,8 @@ def make_particles(
 @dataclass(frozen=True)
 class SimConfig:
     """Simulation configuration: the fields of ``nbody_tpu.types.SimConfig``
-    that the port's direct-sum, pm and p3m paths read, with the same
-    defaults and the same ``ValueError``s.
+    that the port's direct-sum, pm, p3m and sharded paths read, with the
+    same defaults and the same ``ValueError``s.
 
     ``precise=True`` uses exact sqrt and divide (the reference shader,
     particle_cs.glsl:42-48); False uses rsqrt cubed. ``integrator`` is
@@ -112,6 +112,11 @@ class SimConfig:
     ``nbody_tpu``, and change nothing: there they pick bit-identical
     schedules of a sequential TPU map (chunk skipping, active-cell
     compaction); here the pair-correction kernel skips empty cells itself.
+
+    ``tile_targets`` and ``tile_sources`` set the padded layout of a
+    sharded world (``parallel/sharding.shard_layout``): per-shard target
+    and source counts round up to them once they exceed them. The port's
+    kernels choose their own block sizes.
     """
 
     g: float = G
@@ -125,6 +130,8 @@ class SimConfig:
     p3m_rebin_interval: int = 1
     p3m_pp_chunk: int = 64
     p3m_pp_compact: int = 0
+    tile_targets: int = 512
+    tile_sources: int = 2048
 
     def __post_init__(self):
         if self.integrator not in INTEGRATORS:
@@ -167,6 +174,11 @@ class SimConfig:
                 raise ValueError(
                     f"p3m_pp_compact ({self.p3m_pp_compact}) must be a "
                     f"multiple of p3m_pp_chunk ({self.p3m_pp_chunk})")
+        if (self.tile_targets < 8 or self.tile_sources < 128
+                or self.tile_targets % 8 or self.tile_sources % 128):
+            raise ValueError(
+                f"tile_targets must be a multiple of 8 and tile_sources a "
+                f"multiple of 128, got {self.tile_targets}x{self.tile_sources}")
 
 
 # Galaxy generation constants, mirroring include/galaxy.h:10-61.
@@ -201,3 +213,7 @@ class GalaxyConfig:
 
 DEFAULT_GALAXY_CONFIG = GalaxyConfig()
 DEFAULT_SIM_CONFIG = SimConfig()
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m

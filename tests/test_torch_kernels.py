@@ -23,6 +23,8 @@ from torch_helpers import cuda, random_arrays, rel_err  # noqa: F401 (fixture)
 import nbody_tpu_torch as nt
 from nbody_tpu_torch.ops import direct_forces as df
 from nbody_tpu_torch.ops import p3m_forces, p3m_pp
+from nbody_tpu_torch.ops import ring_forces as rf
+from nbody_tpu_torch.parallel import ShardedWorld, make_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -224,3 +226,86 @@ def test_world_p3m_on_the_card(cuda, integrator):
         got, want = getattr(w_k.particles, name), getattr(w_p.particles, name)
         assert torch.isfinite(got).all()
         assert rel_err(got, want) < tol, name
+
+
+# --- K3: the ring hop and the sharded world ---
+
+@pytest.mark.parametrize("n_src", [333, 0])
+@pytest.mark.parametrize("last,pos_dt", [(False, 1.0), (True, 1.0), (True, 0.5)])
+@pytest.mark.parametrize("precise", [True, False])
+def test_ring_hop_matches_plain(cuda, precise, last, pos_dt, n_src):
+    """The hop kernel against its plain version: a middle hop adds into the
+    running sum; the last hop's epilogue is held to the plain update of the
+    kernel's own force. The slot holds 400 rows; the kernel stops at
+    n_src."""
+    pos, vel, radius, gm = _inputs(cuda, 1000, 400)
+    valid = (torch.arange(1000, device=cuda) < 990).float()
+    run0 = df.force_acc_plain(pos, radius, pos[:50], gm[:50])
+    src_gm = gm[:n_src]
+    kw = dict(vel=vel, valid=valid, dt=0.01, pos_dt=pos_dt) if last else {}
+    run_k, run_p = run0.clone(), run0.clone()
+    before = rf.LAUNCHES
+    got = rf.ring_hop(pos, radius, pos[:400], src_gm, run_k, accumulate=True,
+                      precise=precise, **kw)
+    assert rf.LAUNCHES == before + 1
+    want = rf.ring_hop_plain(pos, radius, pos[:400], src_gm, run_p,
+                             accumulate=True, precise=precise, **kw)
+    torch.cuda.synchronize()
+    if not last:
+        assert rel_err(run_k.cpu(), run_p.cpu()) < TOL
+        return
+    npos, nvel, acc = got
+    assert torch.equal(run_k, run0)
+    assert rel_err(acc.cpu(), want[2].cpu()) < TOL
+    assert torch.equal(acc[990:], torch.zeros_like(acc[990:]))
+    assert rel_err(nvel.cpu(), (vel + 0.01 * acc).cpu()) < EPILOGUE_TOL
+    assert rel_err(npos.cpu(), (pos + df._pos_dt_times_dt(pos_dt, 0.01)
+                                * nvel).cpu()) < EPILOGUE_TOL
+
+
+def _sharded(cuda, d, backend, n=20_000, integrator="euler", serial=False):
+    w = ShardedWorld(nt.make_galaxies(n, 2, seed=11037),
+                     make_mesh(devices=[cuda] * d),
+                     config=nt.SimConfig(integrator=integrator),
+                     force_backend=backend)
+    w.ring.serial = serial
+    return w
+
+
+@pytest.mark.parametrize("backend", ["cuda_ring", "cuda"])
+def test_ring_overlapped_is_bit_equal_to_serial(cuda, backend):
+    """Four shards on one card, their streams overlapping, against the same
+    kernel with the card synchronised after every hop and copy (a schedule
+    that cannot race): any difference is a race. "cuda" (the direct
+    kernel per hop, the default on CUDA shards) walks the same schedule."""
+    counter = rf if backend == "cuda_ring" else df
+    a = _sharded(cuda, 4, backend)
+    b = _sharded(cuda, 4, backend, serial=True)
+    counter.LAUNCHES = 0
+    a.update(0.01, 5)
+    assert counter.LAUNCHES == 5 * 16
+    b.update(0.01, 5)
+    for name in ("pos", "vel", "acc"):
+        got = getattr(a.particles, name)
+        assert torch.isfinite(got).all(), name
+        assert torch.equal(got, getattr(b.particles, name)), name
+
+
+@pytest.mark.parametrize("backend,per_stage", [("cuda_ring", 16), ("cuda", 16)])
+@pytest.mark.parametrize("integrator,stages", [("euler", 1), ("yoshida4", 3)])
+def test_sharded_world_matches_world(cuda, backend, per_stage, integrator, stages):
+    """Four shards on one card against the single-device World on "cuda",
+    5 substeps: the per-hop sums differ from one sum over all sources in
+    order only."""
+    w = _sharded(cuda, 4, backend, n=2000, integrator=integrator)
+    ref = nt.create_world(nt.make_galaxies(2000, 2, seed=11037),
+                          config=nt.SimConfig(integrator=integrator), device=cuda)
+    rf.LAUNCHES = df.LAUNCHES = 0
+    w.update(0.01, 5)
+    counted = rf.LAUNCHES if backend == "cuda_ring" else df.LAUNCHES
+    assert counted == 5 * stages * per_stage
+    ref.update(0.01, 5)
+    for name in ("pos", "vel", "acc"):
+        got, want = getattr(w.particles, name), getattr(ref.particles, name)
+        assert torch.isfinite(got).all()
+        assert rel_err(got, want) < TOL, name

@@ -36,7 +36,7 @@ def test_constants_match():
 @pytest.mark.parametrize("field", [
     "g", "precise", "integrator", "pm_grid", "pm_softening", "p3m_rc_cells",
     "p3m_cell_capacity", "p3m_exact_targets", "p3m_rebin_interval",
-    "p3m_pp_chunk", "p3m_pp_compact"])
+    "p3m_pp_chunk", "p3m_pp_compact", "tile_targets", "tile_sources"])
 def test_sim_config_defaults_match(field):
     assert getattr(nt.SimConfig(), field) == getattr(nb.SimConfig(), field)
 
@@ -53,6 +53,24 @@ def test_sim_config_same_errors(kw):
     with pytest.raises(ValueError) as got:
         nt.SimConfig(**kw)
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(tile_targets=4), dict(tile_targets=12), dict(tile_sources=64),
+    dict(tile_sources=200)])
+def test_sim_config_tile_errors(kw):
+    """The same tile values are refused (nbody_tpu's message also names its
+    kernel_tile_targets, which the port does not have)."""
+    with pytest.raises(ValueError, match="tile_sources a multiple of 128"):
+        nb.SimConfig(**kw)
+    with pytest.raises(ValueError, match="tile_sources a multiple of 128"):
+        nt.SimConfig(**kw)
+
+
+def test_round_up_matches():
+    for x in range(0, 300, 7):
+        for m in (1, 8, 128):
+            assert nt.types.round_up(x, m) == nb.types.round_up(x, m)
 
 
 def test_galaxy_config_matches():
