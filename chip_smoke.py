@@ -29,7 +29,9 @@ Phases, each of which raises on failure:
      p3m_cell_capacity=768: create_world -> update(1.0, 1, backend="p3m")
      -> 10 timed substeps with no host sync -> particles, with both
      kernels' launch counts and a profiler window split by stage; then
-     N=65536 with the default config, for time only;
+     N=65536 with the default config, for time only; then a "pm" and a
+     "p3m" World at N=1M each run twice from the same state, bit-equal,
+     and the CIC scatter timed against the index_add_ form it replaced;
   9. p3m accuracy against the direct kernel: the JAX package's envelope
      scene (N=2048, grid 256) and the N=1M slice config at its initial
      state, each bound fatal; then the sources and targets that full cells
@@ -50,7 +52,14 @@ Phases, each of which raises on failure:
      particles (finite), for "cuda_ring" and "cuda"; each backend's kernel
      against its plain version at the path's shapes; a profiler window
      that sums the hop kernel's device time; the "torch" backend timed
-     beside them.
+     beside them;
+ 13. the ablation path of the direct force at N=65536 (two galaxies, seed
+     11037): each of K5a, K5g, K5d and K5h through its module in
+     nbody_tpu_torch.ablations at the module's sweep, every configuration
+     against its plain version and run twice for bit-equality, timed with
+     CUDA events beside K1's force_acc on the same inputs (and K5a's
+     50-substep loop beside World.update), with the four launch counts;
+     then K5h at a ragged N=50000 against the plain direct sum.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -114,14 +123,38 @@ BOUND_SPLIT_SMALL = 5e-6        # T = 1000, S = 333
 # p3m per-target error against the direct sum (tests/test_p3m.py:41-43)
 P3M_MEDIAN, P3M_P99, P3M_MAX = 2e-3, 5e-2, 0.12
 # The card's peaks (H100 SXM data sheet, 700 W): fp32 outside the tensor
-# cores and HBM bandwidth; the bound of a function is the larger of its
-# operations and its bytes over these.
+# cores and HBM bandwidth; and the special-function (MUFU) rate, 16 per SM
+# per clock on sm_90, times the SM count and the maximum SM clock that
+# phase [0] reads from the card. The bound of a function is the largest of
+# its fp32 operations, its MUFU operations and its bytes over these.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+MUFU_PER_SM_CLOCK = 16
+MUFU_RATE = None                # set by phase_env: MUFU ops per second
 # Operations per pair: the direct sum as the TPU kernel counts it
-# (pallas_forces.py:380), the P3M correction as p3m_pallas.py:120-125 does.
+# (pallas_forces.py:380), the P3M correction as p3m_pallas.py:120-125 does;
+# MUFU operations per pair: one rsqrt (the default path), two rsqrt and a
+# sqrt per live P3M pair. A Newton dual pair shares dx, dy and d2 (5
+# operations) between two interactions of 8 more each, and has two rsqrt.
 FLOPS_DIRECT = 13
 FLOPS_PP = 14
+FLOPS_DUAL = 21
+MUFU_DIRECT = 1
+MUFU_PP = 3
+# The ablation path ([13]): the kernels' sources, the TPU kernels they
+# replace, and a ragged N for K5h (mass_len 24807: neither it nor N is a
+# whole number of tiles).
+ABLATION_KERNELS = {
+    "K5a": ("nbody_tpu_torch/csrc/resident_forces.cu",
+            "scripts/ablations/tune_r2.py:40"),
+    "K5g": ("nbody_tpu_torch/csrc/ptile_forces.cu",
+            "scripts/ablations/tune_r2g.py:34"),
+    "K5d": ("nbody_tpu_torch/csrc/stationary_forces.cu",
+            "scripts/ablations/tune_r2d.py:37"),
+    "K5h": ("nbody_tpu_torch/csrc/newton_forces.cu",
+            "scripts/ablations/tune_r2h.py:49"),
+}
+RAGGED_N = 50000
 STAGES = ("p3m.bins", "p3m.cic_scatter", "p3m.fft_solve", "p3m.cic_gather",
           "p3m.pack", "p3m.pair_kernel", "p3m.unpack", "p3m.exact_rows")
 # Bounds on max|kernel - plain| / max|plain|: both are fp32 with the same
@@ -179,16 +212,25 @@ def phase_env() -> str:
         f"count {torch.cuda.device_count()}")
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs compute capability (9, 0), got {cap}")
+    global MUFU_RATE
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    MUFU_RATE = MUFU_PER_SM_CLOCK * sms * mhz * 1e6
+    log(f"{sms} SMs, max SM clock {mhz:g} MHz: MUFU peak {MUFU_RATE:.4e} ops/s")
     # The plain versions use no matmul or convolution, but pin full fp32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return smi
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, mufu: float = 0.0) -> tuple[float, str]:
     """(ms, what sets it): the least time the card could take for this
-    many fp32 operations and bytes moved."""
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    many fp32 operations, MUFU operations and bytes moved. "operations"
+    when the fp32 or the MUFU term is the longer one, else "bytes"."""
+    t_ops = max(flops / PEAK_FP32, mufu / MUFU_RATE)
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -205,7 +247,8 @@ def phase_build(_build) -> None:
         info = path.with_suffix(".log")
         if info.exists():
             for line in info.read_text().splitlines():
-                if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+                if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
+                        or "spill" in line):
                     log(f"    {line.strip()}")
 
 
@@ -325,7 +368,7 @@ def pp_bound(gc: int, cap_t: int, live: dict) -> tuple[float, str]:
     and both counts read once, the dense (gc², cap_t, 2) output written."""
     nbytes = 12 * (live["live_t"] + live["live_s"]) + 8 * gc * gc \
         + 8 * gc * gc * cap_t
-    return bound(FLOPS_PP * live["pairs"], nbytes)
+    return bound(FLOPS_PP * live["pairs"], nbytes, MUFU_PP * live["pairs"])
 
 
 def world_blocks(p3m_forces, world):
@@ -449,7 +492,8 @@ def phase_split(df, p3m_forces, slice_w, device) -> dict:
     acc = torch.empty_like(tp)
     single_ms = cuda_ms(lambda: df._launch(tp, None, tr, src, gm, 0.0, 1.0,
                                            False, acc, None, None), reps=3)
-    bound_ms, bound_by = bound(FLOPS_DIRECT * t * s, 20 * t + 12 * s)
+    bound_ms, bound_by = bound(FLOPS_DIRECT * t * s, 20 * t + 12 * s,
+                               MUFU_DIRECT * t * s)
     log(f"  exact-core rows: split kernel {ms:.4f} ms, one-launch form "
         f"{single_ms:.4f} ms ({-(-t // df.BLOCK)} block), plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
@@ -561,6 +605,59 @@ def phase_p3m(nt, df, pp, scene_big, scene_bench, device, direct_big_ms) -> dict
     small = nt.create_world(scene_bench, config=nt.SimConfig(**P3M_DEFAULT),
                             device=device)
     out["bench"] = run_p3m(df, pp, small, f"N={BENCH_N} default config (time only)")
+    return out
+
+
+def mesh_repeat(nt, pm, scene, device) -> dict:
+    """A "pm" World (grid 2048) and a "p3m" World (the slice config) at
+    N=1M, each run 3 substeps twice from the same state: the states must
+    be bit-equal. Then the CIC scatter on the slice world's sources, run
+    twice and timed, against the index_add_ form it replaced (float
+    atomics on the card)."""
+    for backend, cfg in (("pm", {"pm_grid": 2048}), ("p3m", P3M_SIZED)):
+        runs = []
+        for _ in range(2):
+            w = nt.create_world(scene, config=nt.SimConfig(**cfg), device=device)
+            w.update(1.0, 3, backend=backend)
+            runs.append(w.particles)
+        same = all(torch.equal(getattr(runs[0], f), getattr(runs[1], f))
+                   for f in ("pos", "vel", "acc"))
+        finite = all(torch.isfinite(getattr(runs[0], f)).all()
+                     for f in ("pos", "vel", "acc"))
+        log(f"  {backend} World {cfg}, N={len(w)}, 3 substeps, run twice: "
+            f"bit-equal {same}, finite {finite}")
+        if not (same and finite):
+            raise SystemExit(f"chip_smoke: two {backend} runs differ or are "
+                             "not finite")
+    st, s = w.state, w.mass_len
+    grid = P3M_SIZED["pm_grid"]
+    src, gm = st.pos[:s], w.gm
+    lo, h = pm._box(*pm._bounds(st.pos, src, gm), grid)
+
+    def sorted_scatter():
+        return pm._cic_scatter(src, gm, lo, 1.0 / h, grid)
+
+    def atomic_scatter():
+        i0, j0, wx, wy = pm._cic_weights(src, lo, 1.0 / h, grid)
+        rho = torch.zeros(grid * grid, dtype=torch.float32, device=device)
+        c = i0 * grid + j0
+        for dc, wt in ((0, (1 - wx) * (1 - wy)), (grid, wx * (1 - wy)),
+                       (1, (1 - wx) * wy), (grid + 1, wx * wy)):
+            rho.index_add_(0, c + dc, gm * wt)
+        return rho.reshape(grid, grid)
+
+    out = {}
+    for name, fn in (("index_put_ (sorted)", sorted_scatter),
+                     ("index_add_ (atomics)", atomic_scatter)):
+        a, b = fn(), fn()
+        out[name] = {"same": bool(torch.equal(a, b)),
+                     "ms": cuda_ms(fn, reps=20)}
+        log(f"  CIC scatter by {name}, {s} sources on grid {grid}: "
+            f"{out[name]['ms']:.4f} ms, two runs bit-equal {out[name]['same']}")
+    log(f"  sorted against atomic scatter: max|d|/max = "
+        f"{rel(sorted_scatter(), atomic_scatter()):.3e}")
+    if not out["index_put_ (sorted)"]["same"]:
+        raise SystemExit("chip_smoke: the sorted CIC scatter differs from run to run")
     return out
 
 
@@ -950,6 +1047,76 @@ def phase_sharded(sh, rf, df, scene_bench, scene_big, device) -> dict:
     return out
 
 
+def phase_ablations(nt, df, device) -> dict:
+    """[13]: each ablation module's sweep at N=65536 with the four launch
+    counts from 0, then K5h at RAGGED_N against the direct sum; the best
+    configuration of each kernel, its plain version's time and its bound."""
+    from nbody_tpu_torch.ablations import _scene, tune_r2, tune_r2d, tune_r2g, tune_r2h
+    from nbody_tpu_torch.ops import newton_forces as nwf
+    from nbody_tpu_torch.ops import ptile_forces as ptf
+    from nbody_tpu_torch.ops import resident_forces as rsf
+    from nbody_tpu_torch.ops import stationary_forces as stf
+
+    log(f"[13] the ablation path of the direct force: N={BENCH_N}, 2 galaxies, "
+        f"seed {SEED}")
+    scene = _scene.make_scene(BENCH_N, device=device)
+    k1_ms = _scene.header("scene", scene, log)
+    counters = {"K5a": rsf, "K5g": ptf, "K5d": stf, "K5h": nwf}
+    runs = {"K5a": tune_r2, "K5g": tune_r2g, "K5d": tune_r2d, "K5h": tune_r2h}
+    for c in counters.values():
+        c.LAUNCHES = 0
+    results = {}
+    for key, module in runs.items():
+        log(f" {key}: nbody_tpu_torch.ablations.{module.__name__.rsplit('.', 1)[1]}")
+        results[key] = module.run(scene, k1_ms, log)
+    launches = {key: c.LAUNCHES for key, c in counters.items()}
+    log(f"  launches over the four sweeps: {launches}")
+    if not all(launches.values()):
+        raise SystemExit(f"chip_smoke: a kernel of the ablation path was not "
+                         f"launched: {launches}")
+    log(f"  K5h at a ragged N={RAGGED_N}:")
+    tune_r2h.check_direct(_scene.make_scene(RAGGED_N, device=device), log)
+
+    n, m, s128 = scene.n, scene.mass_len, scene.s128
+    tgt3, tgt4 = scene.tgt3(), scene.tgt4()
+    out = {}
+    for key, res in results.items():
+        best = min(res, key=lambda r: r["ms"])
+        cfg = best["config"]
+        if key == "K5a":
+            src = scene.src3(s128)
+            plain = lambda: rsf.v2_acc_plain(scene.pos, scene.radius, src)  # noqa: E731
+        elif key == "K5g":
+            src = scene.src3(s128)
+            plain = lambda: ptf.ptile_acc_plain(tgt3, src)  # noqa: E731
+        elif key == "K5d":
+            s_pad, chunk = cfg["s_pad"], cfg["chunk"]
+            src = scene.src3(s_pad)
+            plain = lambda: stf.stationary_acc_plain(tgt3, src, chunk=chunk)  # noqa: E731
+        else:
+            src, tile = scene.src4(s128), cfg["tile"]
+            plain = lambda: nwf.newton_acc_plain(tgt4, src, m, tile=tile)  # noqa: E731
+        # The bound counts the N x mass_len pairs that the function needs,
+        # not the gm = 0 rows that pad the sources of a kernel's layout.
+        if key == "K5h":
+            fwd, dual = cfg["forward_pairs"], cfg["dual_pairs"]
+            b = bound(FLOPS_DIRECT * fwd + FLOPS_DUAL * dual,
+                      24 * n + 16 * m, MUFU_DIRECT * (fwd + 2 * dual))
+        else:
+            b = bound(FLOPS_DIRECT * n * m, 20 * n + 12 * m,
+                      MUFU_DIRECT * n * m)
+        plain()
+        plain_ms = cuda_ms(plain)
+        out[key] = {"best": best, "plain_ms": plain_ms, "bound_ms": b[0],
+                    "bound_by": b[1], "launches": launches[key]}
+        log(f"  {key} best {best['name']}: {best['ms']:.4f} ms "
+            f"({best['ms'] / k1_ms:.3f}x force_acc {k1_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+            f"{b[0] / best['ms']:.1%} of the bound")
+    out["k1_ms"] = k1_ms
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -963,6 +1130,7 @@ def main() -> int:
     from nbody_tpu_torch.ops import direct_forces as df
     from nbody_tpu_torch.ops import p3m_forces
     from nbody_tpu_torch.ops import p3m_pp as pp
+    from nbody_tpu_torch.ops import pm_forces
     from nbody_tpu_torch.ops import ring_forces as rf
     from nbody_tpu_torch.parallel import sharding as sh
     from nbody_tpu_torch.utils.ref_dump import load_hex_dump
@@ -1053,12 +1221,14 @@ def main() -> int:
     del default_w
     split = phase_split(df, p3m_forces, slice_w, device)
     p3m = phase_p3m(nt, df, pp, scene_big, scene_bench, device, big_ms)
+    mesh_repeat(nt, pm_forces, scene_big, device)
     phase_accuracy(nt, df, slice_w, device)
     sizing_table(nt, p3m_forces, device)
 
     phase_ring_hop(rf, df, device)
     phase_race(nt, sh, rf, df, galaxy_ref, load_hex_dump, scene_bench, device)
     shard = phase_sharded(sh, rf, df, scene_bench, scene_big, device)
+    ablation = phase_ablations(nt, df, device)
 
     log(f"card: {smi}")
     log(f"rsqrt path vs fp64 at N={BENCH_N}: max|d|/max|a| {acc64['rsqrt'][0]:.3e}, "
@@ -1077,8 +1247,13 @@ def main() -> int:
             f"({shard[(n, d)]['profile']['kernel_sum_ms']:.4f})"
             for n, d in SHARDED if d > 1))
 
+    log(f"ablation path at N={BENCH_N}, best ms of each sweep: " + ", ".join(
+        f"{key} {ablation[key]['best']['ms']:.4f} ({ablation[key]['best']['name']})"
+        for key in ABLATION_KERNELS) + f" (K1 force_acc {ablation['k1_ms']:.4f})")
+
     def fused_row(n, s, replaces, launches, err, ms, plain):
-        b_ms, b_by = bound(FLOPS_DIRECT * n * s, 44 * n + 4 * s)
+        b_ms, b_by = bound(FLOPS_DIRECT * n * s, 44 * n + 4 * s,
+                           MUFU_DIRECT * n * s)
         return {"name": f"direct_forces fused substep, N={n} S={s}",
                 "route": "cuda", "source": KERNEL_SRC, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms,
@@ -1099,7 +1274,8 @@ def main() -> int:
     def ring_row(n, d):
         r = shard[(n, d)]
         b_ms, b_by = bound(FLOPS_DIRECT * n * r["mass_len"],
-                           48 * r["n_pad"] + 4 * r["mass_len"])
+                           48 * r["n_pad"] + 4 * r["mass_len"],
+                           MUFU_DIRECT * n * r["mass_len"])
         return {"name": f"ring_forces hop, sharded substep N={n} D={d} "
                         f"S={r['mass_len']}, D shards on one card",
                 "route": "cuda", "source": RING_SRC,
@@ -1109,6 +1285,18 @@ def main() -> int:
                 "ms": r["profile"]["kernel_busy_ms"],
                 "plain_ms": r["torch"]["ms"], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None}
+
+    def ablation_row(key):
+        r = ablation[key]
+        best = r["best"]
+        source, replaces = ABLATION_KERNELS[key]
+        return {"name": f"{key} {best['name']}, N={BENCH_N} (best of the "
+                        f"module's sweep)",
+                "route": "cuda", "source": source, "replaces": replaces,
+                "launches": r["launches"], "max_abs_err": best["max_abs_err"],
+                "ms": best["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None}
 
     log(json.dumps({"kernels": [
         fused_row(BENCH_N, world.mass_len, "nbody_tpu/ops/pallas_forces.py:220",
@@ -1127,6 +1315,7 @@ def main() -> int:
         pp_row("default", P3M_DEFAULT, p3m["bench"]["launches"]["pp"]),
         ring_row(BENCH_N, 4),
         ring_row(BIG_N, 4),
+        *(ablation_row(key) for key in ABLATION_KERNELS),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,7 +46,8 @@
 
 #include <cuda_runtime.h>
 
-#include "source_tiles.cuh"  // kBlock, kTile, kSofteningFloor, accumulate_tiles
+#include "source_tiles.cuh"  // kBlock, kTile, kSofteningFloor, accumulate_tiles,
+                             // launch_sum_partials
 
 namespace {
 
@@ -117,22 +118,6 @@ direct_forces_split_kernel(const float2* __restrict__ tgt_pos,
                              begin, end, tile, ax, ay);
   if (live) partial[static_cast<size_t>(blockIdx.y) * n_tgt + i] =
       make_float2(ax, ay);
-}
-
-// acc[i] = sum over splits, in split order, of partial[k * n_tgt + i]: the
-// same order on every run (no atomics).
-__global__ void __launch_bounds__(kBlock)
-sum_splits_kernel(const float2* __restrict__ partial, int n_tgt, int n_split,
-                  float2* __restrict__ acc_out) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n_tgt) return;
-  float ax = 0.f, ay = 0.f;
-  for (int k = 0; k < n_split; ++k) {
-    const float2 a = partial[static_cast<size_t>(k) * n_tgt + i];
-    ax += a.x;
-    ay += a.y;
-  }
-  acc_out[i] = make_float2(ax, ay);
 }
 
 template <bool kPrecise, bool kIntegrate>
@@ -216,9 +201,10 @@ extern "C" int nbody_direct_forces_split(const void* tgt_pos,
         tp, tr, sp, sg, n_tgt, n_src, n_split, part);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_splits_kernel<<<grid.x, kBlock, 0, st>>>(
-      part, n_tgt, n_split, static_cast<float2*>(acc_out));
-  return static_cast<int>(cudaGetLastError());
+  // (n_split, n_tgt, 2) partials summed in split order into (n_tgt, 2).
+  return static_cast<int>(launch_sum_partials(
+      static_cast<const float*>(partial), n_tgt, n_split, 1, 2,
+      static_cast<float*>(acc_out), st));
 }
 
 // The number of SMs of the current device into *out; returns the

@@ -1,13 +1,18 @@
-// The source-tile loop shared by the direct kernel (direct_forces.cu) and
-// the ring hop kernel (ring_forces.cu): one thread per target, sources
-// staged through shared memory one tile at a time.
+// Pieces shared by every direct-force kernel: the softening floor and the
+// pair factor; the source-tile loop of the direct kernel (direct_forces.cu)
+// and the ring hop kernel (ring_forces.cu); the run loop over a staged
+// source chunk and the chunked force kernel of the ablation path
+// (resident_forces.cu, ptile_forces.cu, stationary_forces.cu,
+// newton_forces.cu); and the fixed-order sum of per-range partials.
 //
 // Math, per target i over sources j < n_src:
 //   dx = sx_j - x_i;  dy = sy_j - y_i
 //   r2 = dx*dx + dy*dy + (r_i + 1e-18)        (add order of _pair_chunk)
 //   f  = gm_j / (sqrt(r2) * r2)               (precise: IEEE sqrt, divide)
 //   f  = gm_j * inv*inv*inv, inv = rsqrt(r2)  (default)
-//   a_i = sum_j (dx, dy) * f, summed per tile of sources, then over tiles
+//   a_i = sum_j (dx, dy) * f, summed per run of sources, then over runs
+// The floor keeps a zero-radius target on a gm = 0 padding row at its own
+// position finite.
 
 #pragma once
 
@@ -18,18 +23,75 @@ namespace {
 constexpr int kBlock = 256;           // threads per block = targets per block
 constexpr int kTile = kBlock;         // sources staged per shared-memory tile
 constexpr float kSofteningFloor = 1e-18f;
+// Sources summed into fresh registers before joining a target's total, so
+// a rounding error grows with kRun plus the number of runs, not with the
+// source count (the TPU kernel's 128 column partials did the same).
+constexpr int kRun = kTile;
+
+template <bool kPrecise>
+__device__ __forceinline__ float pair_factor(float gm, float r2) {
+  if (kPrecise) return gm / (sqrtf(r2) * r2);
+  const float inv = rsqrtf(r2);
+  return gm * (inv * inv * inv);
+}
+
+// Adds to (ax[q], ay[q]) the force on P targets (px, py, soft) from the
+// `len` sources (x, y, gm, .) staged at `stage`, each run of kRun sources
+// summed into fresh registers first. One shared-memory read serves the P
+// targets. Sources are read kBatch at a time into registers before their
+// pairs are computed, so the shared-memory reads of a batch are in flight
+// together whatever schedule ptxas picks; the sums keep the source order.
+// (Left to ptxas, the same loop ran 2-8% slower or faster from one kernel
+// to the next on an H100; PERF.md.)
+template <int P, bool kPrecise>
+__device__ __forceinline__ void accumulate_staged(
+    const float4* stage, int len, const float (&px)[P], const float (&py)[P],
+    const float (&soft)[P], float (&ax)[P], float (&ay)[P]) {
+  constexpr int kBatch = 8;
+  for (int run = 0; run < len; run += kRun) {
+    const int end = min(run + kRun, len);
+    float tx[P], ty[P];
+#pragma unroll
+    for (int q = 0; q < P; ++q) tx[q] = ty[q] = 0.f;
+    auto add = [&](const float4& s) {
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const float dx = s.x - px[q];
+        const float dy = s.y - py[q];
+        const float f =
+            pair_factor<kPrecise>(s.z, dx * dx + dy * dy + soft[q]);
+        tx[q] += dx * f;
+        ty[q] += dy * f;
+      }
+    };
+    int k = run;
+    for (; k + kBatch <= end; k += kBatch) {
+      float4 s[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) s[b] = stage[k + b];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) add(s[b]);
+    }
+    for (; k < end; ++k) add(stage[k]);
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      ax[q] += tx[q];
+      ay[q] += ty[q];
+    }
+  }
+}
 
 // Adds to (ax, ay) the force on the target at p from source tiles
 // [tile_begin, tile_end) of kTile sources each, staged through `tile` by all
-// threads of the block. Each tile sums into fresh registers and then into
-// the total, so a rounding error grows with kTile + n_src / kTile terms, not
-// n_src (the TPU kernel's 128 column partials did the same). Warps with no
-// live target stage sources but skip the arithmetic.
+// threads of the block from (S, 2) positions and an (S,) gm row. Warps with
+// no live target stage sources but skip the arithmetic.
 template <bool kPrecise>
 __device__ __forceinline__ void accumulate_tiles(
     float2 p, float soft, bool warp_live, const float2* __restrict__ src_pos,
     const float* __restrict__ src_gm, int n_src, int tile_begin,
     int tile_end, float4* tile, float& ax, float& ay) {
+  float px[1] = {p.x}, py[1] = {p.y}, sf[1] = {soft};
+  float sx[1] = {ax}, sy[1] = {ay};
   for (int t = tile_begin; t < tile_end; ++t) {
     const int base = t * kTile;
     const int j = base + threadIdx.x;
@@ -38,31 +100,156 @@ __device__ __forceinline__ void accumulate_tiles(
       tile[threadIdx.x] = make_float4(s.x, s.y, src_gm[j], 0.f);
     }
     __syncthreads();
-    if (warp_live) {
-      // The ragged last tile stops at n_src: no padding source is computed.
-      const int len = min(kTile, n_src - base);
-      float tx = 0.f, ty = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < len; ++k) {
-        const float4 s = tile[k];
-        const float dx = s.x - p.x;
-        const float dy = s.y - p.y;
-        const float r2 = dx * dx + dy * dy + soft;
-        float f;
-        if (kPrecise) {
-          f = s.z / (sqrtf(r2) * r2);
-        } else {
-          const float inv = rsqrtf(r2);
-          f = s.z * (inv * inv * inv);
-        }
-        tx += dx * f;
-        ty += dy * f;
-      }
-      ax += tx;
-      ay += ty;
-    }
+    // The ragged last tile stops at n_src: no padding source is computed.
+    if (warp_live)
+      accumulate_staged<1, kPrecise>(tile, min(kTile, n_src - base), px, py,
+                                     sf, sx, sy);
     __syncthreads();
   }
+  ax = sx[0];
+  ay = sy[0];
+}
+
+// stage[k] = (x, y, gm, 0) of sources [base, base + len) of the (3, n_src)
+// rows at `src`, written by all threads of the block.
+__device__ __forceinline__ void stage_sources(const float* __restrict__ src,
+                                              int n_src, int base, int len,
+                                              float4* stage) {
+  for (int k = threadIdx.x; k < len; k += blockDim.x) {
+    const int j = base + k;
+    stage[k] = make_float4(src[j], src[n_src + j], src[2 * n_src + j], 0.f);
+  }
+}
+
+// Targets as (T, 2) positions and a (T,) radius, results as (T, 2) pairs.
+struct PairTargets {
+  const float2* pos;
+  const float* radius;
+  __device__ void load(int i, int, float& x, float& y, float& r) const {
+    const float2 p = pos[i];
+    x = p.x;
+    y = p.y;
+    r = radius[i];
+  }
+  static constexpr int kComp = 1;  // out stride from ax to ay
+  static constexpr int kElem = 2;  // out stride from target i to i + 1
+};
+
+// Targets as (3, T) rows x; y; r, results as (2, T) rows ax; ay.
+struct RowTargets {
+  const float* rows;
+  __device__ void load(int i, int n, float& x, float& y, float& r) const {
+    x = rows[i];
+    y = rows[n + i];
+    r = rows[2 * n + i];
+  }
+  static constexpr int kComp = -1;  // n: the second row
+  static constexpr int kElem = 1;
+};
+
+// The chunked force: block (x, y) holds P * blockDim.x targets, P per
+// thread (i, i + blockDim.x, ..., strided so that loads stay coalesced),
+// stages the (3, n_src) sources `chunk` at a time through dynamic shared
+// memory over the y-th of gridDim.y contiguous ranges of whole chunks, and
+// writes the sums to out + y * 2 * n_tgt in the Targets' result layout.
+template <int P, bool kPrecise, class Targets>
+__global__ void chunk_kernel(Targets targets, const float* __restrict__ src,
+                             int n_tgt, int n_src, int chunk,
+                             int chunks_per_split, float* __restrict__ out) {
+  extern __shared__ float4 stage[];
+  const int first = blockIdx.x * (P * blockDim.x) + threadIdx.x;
+  float px[P], py[P], soft[P], ax[P], ay[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int i = first + q * blockDim.x;
+    // Threads past the last target still stage sources.
+    float r = 0.f;
+    px[q] = py[q] = 0.f;
+    if (i < n_tgt) targets.load(i, n_tgt, px[q], py[q], r);
+    soft[q] = i < n_tgt ? r + kSofteningFloor : 1.f;
+    ax[q] = ay[q] = 0.f;
+  }
+  const int n_chunks = (n_src + chunk - 1) / chunk;
+  const int c_begin = min(static_cast<int>(blockIdx.y) * chunks_per_split,
+                          n_chunks);
+  const int c_end = min(c_begin + chunks_per_split, n_chunks);
+  for (int c = c_begin; c < c_end; ++c) {
+    const int base = c * chunk;
+    const int len = min(chunk, n_src - base);
+    stage_sources(src, n_src, base, len, stage);
+    __syncthreads();
+    accumulate_staged<P, kPrecise>(stage, len, px, py, soft, ax, ay);
+    __syncthreads();
+  }
+  const int comp = Targets::kComp < 0 ? n_tgt : Targets::kComp;
+  float* o = out + static_cast<size_t>(blockIdx.y) * 2 * n_tgt;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int i = first + q * blockDim.x;
+    if (i < n_tgt) {
+      o[i * Targets::kElem] = ax[q];
+      o[i * Targets::kElem + comp] = ay[q];
+    }
+  }
+}
+
+// out[c * comp + i * elem] = sum over k < n_part, in order of k, of
+// part[k * 2 n + c * comp + i * elem], for c in {0, 1}: an n-target result
+// from n_part partials of the same layout ((n, 2) pairs: comp 1, elem 2;
+// (2, n) rows: comp n, elem 1), the same bits on every run (no atomics).
+__global__ void __launch_bounds__(kBlock)
+sum_partials_kernel(const float* __restrict__ part, int n, int n_part,
+                    int comp, int elem, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t at = static_cast<size_t>(i) * elem;
+  float ax = 0.f, ay = 0.f;
+  for (int k = 0; k < n_part; ++k) {
+    const float* p = part + static_cast<size_t>(k) * 2 * n + at;
+    ax += p[0];
+    ay += p[comp];
+  }
+  out[at] = ax;
+  out[at + comp] = ay;
+}
+
+inline cudaError_t launch_sum_partials(const float* part, int n, int n_part,
+                                       int comp, int elem, float* out,
+                                       cudaStream_t stream) {
+  sum_partials_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0, stream>>>(
+      part, n, n_part, comp, elem, out);
+  return cudaGetLastError();
+}
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// Launches chunk_kernel over n_split ranges of whole chunks: straight into
+// out when n_split = 1, else into the (n_split, ...) partials at `part`,
+// summed in split order into out.
+template <int P, bool kPrecise, class Targets>
+cudaError_t launch_chunked(Targets targets, const float* src, int n_tgt,
+                           int n_src, int block, int chunk, int n_split,
+                           float* part, float* out, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(chunk) * sizeof(float4);
+  cudaError_t err = allow_smem(chunk_kernel<P, kPrecise, Targets>, smem);
+  if (err != cudaSuccess) return err;
+  const int n_chunks = (n_src + chunk - 1) / chunk;
+  const int per = (n_chunks + n_split - 1) / n_split;
+  const dim3 grid((n_tgt + P * block - 1) / (P * block), n_split);
+  chunk_kernel<P, kPrecise, Targets><<<grid, block, smem, st>>>(
+      targets, src, n_tgt, n_src, chunk, per, n_split > 1 ? part : out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  const int comp = Targets::kComp < 0 ? n_tgt : Targets::kComp;
+  return launch_sum_partials(part, n_tgt, n_split, comp, Targets::kElem, out,
+                             st);
 }
 
 }  // namespace

@@ -28,6 +28,8 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
+
 INTEGRATORS = ("euler", "leapfrog", "yoshida4")
 
 _CBRT2 = 2.0 ** (1.0 / 3.0)
@@ -47,6 +49,13 @@ def stage_weights(integrator: str) -> tuple[float, ...] | None:
         return (YOSHIDA4_W1, YOSHIDA4_W0, YOSHIDA4_W1)
     raise ValueError(
         f"integrator must be one of {INTEGRATORS}, got {integrator!r}")
+
+
+def stage_dt(w: float, dt: float) -> float:
+    """The stage's dt, ``w * dt`` rounded in fp32 as the JAX step forms it
+    (``w`` is weakly typed there, ``dt`` an fp32 array); ``dt`` itself for
+    a weight of 1."""
+    return dt if w == 1.0 else float(np.float32(w) * np.float32(dt))
 
 
 def advance(
@@ -74,7 +83,7 @@ def advance(
         pos = pos + dt * vel
         return pos, vel, acc
     for w in ws:
-        dtk = dt if w == 1.0 else w * dt
+        dtk = stage_dt(w, dt)
         pos = pos + (0.5 * dtk) * vel
         acc = force(pos)
         vel = vel + dtk * acc

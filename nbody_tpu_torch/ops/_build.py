@@ -57,6 +57,32 @@ SIGNATURES = {
             _i32,                      # precise
             _vp, _vp, _vp, _vp],       # acc/pos/vel out, stream
     },
+    "resident_forces": {
+        "nbody_resident_forces": [
+            _vp, _vp, _vp,             # tgt pos (T, 2), radius, src (3, S)
+            _i32, _i32, _i32, _i32,    # n_tgt, n_src, block, chunk
+            _i32, _vp, _vp],           # precise, acc out (T, 2), stream
+    },
+    "ptile_forces": {
+        "nbody_ptile_forces": [
+            _vp, _vp,                  # tgt (3, T), src (3, S)
+            _i32, _i32, _i32, _i32,    # n_tgt, n_src, p, block
+            _i32, _i32,                # chunk, n_split
+            _vp, _vp, _vp],            # partials, out (2, T), stream
+    },
+    "stationary_forces": {
+        "nbody_stationary_forces": [
+            _vp, _vp,                  # tgt (3, T), src (3, S)
+            _i32, _i32, _i32, _i32,    # n_tgt, n_src, block, chunk
+            _i32, _i32,                # n_slabs, precise
+            _vp, _vp, _vp],            # partials, out (2, T), stream
+    },
+    "newton_forces": {
+        "nbody_newton_forces": [
+            _vp, _vp,                  # tgt (4, T), src (4, S)
+            _i32, _i32, _i32, _i32,    # n_tgt, n_src, mass_len, tile
+            _vp, _vp, _vp],            # reverse scratch, out (2, T), stream
+    },
     "p3m_pp": {
         "nbody_p3m_pp": [
             _vp, _vp, _vp,             # tx, ty, tr (gc, gc, cap_t)

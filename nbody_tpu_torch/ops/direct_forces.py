@@ -109,19 +109,23 @@ def sm_count(index: int) -> int:
     return out.value
 
 
+def split_ranges(blocks: int, units: int, sms: int) -> int:
+    """Number of contiguous source ranges of whole units (tiles, chunks)
+    for ``blocks`` target blocks on a card of ``sms`` SMs: 1 when the
+    target blocks fill two blocks per SM; else enough ranges for about two
+    blocks per SM, with no range left empty."""
+    if blocks == 0 or units <= 1 or blocks >= 2 * sms:
+        return 1
+    n = min(-(-2 * sms // blocks), units)
+    per = -(-units // n)
+    return -(-units // per)
+
+
 def _split_plan(t: int, s: int, sms: int) -> int:
     """Number of source ranges ``force_acc`` cuts its sum into for T targets,
-    S sources on a card of ``sms`` SMs: 1 (one launch, one block per 256
-    targets) when the target blocks fill two blocks per SM; else enough
-    ranges of whole 256-source tiles for about two blocks per SM, with no
-    range left empty."""
-    blocks = -(-t // BLOCK)
-    tiles = -(-s // TILE)
-    if t == 0 or tiles <= 1 or blocks >= 2 * sms:
-        return 1
-    n = min(-(-2 * sms // blocks), tiles)
-    per = -(-tiles // n)
-    return -(-tiles // per)
+    S sources on a card of ``sms`` SMs (:func:`split_ranges` over blocks of
+    256 targets and tiles of 256 sources)."""
+    return split_ranges(-(-t // BLOCK), -(-s // TILE), sms)
 
 
 def force_acc_plain(tgt_pos, tgt_radius, src_pos, src_gm, *,

@@ -12,10 +12,11 @@ The convolution is free-space (zero-padded to 2G per axis) through
 ``torch.fft.rfft2``/``irfft2``. The box adapts to the bounding square of the
 particles at every call. ``_box`` and ``_cic_weights`` keep the JAX
 package's fp32 operation order, so cell indices agree with it bit for bit.
-The CIC scatter accumulates with ``index_add_`` into the flattened grid: on
-the card its sums run by atomics, in an order that varies from run to run.
-(``index_put_(..., accumulate=True)`` would sort its indices on the card
-first.)
+The CIC scatter accumulates with ``index_put_(..., accumulate=True)`` into
+the flattened grid. On the card that op sorts its indices and sums each
+cell's entries in their order, so two runs give the same bits
+(``index_add_`` sums by float atomics there, in an order that varies from
+run to run); on the CPU it runs serially in the same order.
 
 The sizes and shapes stay on the device: the box is a pair of 0-dim
 tensors, so nothing here waits for the host.
@@ -81,17 +82,16 @@ def _box(all_min, all_max, grid):
 
 
 def _cic_scatter(src_pos, src_gm, lo, inv_h, grid):
-    """(G, G) mass grid: each source's gm spread over its four CIC cells."""
+    """(G, G) mass grid: each source's gm spread over its four CIC cells.
+    Each cell sums its entries in a fixed order: the four corners in the
+    JAX package's order, each corner's sources in row order."""
     i0, j0, wx, wy = _cic_weights(src_pos, lo, inv_h, grid)
-    rho = torch.zeros(grid * grid, dtype=DTYPE, device=src_pos.device)
     c = i0 * grid + j0
-    for dc, w in (
-        (0, (1 - wx) * (1 - wy)),
-        (grid, wx * (1 - wy)),
-        (1, (1 - wx) * wy),
-        (grid + 1, wx * wy),
-    ):
-        rho.index_add_(0, c + dc, src_gm * w)
+    cells = torch.cat([c, c + grid, c + 1, c + grid + 1])
+    mass = torch.cat([src_gm * ((1 - wx) * (1 - wy)), src_gm * (wx * (1 - wy)),
+                      src_gm * ((1 - wx) * wy), src_gm * (wx * wy)])
+    rho = torch.zeros(grid * grid, dtype=DTYPE, device=src_pos.device)
+    rho.index_put_((cells,), mass, accumulate=True)
     return rho.reshape(grid, grid)
 
 

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 from typing import Literal
 
-import numpy as np
 import torch
 
 from .. import integrators
@@ -197,9 +196,7 @@ class ShardedWorld:
                     self._stage(dt, dkd=False)
                     continue
                 for w in ws:
-                    # the stage dt rounded in fp32, as the JAX step forms it
-                    self._stage(dt if w == 1.0 else
-                                float(np.float32(w) * np.float32(dt)), dkd=True)
+                    self._stage(integrators.stage_dt(w, dt), dkd=True)
         self._host_cache = None
         return self
 

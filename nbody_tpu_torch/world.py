@@ -27,7 +27,6 @@ from __future__ import annotations
 
 from typing import Literal
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -38,8 +37,26 @@ from .ops.pm_forces import pm_acc
 from .types import (DEFAULT_SIM_CONFIG, DTYPE, Particles, SimConfig,
                     astuple_shallow)
 
-Backend = Literal["torch", "cuda", "pm", "p3m"]
+Backend = Literal["torch", "cuda", "pm", "p3m", "auto"]
 BACKENDS = ("torch", "cuda", "pm", "p3m")
+
+# "auto" picks the direct sum at or below this many pair evaluations per
+# substep (total_len * mass_len) and p3m above. This is nbody_tpu's rule
+# and number (nbody_tpu/world.py:81-100), set on a TPU; the H100's own
+# crossover is a measurement still to make (ROADMAP A6).
+AUTO_P3M_MIN_PAIRS = 16_000_000_000
+
+
+def resolve_backend(backend: Backend, total_len: int, mass_len: int, *,
+                    direct: Backend = "torch") -> Backend:
+    """Resolve ``"auto"`` by nbody_tpu's rule: ``direct`` (the device's
+    direct-sum backend, where nbody_tpu answers "jnp") at or below
+    AUTO_P3M_MIN_PAIRS, "p3m" above. The port has no collision merging, so
+    the rule's merging branch ("pm") never applies. Every other backend
+    passes through unchanged."""
+    if backend != "auto":
+        return backend
+    return direct if total_len * mass_len <= AUTO_P3M_MIN_PAIRS else "p3m"
 
 
 def partition_massive_first(mass) -> tuple[torch.Tensor, int]:
@@ -66,6 +83,7 @@ class World:
     (nbody.h:61-73): create, update, read back."""
 
     def __init__(self, particles: Particles, *, config: SimConfig = DEFAULT_SIM_CONFIG,
+                 default_backend: Backend | None = None,
                  device: torch.device | str = "cuda"):
         self.device = _resolve_device(device)
         order, mass_len = partition_massive_first(particles.mass)
@@ -89,19 +107,28 @@ class World:
         self.total_len = self.state.n
         self.mass_len = mass_len
         self.config = config
-        self.default_backend: Backend = (
-            "cuda" if self.device.type == "cuda" else "torch")
+        # None is the device's direct backend, as nbody_tpu's None is
+        # "pallas" or "jnp"
+        self._direct: Backend = "cuda" if self.device.type == "cuda" else "torch"
+        self.default_backend: Backend = self._resolve(default_backend)
         self._host_cache: Particles | None = None
 
     # -- update ---------------------------------------------------------
-    def update(self, dt: float, n: int = 1, backend: Backend | None = None) -> "World":
-        """n substeps of size dt on ``backend`` (default: "cuda" on a CUDA
-        device, "torch" on the CPU). "p3m" builds its cell bins at the first
-        substep of the call and again at every substep index that is a
-        multiple of ``p3m_rebin_interval``, as ``nbody_tpu`` does."""
-        backend = backend or self.default_backend
+    def _resolve(self, backend: Backend | None) -> Backend:
+        backend = resolve_backend(backend or self._direct, self.total_len,
+                                  self.mass_len, direct=self._direct)
         if backend not in BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+            raise ValueError(f"backend must be one of {BACKENDS} or 'auto', "
+                             f"got {backend!r}")
+        return backend
+
+    def update(self, dt: float, n: int = 1, backend: Backend | None = None) -> "World":
+        """n substeps of size dt on ``backend`` (default: the world's
+        ``default_backend``; "auto" resolves as :func:`resolve_backend`
+        says). "p3m" builds its cell bins at the first substep of the call
+        and again at every substep index that is a multiple of
+        ``p3m_rebin_interval``, as ``nbody_tpu`` does."""
+        backend = self._resolve(backend or self.default_backend)
         if backend == "cuda" and self.device.type != "cuda":
             raise ValueError(
                 f"backend 'cuda' needs a world on a CUDA device, this one is "
@@ -167,8 +194,7 @@ class World:
         ws = integrators.stage_weights(self.config.integrator)
         pos, vel, acc = st.pos, st.vel, st.acc
         for w in (1.0,) if ws is None else ws:
-            # the stage dt rounded in fp32, as the JAX step forms it
-            dtk = dt if w == 1.0 else float(np.float32(w) * np.float32(dt))
+            dtk = integrators.stage_dt(w, dt)
             pos_in = pos if ws is None else pos + (0.5 * dtk) * vel
             pos, vel, acc = fused_substep(
                 dtk, pos_in, vel, st.radius, self.gm,
@@ -214,7 +240,11 @@ class World:
 
 
 def create_world(particles: Particles, *, config: SimConfig = DEFAULT_SIM_CONFIG,
+                 default_backend: Backend | None = None,
                  device: torch.device | str = "cuda") -> World:
     """CreateWorld (nbody.h:61) on ``device`` ("cuda[:k]", the default, or
-    "cpu"). Without a GPU, "cuda" raises."""
-    return World(particles, config=config, device=device)
+    "cpu"). Without a GPU, "cuda" raises. ``default_backend`` as in
+    nbody_tpu: None is the device's direct backend ("cuda" or "torch"),
+    "auto" resolves by :func:`resolve_backend`."""
+    return World(particles, config=config, default_backend=default_backend,
+                 device=device)

@@ -1,0 +1,294 @@
+"""The ablation path's plain versions (K5a, K5g, K5d, K5h) against the TPU
+scripts' Pallas kernels in scripts/ablations/, run in Pallas interpret mode
+on the CPU, on the same numpy inputs: the two-galaxy scene, seed 11037, at
+N=2048 and N=4096 (mass_len 1004 and 2012).
+
+The scripts are loaded from their files and are not edited; the test
+patches ``pallas_call`` to interpret mode while it runs them. Tolerance:
+max|Δ|/max|ref| < 5e-6, the direct force's bound; both sides are fp32 sums
+of the same terms in another order (the scripts leave out the 1e-18
+softening floor, which is absorbed in fp32 for radii >= 0.5).
+
+The Newton kernel of tune_r2h.py is right only where the full massive
+tiles fill whole source chunks (m_full % (fchunk // tile_t) == 0); it is
+held to the port there, and the port's schedule is held to the direct sum
+and to a pair count at every shape.
+"""
+
+import functools
+import importlib.util
+from pathlib import Path
+
+import jax  # noqa: F401  (tests/conftest.py pins it to the CPU)
+import jax.experimental.pallas as jpl
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_helpers import rel_err
+
+import nbody_tpu as nb
+from nbody_tpu import forces as jforces
+from nbody_tpu_torch.ablations import _scene, tune_r2, tune_r2d, tune_r2g, tune_r2h
+from nbody_tpu_torch.ops import newton_forces as nwf
+from nbody_tpu_torch.ops import ptile_forces as ptf
+from nbody_tpu_torch.ops import resident_forces as rsf
+from nbody_tpu_torch.ops import stationary_forces as stf
+
+SCRIPTS = Path(__file__).resolve().parent.parent / "scripts" / "ablations"
+TOL = 5e-6
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(f"_ablation_{name}",
+                                                  SCRIPTS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """Pallas kernels run in interpret mode while the test runs."""
+    monkeypatch.setattr(jpl, "pallas_call",
+                        functools.partial(jpl.pallas_call, interpret=True))
+
+
+@functools.cache
+def _scene_np(n):
+    """The port's scene as numpy (pos, radius, gm (N,) zero past mass_len,
+    mass_len), checked bit-equal to nbody_tpu's world of the same scene."""
+    sc = _scene.make_scene(n, device="cpu")
+    w = nb.create_world(nb.make_galaxies(n, 2, seed=_scene.SEED))
+    pos, radius, gm = sc.pos.numpy(), sc.radius.numpy(), sc.gm.numpy()
+    assert w.mass_len == sc.mass_len
+    np.testing.assert_array_equal(pos, np.asarray(w.state.pos)[:n])
+    np.testing.assert_array_equal(radius, np.asarray(w.state.radius)[:n])
+    np.testing.assert_array_equal(gm, np.asarray(w.gm)[:n])
+    return sc, pos, radius, gm, sc.mass_len
+
+
+def _acc(ax, ay):
+    return np.stack([np.asarray(ax)[0], np.asarray(ay)[0]], axis=1)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+
+# --- the scene rows in the scripts' layouts ---
+
+@pytest.mark.parametrize("n", [2048, 4096])
+def test_scene_rows_match_the_scripts_layouts(n):
+    sc, pos, radius, gm, m = _scene_np(n)
+    s128 = -(-m // 128) * 128
+    assert sc.s128 == s128
+    np.testing.assert_array_equal(sc.src3(s128).numpy(), np.stack(
+        [pos[:s128, 0], pos[:s128, 1], gm[:s128]]))
+    np.testing.assert_array_equal(sc.tgt3().numpy(), np.stack(
+        [pos[:, 0], pos[:, 1], radius]))
+    np.testing.assert_array_equal(sc.tgt4().numpy(), np.stack(
+        [pos[:, 0], pos[:, 1], radius, gm]))
+    np.testing.assert_array_equal(sc.src4(s128).numpy(), np.stack(
+        [pos[:s128, 0], pos[:s128, 1], gm[:s128], radius[:s128]]))
+    # rows past N are inert padding: gm 0 (and radius 1)
+    long = sc.src4(n + 5).numpy()
+    np.testing.assert_array_equal(long[:, n:], [[0] * 5, [0] * 5, [0] * 5, [1] * 5])
+
+
+# --- K5a: tune_r2.py::v2_acc ---
+
+@pytest.mark.parametrize("tile_t,chunk", [(512, 2048), (1024, 512)])
+@pytest.mark.parametrize("n", [2048, 4096])
+def test_k5a_plain_matches_script(interpret, n, tile_t, chunk):
+    sc, pos, radius, gm, m = _scene_np(n)
+    src = sc.src3(sc.s128).numpy()
+    want = np.asarray(_script("tune_r2").v2_acc(
+        jnp.asarray(pos), jnp.asarray(radius), jnp.asarray(src),
+        tile_t=tile_t, chunk=chunk))
+    got = rsf.v2_acc(_t(pos), _t(radius), _t(src), block=tile_t // 2,
+                     chunk=chunk)
+    assert rel_err(got, want) < TOL
+
+
+# --- K5g: tune_r2g.py::make_ptile ---
+
+@pytest.mark.parametrize("p,sub_t,chunk", [(4, 256, 512), (2, 512, 1024)])
+@pytest.mark.parametrize("n", [2048, 4096])
+def test_k5g_plain_matches_script(interpret, n, p, sub_t, chunk):
+    sc, *_ = _scene_np(n)
+    tgt, src = sc.tgt3().numpy(), sc.src3(sc.s128).numpy()
+    want = _acc(*_script("tune_r2g").make_ptile(p, sub_t, chunk)(
+        jnp.asarray(tgt), jnp.asarray(src)))
+    got = _acc(*ptf.ptile_acc(_t(tgt), _t(src), p=p, block=sub_t // 2,
+                              chunk=chunk))
+    assert rel_err(got, want) < TOL
+
+
+# --- K5d: tune_r2d.py::make_k3 ---
+
+@pytest.mark.parametrize("tile_t,chunk,manual", [(512, 256, False),
+                                                 (256, 512, True)])
+@pytest.mark.parametrize("n", [2048, 4096])
+def test_k5d_plain_matches_script(interpret, n, tile_t, chunk, manual):
+    """The plain version sums per-chunk partials in chunk order; the
+    script revisits one accumulator chunk by chunk."""
+    sc, *_ = _scene_np(n)
+    s_pad = -(-sc.mass_len // chunk) * chunk
+    tgt, src = sc.tgt3().numpy(), sc.src3(s_pad).numpy()
+    want = np.asarray(_script("tune_r2d").make_k3(tile_t, chunk, manual)(
+        jnp.asarray(tgt), jnp.asarray(src)))
+    got = stf.stationary_acc(_t(tgt), _t(src), block=tile_t // 2, chunk=chunk)
+    assert got.shape == (2, n)
+    assert rel_err(got, want) < TOL
+
+
+def test_k5d_plain_is_the_chunk_ordered_sum():
+    sc, *_ = _scene_np(2048)
+    tgt, src = sc.tgt3(), sc.src3(1024)
+    want = torch.zeros((2, 2048))
+    for lo in (0, 256, 512, 768):
+        want += stf.stationary_acc_plain(tgt, src[:, lo:lo + 256], chunk=256)
+    assert torch.equal(stf.stationary_acc_plain(tgt, src, chunk=256), want)
+
+
+# --- K5h: tune_r2h.py::make_newton ---
+
+# (n, tile_t, fchunk) where the script's kernel is right: the full massive
+# tiles fill whole chunks (m_full = 7 at N=2048 with tile 128 and 3 with
+# tile 256; 15 and 7 at N=4096).
+NEWTON_EXACT = [(2048, 128, 128), (2048, 256, 256), (4096, 128, 384),
+                (4096, 256, 256)]
+
+
+@pytest.mark.parametrize("n,tile_t,fchunk", NEWTON_EXACT)
+def test_k5h_plain_matches_script(interpret, n, tile_t, fchunk):
+    sc, *_ = _scene_np(n)
+    m_full = sc.mass_len // tile_t
+    assert m_full % (fchunk // tile_t) == 0
+    tgt, src = sc.tgt4().numpy(), sc.src4(sc.s128).numpy()
+    want = _acc(*_script("tune_r2h").make_newton(
+        tile_t, sc.mass_len, sc.s128, fchunk)(jnp.asarray(tgt), jnp.asarray(src)))
+    got = _acc(*nwf.newton_acc(_t(tgt), _t(src), sc.mass_len, tile=tile_t))
+    assert rel_err(got, want) < TOL
+
+
+def test_k5h_script_miscounts_where_tiles_do_not_fill_chunks(interpret):
+    """The TPU reference's fault: at N=2048, tile 256, fchunk 512 (m_full
+    = 3, two tiles per chunk) the massive tile past the full chunks sums
+    its chunk twice and misses the sources below it. The port's schedule
+    has no chunks and is right there."""
+    sc, pos, radius, gm, m = _scene_np(2048)
+    tgt, src = sc.tgt4().numpy(), sc.src4(sc.s128).numpy()
+    ref = np.asarray(jforces.direct_sum_acc(
+        jnp.asarray(pos), jnp.asarray(radius), jnp.asarray(pos[:m]),
+        jnp.asarray(gm[:m]), precise=False))
+    bad = _acc(*_script("tune_r2h").make_newton(256, m, sc.s128, 512)(
+        jnp.asarray(tgt), jnp.asarray(src)))
+    assert rel_err(bad, ref) > 0.5
+    got = _acc(*nwf.newton_acc(_t(tgt), _t(src), m, tile=256))
+    assert rel_err(got, ref) < TOL
+
+
+@pytest.mark.parametrize("tile", [128, 256, 512])
+@pytest.mark.parametrize("n", [2048, 2000, 3001])
+def test_k5h_plain_matches_direct_sum(n, tile):
+    """Every tile width at N and mass_len that are not whole numbers of
+    tiles, against nbody_tpu's direct sum."""
+    sc, pos, radius, gm, m = _scene_np(n)
+    want = np.asarray(jforces.direct_sum_acc(
+        jnp.asarray(pos), jnp.asarray(radius), jnp.asarray(pos[:m]),
+        jnp.asarray(gm[:m]), precise=False))
+    got = _acc(*nwf.newton_acc(sc.tgt4(), sc.src4(sc.s128), m, tile=tile))
+    assert rel_err(got, want) < TOL
+
+
+@pytest.mark.parametrize("t,m,s,w", [
+    (2048, 1004, 1024, 128),     # the N=2048 scene
+    (2000, 997, 1024, 256),      # ragged N and mass_len
+    (4096, 2012, 2048, 512),
+    (1000, 1000, 1000, 128),     # all massive, S = M
+    (700, 0, 128, 128),          # no massive rows
+    (130, 129, 256, 128),        # one full massive tile
+    (5000, 2500, 2560, 256),
+    (1536, 1536, 1536, 256),     # whole tiles, an even m_full
+])
+def test_newton_schedule_counts_every_pair_once(t, m, s, w):
+    """Every (target, source) pair of T x S is counted once by the blocks
+    of the schedule: forward ranges once, a dual block once for its
+    targets and once, reversed, for its sources; every tile is run by
+    exactly one block, the pairs of massive tiles first."""
+    count = np.zeros((t, s), np.int32)
+    tiles = []
+    blocks = nwf.newton_schedule(t, m, s, w)
+    for block in blocks:
+        for i, work in block:
+            tiles.append(i)
+            rows = slice(i * w, min((i + 1) * w, t))
+            for kind, lo, hi in work:
+                count[rows, lo:hi] += 1
+                if kind == "dual":
+                    count[lo:hi, rows] += 1
+    assert sorted(tiles) == list(range(-(-t // w)))
+    assert (count == 1).all(), np.argwhere(count != 1)[:5]
+    fwd, dual = nwf.newton_pairs(t, m, s, w)
+    assert fwd + 2 * dual == t * s
+    assert dual == sum(w * (hi - lo) for block in blocks for _, work in block
+                       for kind, lo, hi in work if kind == "dual")
+
+
+# --- wrappers on the CPU ---
+
+def test_cpu_wrappers_make_no_launch():
+    sc, *_ = _scene_np(2048)
+    before = (rsf.LAUNCHES, ptf.LAUNCHES, stf.LAUNCHES, nwf.LAUNCHES)
+    rsf.v2_acc(sc.pos, sc.radius, sc.src3(sc.s128))
+    ptf.ptile_acc(sc.tgt3(), sc.src3(sc.s128))
+    stf.stationary_acc(sc.tgt3(), sc.src3(1024), chunk=512)
+    nwf.newton_acc(sc.tgt4(), sc.src4(sc.s128), sc.mass_len)
+    assert (rsf.LAUNCHES, ptf.LAUNCHES, stf.LAUNCHES, nwf.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("call,exc", [
+    (lambda sc: rsf.v2_acc(sc.pos, sc.radius, sc.src3(128)[:2]), ValueError),
+    (lambda sc: rsf.v2_acc(sc.pos.double(), sc.radius, sc.src3(128)), TypeError),
+    (lambda sc: rsf.v2_acc(sc.pos, sc.radius, sc.src3(128), block=100), ValueError),
+    (lambda sc: ptf.ptile_acc(sc.tgt3(), sc.src3(128), p=3), ValueError),
+    (lambda sc: ptf.ptile_acc(sc.tgt3().T, sc.src3(128)), ValueError),
+    (lambda sc: stf.stationary_acc(sc.tgt3(), sc.src3(1000), chunk=512), ValueError),
+    (lambda sc: nwf.newton_acc(sc.tgt4(), sc.src4(1024), 1004, tile=64), ValueError),
+    (lambda sc: nwf.newton_acc(sc.tgt4(), sc.src4(512), 1004), ValueError),
+    (lambda sc: nwf.newton_acc(sc.tgt3(), sc.src4(1024), 1004), ValueError),
+])
+def test_wrapper_argument_errors(call, exc):
+    sc, *_ = _scene_np(2048)
+    with pytest.raises(exc):
+        call(sc)
+
+
+@pytest.mark.parametrize("module", [tune_r2, tune_r2g, tune_r2d, tune_r2h])
+def test_ablation_module_needs_the_card(module, monkeypatch):
+    """Each module's entry point measures the card; without one it raises
+    before building a scene."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_scene, "make_scene", pytest.fail)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main()
+
+
+@pytest.mark.parametrize("module", [tune_r2, tune_r2g, tune_r2d, tune_r2h])
+def test_ablation_sweeps_are_launchable(module):
+    """Every configuration of a module's sweep passes its wrapper's checks
+    (block, chunk and tile ranges) on a small CPU scene."""
+    sc, *_ = _scene_np(2048)
+    for cfg in module.SWEEP:
+        if module is tune_r2:
+            rsf._check_launch(*cfg)
+        elif module is tune_r2g:
+            p, block, chunk, _ = cfg
+            assert p in ptf.PS
+            rsf._check_launch(block, chunk)
+        elif module is tune_r2d:
+            rsf._check_launch(*cfg[:2])
+        else:
+            assert cfg in nwf.TILES

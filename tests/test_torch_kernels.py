@@ -22,6 +22,10 @@ from torch_helpers import cuda, random_arrays, rel_err  # noqa: F401 (fixture)
 
 import nbody_tpu_torch as nt
 from nbody_tpu_torch.ops import direct_forces as df
+from nbody_tpu_torch.ops import newton_forces as nwf
+from nbody_tpu_torch.ops import ptile_forces as ptf
+from nbody_tpu_torch.ops import resident_forces as rsf
+from nbody_tpu_torch.ops import stationary_forces as stf
 from nbody_tpu_torch.ops import p3m_forces, p3m_pp
 from nbody_tpu_torch.ops import ring_forces as rf
 from nbody_tpu_torch.parallel import ShardedWorld, make_mesh
@@ -209,10 +213,10 @@ def test_pp_blocks_zero_counts_write_zeros(cuda):
 @pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
 def test_world_p3m_on_the_card(cuda, integrator):
     """The p3m world on the card (K4 and the split force_acc) against the
-    same scene's plain path on the CPU, 5 substeps. The card's CIC scatter
-    sums by atomics in a varying order and its FFT is cuFFT, so the mesh
-    force differs from the CPU's at fp32 noise. Bounds: pos 1e-6, vel and
-    acc 2e-5 of max, the CPU-vs-JAX tolerances of test_torch_p3m.py."""
+    same scene's plain path on the CPU, 5 substeps. The card's FFT is
+    cuFFT, so the mesh force differs from the CPU's at fp32 noise. Bounds:
+    pos 1e-6, vel and acc 2e-5 of max, the CPU-vs-JAX tolerances of
+    test_torch_p3m.py."""
     cfg = nt.SimConfig(pm_grid=256, p3m_cell_capacity=32,
                        integrator=integrator)
     scene = nt.make_galaxies(4000, 2, seed=11037)
@@ -226,6 +230,99 @@ def test_world_p3m_on_the_card(cuda, integrator):
         got, want = getattr(w_k.particles, name), getattr(w_p.particles, name)
         assert torch.isfinite(got).all()
         assert rel_err(got, want) < tol, name
+
+
+@pytest.mark.parametrize("backend", ["pm", "p3m"])
+def test_mesh_world_two_runs_are_bit_equal(cuda, backend):
+    """The mesh path sums its CIC scatter in a fixed order, so two runs
+    from the same state give the same bits."""
+    cfg = nt.SimConfig(pm_grid=256, p3m_cell_capacity=32)
+    scene = nt.make_galaxies(20_000, 2, seed=11037)
+    runs = []
+    for _ in range(2):
+        w = nt.create_world(scene, config=cfg, device=cuda)
+        w.update(0.01, 5, backend=backend)
+        runs.append(w.particles)
+    for name in ("pos", "vel", "acc"):
+        got = getattr(runs[0], name)
+        assert torch.isfinite(got).all(), name
+        assert torch.equal(got, getattr(runs[1], name)), name
+
+
+# --- K5a, K5g, K5d, K5h: the direct-force variants of the ablation path ---
+
+def _scene(device, n):
+    from nbody_tpu_torch.ablations import _scene as sc
+
+    return sc.make_scene(n, device=device)
+
+
+def _twice(call):
+    """call() twice: the first result, and whether the two are bit-equal."""
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    a = a if isinstance(a, torch.Tensor) else torch.cat(a)
+    b = b if isinstance(b, torch.Tensor) else torch.cat(b)
+    return a, torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precise", [False, True])
+@pytest.mark.parametrize("block,chunk", [(256, 2048), (128, 512), (512, 4096)])
+def test_v2_acc_matches_plain(cuda, block, chunk, precise):
+    sc = _scene(cuda, 4096)
+    src = sc.src3(sc.s128)
+    before = rsf.LAUNCHES
+    got, same = _twice(lambda: rsf.v2_acc(sc.pos, sc.radius, src, block=block,
+                                          chunk=chunk, precise=precise))
+    assert rsf.LAUNCHES == before + 2 and same
+    want = rsf.v2_acc_plain(sc.pos, sc.radius, src, precise=precise)
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.parametrize("p,block,chunk,n_split", [
+    (1, 256, 2048, None), (4, 256, 2048, None), (4, 256, 2048, 1),
+    (8, 128, 1024, None), (2, 512, 512, 3)])
+def test_ptile_acc_matches_plain(cuda, p, block, chunk, n_split):
+    sc = _scene(cuda, 4096)
+    tgt, src = sc.tgt3(), sc.src3(sc.s128)
+    before = ptf.LAUNCHES
+    got, same = _twice(lambda: ptf.ptile_acc(tgt, src, p=p, block=block,
+                                             chunk=chunk, n_split=n_split))
+    assert ptf.LAUNCHES == before + 2 and same
+    want = torch.cat(ptf.ptile_acc_plain(tgt, src))
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.parametrize("precise", [False, True])
+@pytest.mark.parametrize("block,chunk,slabs", [(256, 128, None), (256, 512, 1),
+                                               (512, 2048, None), (128, 256, 7)])
+def test_stationary_acc_matches_plain(cuda, block, chunk, slabs, precise):
+    sc = _scene(cuda, 4096)
+    tgt = sc.tgt3()
+    src = sc.src3(-(-sc.mass_len // chunk) * chunk)
+    before = stf.LAUNCHES
+    got, same = _twice(lambda: stf.stationary_acc(
+        tgt, src, block=block, chunk=chunk, slabs=slabs, precise=precise))
+    assert stf.LAUNCHES == before + 2 and same
+    want = stf.stationary_acc_plain(tgt, src, chunk=chunk, precise=precise)
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.parametrize("tile", [128, 256, 512])
+@pytest.mark.parametrize("n", [20_000, 5_000])
+def test_newton_acc_matches_plain_and_direct_sum(cuda, n, tile):
+    """The Newton kernel against its plain version (the same schedule) and
+    against the plain direct sum; N=5000 has mass_len and N ragged against
+    every tile width."""
+    sc = _scene(cuda, n)
+    tgt, src = sc.tgt4(), sc.src4(sc.s128)
+    before = nwf.LAUNCHES
+    got, same = _twice(lambda: nwf.newton_acc(tgt, src, sc.mass_len, tile=tile))
+    assert nwf.LAUNCHES == before + 2 and same
+    assert torch.isfinite(got).all()
+    want = torch.cat(nwf.newton_acc_plain(tgt, src, sc.mass_len, tile=tile))
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+    assert rel_err(got.T.cpu(), sc.control().cpu()) < TOL
 
 
 # --- K3: the ring hop and the sharded world ---

@@ -259,7 +259,7 @@ WORLD_TOL = {"pos": 1e-6, "vel": 5e-6, "acc": 2e-5}
 
 
 @pytest.mark.parametrize("rebin", [1, 4])
-@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog", "yoshida4"])
 def test_world_p3m_matches_nbody_tpu(integrator, rebin):
     cfg = dict(pm_grid=256, p3m_cell_capacity=32, p3m_rebin_interval=rebin,
                integrator=integrator)

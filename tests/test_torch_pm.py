@@ -76,7 +76,7 @@ def test_pm_acc_matches_nbody_tpu(n, grid):
     assert rel_err(got, want) < TOL
 
 
-@pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
+@pytest.mark.parametrize("integrator", ["euler", "leapfrog", "yoshida4"])
 def test_world_pm_matches_nbody_tpu(integrator):
     """5 substeps of the pm backend: the force difference above, carried
     through 5 evaluations (measured below 3e-7 of max|x|)."""

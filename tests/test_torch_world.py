@@ -160,6 +160,56 @@ def test_world_matches_nbody_tpu(integrator, backend):
         assert err < tol, (name, err)
 
 
+def test_yoshida4_stage_dt_is_rounded_in_fp32():
+    """yoshida4's stage dt w * dt is formed in fp32, as the JAX step forms
+    it. Rows whose positions differ bit for bit from nbody_tpu's jnp World
+    after 5 substeps at N=600: 162 with the stage dt rounded in float64,
+    111 with it rounded in fp32 (the rest is the order of the force sums,
+    which the max error of test_world_matches_nbody_tpu bounds)."""
+    cfg = dict(integrator="yoshida4")
+    w_t = nt.create_world(nt.make_galaxies(600, 2, seed=4),
+                          config=nt.SimConfig(**cfg), device="cpu")
+    w_j = nb.create_world(nb.make_galaxies(600, 2, seed=4),
+                          config=nb.SimConfig(**cfg))
+    w_t.update(0.01, 5, backend="torch")
+    w_j.update(0.01, 5, backend="jnp")
+    got, want = w_t.particles.pos.numpy(), np.asarray(w_j.particles.pos)
+    differ = int((got != want).any(axis=1).sum())
+    assert differ <= 120, differ
+    assert rel_err(got, want) < WORLD_TOL["pos"]
+
+
+# --- default_backend and "auto" (nbody_tpu/world.py:81-100, :595-599) ---
+
+@pytest.mark.parametrize("n", [65536, 1 << 20])
+def test_auto_backend_resolves_as_nbody_tpu(n):
+    """At N=65536 the scene has 2.2e9 pairs (direct sum), at N=1M 5.5e11
+    (p3m); nbody_tpu's "jnp" is the CPU world's "torch"."""
+    from nbody_tpu.world import resolve_backend
+
+    scene = nt.make_galaxies(n, 2, seed=11037)
+    w = nt.create_world(scene, default_backend="auto", device="cpu")
+    want = resolve_backend("auto", n, w.mass_len)
+    assert w.mass_len == int(np.count_nonzero(scene.mass.numpy() > 0))
+    assert w.default_backend == {"jnp": "torch"}.get(want, want)
+    assert w.default_backend == ("torch" if n == 65536 else "p3m")
+
+
+def test_default_backend_argument():
+    p = _particles(64)
+    assert nt.create_world(p, device="cpu").default_backend == "torch"
+    for backend in ("torch", "pm", "p3m"):
+        w = nt.World(p, default_backend=backend, device="cpu")
+        assert w.default_backend == backend
+    with pytest.raises(ValueError, match="backend"):
+        nt.create_world(p, default_backend="jnp", device="cpu")
+    # "auto" is also a per-call backend; at 64 particles it is the direct sum
+    w1, w2 = _world(p), _world(p)
+    w1.update(0.01, 2, backend="auto")
+    w2.update(0.01, 2, backend="torch")
+    assert torch.equal(w1.particles.pos, w2.particles.pos)
+
+
 # --- the reference binary's goldens (tests/test_physics_validation.py:256-291) ---
 
 def _bitexact_world_and_golden(steps):
