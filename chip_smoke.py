@@ -59,7 +59,16 @@ Phases, each of which raises on failure:
      against its plain version and run twice for bit-equality, timed with
      CUDA events beside K1's force_acc on the same inputs (and K5a's
      50-substep loop beside World.update), with the four launch counts;
-     then K5h at a ragged N=50000 against the plain direct sum.
+     then K5h at a ragged N=50000 against the plain direct sum;
+ 14. the rest of the ablation path, with the three launch counts from 0:
+     K5b's eight micro-variants (each also as a 50-substep loop beside
+     World.update), K5e's seven reductions and K5c's eight op-cost probes
+     (with the SASS length of each pair loop) at N=65536, through the one
+     flavored chunk kernel; K5f's nine expressions at (256, 2048), LO and
+     HI loops, with the SASS of each loop; K5i's four source broadcasts at
+     the script's T=512, S=4096, REPS=2048, on its inputs (NaN where r2 < 0)
+     and with the third target row made positive. Each against its plain
+     version, twice bit-equal; its wall time printed.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -153,6 +162,18 @@ ABLATION_KERNELS = {
             "scripts/ablations/tune_r2d.py:37"),
     "K5h": ("nbody_tpu_torch/csrc/newton_forces.cu",
             "scripts/ablations/tune_r2h.py:49"),
+    "K5b-cols": ("nbody_tpu_torch/csrc/flavor_forces.cu",
+                 "scripts/ablations/tune_r2b.py:48"),
+    "K5b-rows": ("nbody_tpu_torch/csrc/flavor_forces.cu",
+                 "scripts/ablations/tune_r2b.py:85"),
+    "K5c": ("nbody_tpu_torch/csrc/flavor_forces.cu",
+            "scripts/ablations/tune_r2c.py:35"),
+    "K5e": ("nbody_tpu_torch/csrc/flavor_forces.cu",
+            "scripts/ablations/tune_r2e.py:40"),
+    "K5f": ("nbody_tpu_torch/csrc/op_probe.cu",
+            "scripts/ablations/tune_r2f.py:25"),
+    "K5i": ("nbody_tpu_torch/csrc/bcast_probe.cu",
+            "scripts/ablations/tune_r4d_bcast_probe.py:23"),
 }
 RAGGED_N = 50000
 STAGES = ("p3m.bins", "p3m.cic_scatter", "p3m.fft_solve", "p3m.cic_gather",
@@ -212,10 +233,10 @@ def phase_env() -> str:
         f"count {torch.cuda.device_count()}")
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs compute capability (9, 0), got {cap}")
+    from nbody_tpu_torch.ablations._scene import sm_clock_mhz
+
     global MUFU_RATE
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    mhz = sm_clock_mhz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     MUFU_RATE = MUFU_PER_SM_CLOCK * sms * mhz * 1e6
     log(f"{sms} SMs, max SM clock {mhz:g} MHz: MUFU peak {MUFU_RATE:.4e} ops/s")
@@ -1117,6 +1138,111 @@ def phase_ablations(nt, df, device) -> dict:
     return out
 
 
+def phase_probes(device) -> dict:
+    """[14]: K5b, K5e and K5c at N=65536, K5f and K5i at their scripts'
+    shapes, with the three launch counts from 0; for each kernel line, the
+    best configuration (K5c at full, K5f at rsqrt), its plain version's
+    time and its bound."""
+    from nbody_tpu_torch.ablations import (_scene, tune_r2b, tune_r2c, tune_r2e,
+                                           tune_r2f, tune_r4d_bcast_probe)
+    from nbody_tpu_torch.ops import bcast_probe as bp
+    from nbody_tpu_torch.ops import flavor_forces as ff
+    from nbody_tpu_torch.ops import op_probe as op
+
+    t0 = time.perf_counter()
+    log(f"[14] the rest of the ablation path: N={BENCH_N}, 2 galaxies, seed "
+        f"{SEED}; the op and broadcast probes at their scripts' shapes")
+    scene = _scene.make_scene(BENCH_N, device=device)
+    k1_ms = _scene.header("scene", scene, log)
+    n, m, s128 = scene.n, scene.mass_len, scene.s128
+    ff.LAUNCHES = op.LAUNCHES = bp.LAUNCHES = 0
+    log(" K5b: nbody_tpu_torch.ablations.tune_r2b")
+    k5b = tune_r2b.run(scene, k1_ms, log)
+    k5b_launches = ff.LAUNCHES
+    log(" K5e: nbody_tpu_torch.ablations.tune_r2e")
+    k5e = tune_r2e.run(scene, k1_ms, log)
+    k5e_launches = ff.LAUNCHES - k5b_launches
+    log(" K5c: nbody_tpu_torch.ablations.tune_r2c")
+    k5c = tune_r2c.run(scene, k1_ms, log)
+    k5c_launches = ff.LAUNCHES - k5b_launches - k5e_launches
+    log(" K5f: nbody_tpu_torch.ablations.tune_r2f")
+    k5f = tune_r2f.run(device, log)
+    log(" K5i: nbody_tpu_torch.ablations.tune_r4d_bcast_probe")
+    k5i = tune_r4d_bcast_probe.run(device, log)
+    launches = {"flavor_forces": ff.LAUNCHES, "op_probe": op.LAUNCHES,
+                "bcast_probe": bp.LAUNCHES}
+    log(f"  launches over the five sweeps: {launches}")
+
+    out = {}
+    direct = bound(FLOPS_DIRECT * n * m, 20 * n + 12 * m, MUFU_DIRECT * n * m)
+    tgt, src = scene.tgt3(), scene.src3(s128)
+
+    def plain_ms(fn) -> float:
+        fn()
+        return cuda_ms(fn)
+
+    def record(key, best, plain, b, count, label=None):
+        out[key] = {"best": best, "plain_ms": plain, "bound_ms": b[0],
+                    "bound_by": b[1], "launches": count, "label": label}
+        log(f"  {key} {best['name']}: {best['ms']:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+            f"{b[0] / best['ms']:.1%} of the bound, launches {count}")
+
+    for layout, rows in (("cols", False), ("rows", True)):
+        mine = [r for r in k5b if r["config"]["rows"] == rows]
+        best = min(mine, key=lambda r: r["ms"])
+        c = best["config"]
+        tg = tgt if rows else (scene.pos, scene.radius)
+        record(f"K5b-{layout}", best, plain_ms(lambda: ff.flavor_acc_plain(
+            tg, src, flavor=c["flavor"], p=c["p"], chunk=c["chunk"])),
+            direct, sum(r["launches"] for r in mine))
+    best = min(k5e, key=lambda r: r["ms"])
+    c = best["config"]
+    record("K5e", best, plain_ms(lambda: ff.flavor_acc_plain(
+        tgt, src, flavor=c["flavor"], p=c["p"], chunk=c["chunk"])),
+        direct, k5e_launches)
+    for r in k5c:
+        flops, mufu = tune_r2c.OPS[r["name"]]
+        pairs = r["config"]["pairs"]
+        r["bound"] = bound(flops * pairs, 20 * n + 12 * s128, mufu * pairs)
+        log(f"  K5c {r['name']:>9}: bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}), {r['bound'][0] / r['ms']:.1%} of it")
+    full = next(r for r in k5c if r["name"] == "full")
+    record("K5c", full, plain_ms(lambda: ff.flavor_acc_plain(
+        tgt, src, flavor="full", chunk=tune_r2c.CHUNK)), full["bound"],
+        k5c_launches)
+    elems = tune_r2f.TT * tune_r2f.CC
+    iters = tune_r2f.HI - tune_r2f.LO
+    for r in k5f:
+        flops, mufu = tune_r2f.OPS[r["name"]]
+        r["bound"] = bound(flops * elems * iters, 12 * elems,
+                           mufu * elems * iters)
+        log(f"  K5f {r['name']:>9}: bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}), {r['bound'][0] / r['ms']:.1%} of it")
+    rsqrt = next(r for r in k5f if r["name"] == "rsqrt")
+    x, y = tune_r2f.inputs("rsqrt", device)
+    lo_ms, hi_ms = (plain_ms(lambda loops=loops: op.op_probe_plain(
+        x, y, expr="rsqrt", loops=loops)) for loops in (tune_r2f.LO, tune_r2f.HI))
+    record("K5f", rsqrt, hi_ms - lo_ms, rsqrt["bound"], launches["op_probe"],
+           label=f"K5f rsqrt, ({tune_r2f.TT}, {tune_r2f.CC}) elements, "
+                 f"{iters} iterations (the marginal time from "
+                 f"{tune_r2f.LO} to {tune_r2f.HI} loops)")
+    mine = [r for r in k5i if r["inputs"] == "script"]
+    best = min(mine, key=lambda r: r["ms"])
+    t_i, s_i = tune_r4d_bcast_probe.inputs(device)
+    pairs = tune_r4d_bcast_probe.T * tune_r4d_bcast_probe.S * tune_r4d_bcast_probe.REPS
+    record("K5i", best, plain_ms(lambda: bp.bcast_acc_plain(
+        t_i, s_i, reps=tune_r4d_bcast_probe.REPS, n_split=best["n_split"])),
+        bound(FLOPS_DIRECT * pairs, 20 * tune_r4d_bcast_probe.T
+              + 12 * tune_r4d_bcast_probe.S, MUFU_DIRECT * pairs),
+        launches["bcast_probe"],
+        label=f"K5i {best['name']}, T={tune_r4d_bcast_probe.T} "
+              f"S={tune_r4d_bcast_probe.S} REPS={tune_r4d_bcast_probe.REPS} "
+              f"(fastest of the four broadcasts)")
+    log(f"  [14] took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1229,6 +1355,11 @@ def main() -> int:
     phase_race(nt, sh, rf, df, galaxy_ref, load_hex_dump, scene_bench, device)
     shard = phase_sharded(sh, rf, df, scene_bench, scene_big, device)
     ablation = phase_ablations(nt, df, device)
+    ablation.update(phase_probes(device))
+    idle = [key for key in ABLATION_KERNELS if not ablation[key]["launches"]]
+    if idle:
+        raise SystemExit(f"chip_smoke: a kernel of the ablation path was not "
+                         f"launched: {idle}")
 
     log(f"card: {smi}")
     log(f"rsqrt path vs fp64 at N={BENCH_N}: max|d|/max|a| {acc64['rsqrt'][0]:.3e}, "
@@ -1247,7 +1378,7 @@ def main() -> int:
             f"({shard[(n, d)]['profile']['kernel_sum_ms']:.4f})"
             for n, d in SHARDED if d > 1))
 
-    log(f"ablation path at N={BENCH_N}, best ms of each sweep: " + ", ".join(
+    log("ablation path, best ms of each sweep: " + ", ".join(
         f"{key} {ablation[key]['best']['ms']:.4f} ({ablation[key]['best']['name']})"
         for key in ABLATION_KERNELS) + f" (K1 force_acc {ablation['k1_ms']:.4f})")
 
@@ -1290,8 +1421,8 @@ def main() -> int:
         r = ablation[key]
         best = r["best"]
         source, replaces = ABLATION_KERNELS[key]
-        return {"name": f"{key} {best['name']}, N={BENCH_N} (best of the "
-                        f"module's sweep)",
+        return {"name": r.get("label") or f"{key} {best['name']}, N={BENCH_N} "
+                                          f"(best of the module's sweep)",
                 "route": "cuda", "source": source, "replaces": replaces,
                 "launches": r["launches"], "max_abs_err": best["max_abs_err"],
                 "ms": best["ms"], "plain_ms": r["plain_ms"],

@@ -10,6 +10,7 @@ the N=65536 two-galaxy scene with seed 11037, through the port's own
 
 from __future__ import annotations
 
+import subprocess
 from dataclasses import dataclass
 
 import torch
@@ -26,6 +27,15 @@ N = 65536
 # force's bound up to N=65536 (fp32 sums of S terms in another order, FMA
 # contraction and the hardware rsqrt).
 BOUND = 5e-6
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0])
 
 
 def require_cuda() -> torch.device:
@@ -142,6 +152,23 @@ def rel(got: torch.Tensor, want: torch.Tensor) -> float:
     """max|got - want| / max|want|, in float64."""
     got, want = got.double(), want.double()
     return float((got - want).abs().max() / want.abs().max())
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits, NaNs included (torch.equal fails on NaN)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def rel_finite(got: torch.Tensor, want: torch.Tensor) -> tuple[float, bool]:
+    """(max|got - want| / max|want| over the entries where want is finite,
+    whether got is finite exactly where want is). 0 error when want has no
+    finite entry."""
+    fin = torch.isfinite(want)
+    same = torch.equal(torch.isfinite(got), fin)
+    if not fin.any():
+        return 0.0, same
+    return rel(got[fin], want[fin]), same
 
 
 def measure(name: str, call, as_acc, want: torch.Tensor, scene: Scene,

@@ -83,6 +83,27 @@ SIGNATURES = {
             _i32, _i32, _i32, _i32,    # n_tgt, n_src, mass_len, tile
             _vp, _vp, _vp],            # reverse scratch, out (2, T), stream
     },
+    "flavor_forces": {
+        "nbody_flavor_forces": [
+            _vp, _vp, _vp,             # tgt rows or pos, radius, src (3, S)
+            _i32, _i32,                # n_tgt, n_src
+            _i32, _i32, _i32, _i32,    # rows, variant, p, block
+            _i32, _i32,                # chunk, n_split
+            _vp, _vp, _vp],            # partials, out, stream
+    },
+    "op_probe": {
+        "nbody_op_probe": [
+            _vp, _vp, _i32,            # x, y, n
+            _i32, _i32,                # expression, loops
+            _vp, _vp],                 # out, stream
+    },
+    "bcast_probe": {
+        "nbody_bcast_probe": [
+            _vp, _vp,                  # tgt (3, T), src (3, S)
+            _i32, _i32,                # n_tgt, n_src
+            _i32, _i32, _i32,          # variant, reps, n_split
+            _vp, _vp, _vp, _vp],       # packed scratch, partials, out, stream
+    },
     "p3m_pp": {
         "nbody_p3m_pp": [
             _vp, _vp, _vp,             # tx, ty, tr (gc, gc, cap_t)

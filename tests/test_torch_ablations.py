@@ -1,7 +1,10 @@
-"""The ablation path's plain versions (K5a, K5g, K5d, K5h) against the TPU
-scripts' Pallas kernels in scripts/ablations/, run in Pallas interpret mode
-on the CPU, on the same numpy inputs: the two-galaxy scene, seed 11037, at
-N=2048 and N=4096 (mass_len 1004 and 2012).
+"""The ablation path's plain versions (K5a, K5g, K5d, K5h, and the flavors
+of K5b, K5e and K5c) against the TPU scripts' Pallas kernels in
+scripts/ablations/, run in Pallas interpret mode on the CPU, on the same
+numpy inputs: the two-galaxy scene, seed 11037, at N=2048, 4096 and 8192
+(mass_len 1004, 2012 and 4070; S128 1024, 2048 and 4096). The K5b, K5e and
+K5c scripts trace a full chunk even where the sources hold none, so their
+chunks stay within S128.
 
 The scripts are loaded from their files and are not edited; the test
 patches ``pallas_call`` to interpret mode while it runs them. Tolerance:
@@ -29,8 +32,13 @@ from torch_helpers import rel_err
 
 import nbody_tpu as nb
 from nbody_tpu import forces as jforces
-from nbody_tpu_torch.ablations import _scene, tune_r2, tune_r2d, tune_r2g, tune_r2h
+from nbody_tpu_torch.ablations import (_scene, tune_r2, tune_r2b, tune_r2c, tune_r2d,
+                                       tune_r2e, tune_r2f, tune_r2g, tune_r2h,
+                                       tune_r4d_bcast_probe)
+from nbody_tpu_torch.ops import bcast_probe as bp
+from nbody_tpu_torch.ops import flavor_forces as ff
 from nbody_tpu_torch.ops import newton_forces as nwf
+from nbody_tpu_torch.ops import op_probe as op
 from nbody_tpu_torch.ops import ptile_forces as ptf
 from nbody_tpu_torch.ops import resident_forces as rsf
 from nbody_tpu_torch.ops import stationary_forces as stf
@@ -237,16 +245,99 @@ def test_newton_schedule_counts_every_pair_once(t, m, s, w):
                        for kind, lo, hi in work if kind == "dual")
 
 
+# --- K5b: tune_r2b.py::make_v2 (kernel_cols, kernel_rows) ---
+
+# (script flavor, unroll) -> the port's flavor; "rows" is the row layout
+K5B = {("base", 1): "base", ("base", 2): "unroll2", ("partial", 1): "partial",
+       ("static", 1): "static", ("rows", 1): "rows", ("rows", 2): "unroll2"}
+
+
+@pytest.mark.parametrize("flavor,unroll", list(K5B))
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_k5b_plain_matches_script(interpret, n, flavor, unroll):
+    """Tile 512 (P = 1 at block 512), chunk 1024. Bound 5e-6 (TOL)."""
+    sc, pos, radius, gm, m = _scene_np(n)
+    src = sc.src3(sc.s128)
+    want = np.asarray(_script("tune_r2b").make_v2(flavor, 512, 1024, unroll)(
+        jnp.asarray(pos), jnp.asarray(radius), jnp.asarray(src.numpy())))
+    tgt = sc.tgt3() if flavor == "rows" else (sc.pos, sc.radius)
+    got = ff.as_acc(ff.flavor_acc(tgt, src, flavor=K5B[flavor, unroll],
+                                  p=1, block=512, chunk=1024))
+    assert got.shape == (n, 2)
+    assert rel_err(got, want) < TOL
+
+
+# --- K5e: tune_r2e.py::make_v3 ---
+
+@pytest.mark.parametrize("flavor", ["control", "partial_jnp", "fma_kloop",
+                                    "f_assoc"])
+@pytest.mark.parametrize("n,tile_t,chunk", [(4096, 1024, 1024),
+                                            (8192, 2048, 2048)])
+def test_k5e_plain_matches_script(interpret, n, tile_t, chunk, flavor):
+    """Tile 1024 and 2048 (P = 2 and 4 at block 512, K = 8 and 4 chains).
+    Bound 5e-6 (TOL)."""
+    sc, *_ = _scene_np(n)
+    tgt, src = sc.tgt3(), sc.src3(sc.s128)
+    want = _acc(*_script("tune_r2e").make_v3(flavor, tile_t, chunk)(
+        jnp.asarray(tgt.numpy()), jnp.asarray(src.numpy())))
+    p, block = ff.shape(tile_t)
+    got = _acc(*ff.flavor_acc(tgt, src, flavor=flavor, p=p, block=block,
+                              chunk=chunk))
+    assert rel_err(got, want) < TOL
+
+
+# --- K5c: tune_r2c.py::make_probe ---
+
+@pytest.mark.parametrize("flavor", tune_r2c.FLAVORS_C)
+@pytest.mark.parametrize("n", [4096, 8192])
+def test_k5c_plain_matches_script(interpret, n, flavor):
+    """The script's TILE_T 512 and CHUNK 2048; the probes are wrong physics
+    on both sides alike (skeleton and one_axis leave ay at 0, no_reduce
+    adds the first source of each chunk, and the gm = 0 rows that pad the
+    sources to S128 count where gm is dropped). Bound 5e-6 (TOL): no flavor's sums cancel
+    enough at these N to need more (measured at most 5.3e-7)."""
+    sc, *_ = _scene_np(n)
+    tgt, src = sc.tgt3(), sc.src3(sc.s128)
+    want = _acc(*_script("tune_r2c").make_probe(flavor)(
+        jnp.asarray(tgt.numpy()), jnp.asarray(src.numpy())))
+    got = _acc(*ff.flavor_acc(tgt, src, flavor=flavor, p=1,
+                              block=tune_r2c.TILE_T, chunk=tune_r2c.CHUNK))
+    if flavor in ("skeleton", "one_axis"):
+        assert not got[:, 1].any() and not want[:, 1].any()
+    assert rel_err(got, want) < TOL
+
+
+def test_flavor_plain_follows_the_kernels_sums():
+    """The plain versions' association, term by term on a small case: per
+    chunk, K chains by source index, lane sums across chunks."""
+    rng = np.random.default_rng(0)
+    e = torch.from_numpy(rng.normal(size=(3, 40)).astype(np.float32))
+    fold = ff._fold
+    chunk = [e[:, a:a + 16].sum(1) for a in (0, 16, 32)]
+    assert torch.equal(ff._reduce(e, "chunk", 16, 1), fold(chunk))
+    assert torch.equal(ff._reduce(e, "first", 16, 1), fold([e[:, 0], e[:, 16], e[:, 32]]))
+    lanes = fold([torch.stack([e[:, a + c:a + 16:4].sum(1) for c in range(4)], 1)
+                  for a in (0, 16, 32)])
+    assert torch.equal(ff._reduce(e, "lanes", 16, 4), fold(list(lanes.unbind(1))))
+    runs = [fold([e[:, a + c:a + 16:2].sum(1) for c in range(2)]) for a in (0, 16, 32)]
+    assert torch.equal(ff._reduce(e, "chains", 16, 2), fold(runs))
+
+
 # --- wrappers on the CPU ---
 
 def test_cpu_wrappers_make_no_launch():
     sc, *_ = _scene_np(2048)
-    before = (rsf.LAUNCHES, ptf.LAUNCHES, stf.LAUNCHES, nwf.LAUNCHES)
+    counters = (rsf, ptf, stf, nwf, ff, op, bp)
+    before = tuple(c.LAUNCHES for c in counters)
     rsf.v2_acc(sc.pos, sc.radius, sc.src3(sc.s128))
     ptf.ptile_acc(sc.tgt3(), sc.src3(sc.s128))
     stf.stationary_acc(sc.tgt3(), sc.src3(1024), chunk=512)
     nwf.newton_acc(sc.tgt4(), sc.src4(sc.s128), sc.mass_len)
-    assert (rsf.LAUNCHES, ptf.LAUNCHES, stf.LAUNCHES, nwf.LAUNCHES) == before
+    ff.flavor_acc(sc.tgt3(), sc.src3(sc.s128), flavor="fma_kloop", p=4)
+    ff.flavor_acc((sc.pos, sc.radius), sc.src3(sc.s128), flavor="partial")
+    op.op_probe(sc.pos, sc.pos, expr="rsqrt", loops=3)
+    bp.bcast_acc(sc.tgt3(), sc.src3(1024), reps=2)
+    assert tuple(c.LAUNCHES for c in counters) == before
 
 
 @pytest.mark.parametrize("call,exc", [
@@ -259,6 +350,18 @@ def test_cpu_wrappers_make_no_launch():
     (lambda sc: nwf.newton_acc(sc.tgt4(), sc.src4(1024), 1004, tile=64), ValueError),
     (lambda sc: nwf.newton_acc(sc.tgt4(), sc.src4(512), 1004), ValueError),
     (lambda sc: nwf.newton_acc(sc.tgt3(), sc.src4(1024), 1004), ValueError),
+    (lambda sc: ff.flavor_acc(sc.tgt3(), sc.src3(128), flavor="nope"), ValueError),
+    (lambda sc: ff.flavor_acc(sc.tgt3(), sc.src3(128), flavor="skeleton", p=2), ValueError),
+    (lambda sc: ff.flavor_acc((sc.pos, sc.radius), sc.src3(128), flavor="f_assoc"), ValueError),
+    (lambda sc: ff.flavor_acc(sc.tgt3(), sc.src3(128), block=1024), ValueError),
+    (lambda sc: ff.flavor_acc(sc.tgt3(), sc.src3(128), chunk=100), ValueError),
+    (lambda sc: ff.flavor_acc(sc.tgt3().double(), sc.src3(128)), TypeError),
+    (lambda sc: op.op_probe(sc.pos, sc.radius, expr="add", loops=3), ValueError),
+    (lambda sc: op.op_probe(sc.pos, sc.pos, expr="exp", loops=3), ValueError),
+    (lambda sc: op.op_probe(sc.pos, sc.pos, expr="add", loops=-1), ValueError),
+    (lambda sc: bp.bcast_acc(sc.tgt3(), sc.src3(1000)), ValueError),
+    (lambda sc: bp.bcast_acc(sc.tgt3(), sc.src3(8192)), ValueError),
+    (lambda sc: bp.bcast_acc(sc.tgt3(), sc.src3(1024), variant="tex"), ValueError),
 ])
 def test_wrapper_argument_errors(call, exc):
     sc, *_ = _scene_np(2048)
@@ -266,14 +369,29 @@ def test_wrapper_argument_errors(call, exc):
         call(sc)
 
 
-@pytest.mark.parametrize("module", [tune_r2, tune_r2g, tune_r2d, tune_r2h])
+@pytest.mark.parametrize("module", [tune_r2, tune_r2g, tune_r2d, tune_r2h,
+                                    tune_r2b, tune_r2e, tune_r2c, tune_r2f,
+                                    tune_r4d_bcast_probe])
 def test_ablation_module_needs_the_card(module, monkeypatch):
     """Each module's entry point measures the card; without one it raises
-    before building a scene."""
+    before building a scene or drawing inputs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(_scene, "make_scene", pytest.fail)
+    monkeypatch.setattr(module, "run", pytest.fail)
     with pytest.raises(RuntimeError, match="CUDA"):
         module.main()
+
+
+@pytest.mark.parametrize("module", [tune_r2b, tune_r2e])
+def test_flavor_sweeps_are_launchable(module):
+    """Every configuration of K5b's and K5e's sweeps passes the flavor
+    wrapper's checks, with tile_t = P * block."""
+    for cfg in module.SWEEP:
+        flavor, tile_t, chunk = (cfg[1], cfg[3], cfg[4]) if module is tune_r2b else cfg
+        rows = module is tune_r2e or cfg[2]
+        p, block = ff.shape(tile_t)
+        assert p * block == tile_t
+        ff._check_flavor(flavor, p, block, chunk, rows)
 
 
 @pytest.mark.parametrize("module", [tune_r2, tune_r2g, tune_r2d, tune_r2h])

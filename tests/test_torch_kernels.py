@@ -21,7 +21,10 @@ import torch
 from torch_helpers import cuda, random_arrays, rel_err  # noqa: F401 (fixture)
 
 import nbody_tpu_torch as nt
+from nbody_tpu_torch.ops import bcast_probe as bp
 from nbody_tpu_torch.ops import direct_forces as df
+from nbody_tpu_torch.ops import flavor_forces as ff
+from nbody_tpu_torch.ops import op_probe as op
 from nbody_tpu_torch.ops import newton_forces as nwf
 from nbody_tpu_torch.ops import ptile_forces as ptf
 from nbody_tpu_torch.ops import resident_forces as rsf
@@ -323,6 +326,79 @@ def test_newton_acc_matches_plain_and_direct_sum(cuda, n, tile):
     want = torch.cat(nwf.newton_acc_plain(tgt, src, sc.mass_len, tile=tile))
     assert rel_err(got.cpu(), want.cpu()) < TOL
     assert rel_err(got.T.cpu(), sc.control().cpu()) < TOL
+
+
+# --- K5b, K5e, K5c, K5f, K5i: the flavored chunk kernel and the probes ---
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("flavor,p,rows", [
+    *((f, 1, True) for f in ff.FLAVORS if f not in ("rows", "control", "full")),
+    *((f, p, False) for f in ("base", "unroll2", "static", "partial")
+      for p in (1, 2)),
+    *((f, p, True) for f in ("partial", "fma_kloop", "f_assoc", "static")
+      for p in (4, 8)),
+])
+def test_flavor_acc_matches_plain(cuda, flavor, p, rows):
+    """Every variant against its plain version on the N=4096 scene with
+    2049 source rows in chunks of 1024 (a last chunk of one source), twice
+    bit-equal. Bound TOL: the plain version follows the kernel's
+    association but sums each run in its own order."""
+    sc = _scene(cuda, 4096)
+    tgt = sc.tgt3() if rows else (sc.pos, sc.radius)
+    src = sc.src3(sc.mass_len + 37)
+    before = ff.LAUNCHES
+    got, same = _twice(lambda: ff.flavor_acc(tgt, src, flavor=flavor, p=p,
+                                             block=256, chunk=1024))
+    assert ff.LAUNCHES == before + 2 and same
+    want = ff.flavor_acc_plain(tgt, src, flavor=flavor, p=p, chunk=1024)
+    want = torch.cat(want) if rows else want
+    assert torch.isfinite(got).all()
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.parametrize("expr", op.EXPRS)
+def test_op_probe_matches_plain(cuda, expr):
+    """Each expression at 4099 loops (512 passes of 8 and a remainder of
+    3): add and mul bit-equal to the plain chain, the others within the
+    bounds of the ablation module (set at 4096 loops, where sq_chain's
+    diverging elements have reached inf)."""
+    from nbody_tpu_torch.ablations import tune_r2f
+
+    x, y = (t[:64, :300].contiguous() for t in tune_r2f.inputs(expr, cuda))
+    before = op.LAUNCHES
+    got, again = (op.op_probe(x, y, expr=expr, loops=4099) for _ in range(2))
+    assert op.LAUNCHES == before + 2 and _bits_equal(got, again)
+    want = op.op_probe_plain(x, y, expr=expr, loops=4099)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    if tune_r2f.BOUNDS[expr] == 0:
+        assert _bits_equal(got, want)
+    else:
+        assert rel_err(got[fin].cpu(), want[fin].cpu()) < tune_r2f.BOUNDS[expr]
+
+
+@pytest.mark.parametrize("n_split", [None, 1, 3])
+@pytest.mark.parametrize("variant", bp.VARIANTS)
+def test_bcast_acc_matches_plain(cuda, variant, n_split):
+    """Each broadcast on 300 targets (a ragged block) and 1024 sources,
+    5 sweeps, with the script's NaN-making third row: NaN where the plain
+    version has NaN, the finite entries within 5e-6, twice bit-equal."""
+    rng = np.random.RandomState(0)
+    tgt = torch.from_numpy(rng.randn(3, 300).astype(np.float32)).to(cuda)
+    src = torch.from_numpy(rng.randn(3, 1024).astype(np.float32)).to(cuda)
+    splits = n_split or bp.split_plan(300, 5, df.sm_count(cuda.index or 0))
+    before = bp.LAUNCHES
+    got, again = (bp.bcast_acc(tgt, src, variant=variant, reps=5,
+                               n_split=n_split) for _ in range(2))
+    assert bp.LAUNCHES == before + 2 and _bits_equal(got, again)
+    want = bp.bcast_acc_plain(tgt, src, reps=5, n_split=splits)
+    fin = torch.isfinite(want)
+    assert 0 < int(fin.sum()) < fin.numel()
+    assert torch.equal(torch.isfinite(got), fin)
+    assert rel_err(got[fin].cpu(), want[fin].cpu()) < 5e-6
 
 
 # --- K3: the ring hop and the sharded world ---
