@@ -7,11 +7,14 @@ Phases, each of which raises on failure:
   0. environment: the card's name and power limit, torch and CUDA versions;
      requires a CUDA device of compute capability 9.0 (Hopper);
   1. build the CUDA kernels from nbody_tpu_torch/csrc (nvcc, sm_90a), one
-     nvcc per source, all at once;
+     nvcc per source, all at once; the main-path kernels' pair loop (SASS
+     instructions a pair) and their registers and spill bytes, for each P;
   2. the direct kernel against its plain PyTorch version on the card, at
-     N=1000 (random, ragged source count, no sources), the N=65536 bench
-     scene, and the N=1M scene (the plain version on 4096 of its targets);
-     the rsqrt and precise paths against float64;
+     N=1000 (random, ragged source count, no sources; and with each P and
+     a forced cluster split), the N=65536 bench scene, and the N=1M scene
+     (the plain version on 4096 of its targets); the rsqrt and precise
+     paths against float64. [2], [4], [5], [7], [10] and [12] print the
+     plan (P, n_split, cluster size, chunk) of each kernel launch;
   3. golden parity: the bit-exact reference IC (N=2000) stepped 20 and 100
      times through the kernel, against the reference binary's dumps;
   4. the direct main path at full width: N=65536, two galaxies, seed 11037,
@@ -38,7 +41,8 @@ Phases, each of which raises on failure:
      drop at the candidate p3m configs (no bound);
  10. the ring hop kernel (K3) against its plain version: N=1000 targets, a
      slot of 400 rows with 333 real sources and with none, rsqrt and
-     precise, a middle hop and a last hop with pos_dt 1 and 0.5;
+     precise, a middle hop and a last hop with pos_dt 1 and 0.5; each P
+     with a forced cluster split;
  11. the race check: ShardedWorld with force_backend "cuda_ring" and
      "cuda", each with D = 2, 3, 4 and 8 shards on one card at N=65536 for
      5 substeps, bit-equal to the same run with the card synchronised after
@@ -211,6 +215,14 @@ def check(what: str, err: float, bound: float) -> None:
         raise SystemExit(f"chip_smoke: {what} out of bound")
 
 
+def log_plans(label: str, plans) -> None:
+    """Print the plans that the launches counted in ``plans`` (a wrapper's
+    {Plan: launches}) took, then clear it."""
+    for plan, k in sorted(plans.items()):
+        log(f"  {label}: {k} launch(es) with {plan.describe()}")
+    plans.clear()
+
+
 def cuda_ms(fn, reps: int = 1) -> float:
     """Device milliseconds per call of fn, from CUDA events around reps calls."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -273,6 +285,28 @@ def phase_build(_build) -> None:
                     log(f"    {line.strip()}")
 
 
+def pair_loops(_build, sass) -> None:
+    """The pair loop of the main-path kernels on the rsqrt path (the direct
+    kernel's fused form): SASS instructions a pair (the largest innermost
+    loop over its MUFU.RSQ, one a pair), registers and spill bytes from
+    the build's ``-Xptxas -v`` lines, for each P."""
+    for lib, kernel, tail in (("direct_forces", "direct_forces_kernel", "Lb1E"),
+                              ("ring_forces", "ring_hop_kernel", "")):
+        path = _build.library_path(lib)
+        funcs = sass.functions(path)
+        usage = sass.ptxas_usage(path.with_suffix(".log").read_text())
+        for p in (1, 2):
+            name = sass.find(funcs, rf"{kernel}ILi{p}ELb0E{tail}")
+            n, mufu = sass.pair_loop(funcs[name], "MUFU")
+            u = usage[name]
+            if not mufu:
+                raise SystemExit(f"chip_smoke: no pair loop found in {name}")
+            log(f"  {lib} P={p}: pair loop {n} SASS instructions for {mufu} "
+                f"pairs, {n / mufu:.2f} a pair; {u['registers']} registers, "
+                f"spill {u['spill_stores']} bytes stored, {u['spill_loads']} "
+                f"loaded")
+
+
 def random_state(n: int, n_src: int, device) -> tuple:
     """N random particles: 30% zero-radius tracers, n_src massive sources."""
     rng = np.random.default_rng(0)
@@ -320,6 +354,37 @@ def compare_variants(df, label, pos, vel, radius, gm, bound, rows=None) -> float
                   rel(npos, tp + df._pos_dt_times_dt(pos_dt, 0.01) * nvel),
                   BOUND_EPILOGUE)
     return worst
+
+
+# Forced plans on a small ragged shape (T=1000 against S=333, two runs):
+# each P with a cluster of 2, and with a cluster of 8 whose last 6 ranges
+# are empty.
+FORCED_PLANS = ((1, 2), (2, 2), (1, 8), (2, 8))
+
+
+def forced_clusters(df, device) -> None:
+    """[2]: force_acc and fused_substep with the FORCED_PLANS against the
+    plain version, so that the cluster path is held to it at every P even
+    where the main path would not split."""
+    pos, vel, radius, gm = random_state(1000, 333, device)
+    src = pos[:333]
+    for p, n_split in FORCED_PLANS:
+        plan = df.Plan(p, n_split)
+        for precise in (False, True):
+            tag = f"T=1000 S=333 {plan.describe()} {'precise' if precise else 'rsqrt'}"
+            want = df.force_acc_plain(pos, radius, src, gm, precise=precise)
+            check(f"{tag} force_acc", rel(df.force_acc(
+                pos, radius, src, gm, precise=precise, plan=plan), want),
+                BOUND_SMALL)
+            npos, nvel, acc = df.fused_substep(0.01, pos, vel, radius, gm,
+                                               precise=precise, plan=plan)
+            check(f"{tag} fused_substep acc", rel(acc, want), BOUND_SMALL)
+            check(f"{tag} fused_substep vel (epilogue)",
+                  rel(nvel, vel + 0.01 * acc), BOUND_EPILOGUE)
+            check(f"{tag} fused_substep pos (epilogue)",
+                  rel(npos, pos + df._pos_dt_times_dt(1.0, 0.01) * nvel),
+                  BOUND_EPILOGUE)
+    log_plans("forced", df.PLANS)
 
 
 def accuracy_vs_fp64(df, forces, pos, radius, gm, rows) -> dict:
@@ -499,12 +564,13 @@ def phase_split(df, p3m_forces, slice_w, device) -> dict:
     tp, tr = st.pos[rows].contiguous(), st.radius[rows].contiguous()
     src, gm = st.pos[:s], slice_w.gm
     t = tp.shape[0]
-    n_split = df._split_plan(t, s, df.sm_count(device.index or 0))
+    plan = df.cluster_plan(t, s, df.device_sms(device))
     worst = 0.0
+    df.PLANS.clear()
     for precise in (False, True):
         got = df.force_acc(tp, tr, src, gm, precise=precise)
         want = df.force_acc_plain(tp, tr, src, gm, precise=precise)
-        check(f"exact-core rows T={t} S={s} ({n_split} splits) "
+        check(f"exact-core rows T={t} S={s} ({plan.describe()}) "
               f"{'precise' if precise else 'rsqrt'}", rel(got, want),
               BOUND_SPLIT_BIG)
         worst = max(worst, float((got - want).abs().max()))
@@ -512,10 +578,11 @@ def phase_split(df, p3m_forces, slice_w, device) -> dict:
     plain_ms = cuda_ms(lambda: df.force_acc_plain(tp, tr, src, gm), reps=3)
     acc = torch.empty_like(tp)
     single_ms = cuda_ms(lambda: df._launch(tp, None, tr, src, gm, 0.0, 1.0,
-                                           False, acc, None, None), reps=3)
+                                           False, acc, None, None,
+                                           plan=df.Plan(1, 1)), reps=3)
     bound_ms, bound_by = bound(FLOPS_DIRECT * t * s, 20 * t + 12 * s,
                                MUFU_DIRECT * t * s)
-    log(f"  exact-core rows: split kernel {ms:.4f} ms, one-launch form "
+    log(f"  exact-core rows: split kernel {ms:.4f} ms, one-block form "
         f"{single_ms:.4f} ms ({-(-t // df.BLOCK)} block), plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     if not ms < plain_ms:
@@ -527,6 +594,7 @@ def phase_split(df, p3m_forces, slice_w, device) -> dict:
               rel(df.force_acc(pos, radius, pos[:333], gm_small, precise=precise),
                   df.force_acc_plain(pos, radius, pos[:333], gm_small,
                                      precise=precise)), BOUND_SPLIT_SMALL)
+    log_plans("[7]", df.PLANS)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "single_ms": single_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "t": t, "s": s}
@@ -782,6 +850,29 @@ def phase_ring_hop(rf, df, device) -> None:
                 check(f"{what} pos (epilogue)",
                       rel(npos, pos + df._pos_dt_times_dt(pos_dt, 0.01) * nvel),
                       BOUND_EPILOGUE)
+    log_plans("[10]", rf.PLANS)
+    # each P with a forced cluster split (FORCED_PLANS), T=1000 S=333
+    for p, n_split in FORCED_PLANS:
+        plan = df.Plan(p, n_split)
+        for precise in (False, True):
+            tag = f"S=333 {plan.describe()} {'precise' if precise else 'rsqrt'}"
+            kw = dict(accumulate=True, precise=precise)
+            run_k, run_p = run0.clone(), run0.clone()
+            rf.ring_hop(pos, radius, pos[:400], gm[:333], run_k, plan=plan, **kw)
+            rf.ring_hop_plain(pos, radius, pos[:400], gm[:333], run_p, **kw)
+            check(f"{tag} middle hop running sum", rel(run_k, run_p), BOUND_SMALL)
+            last = dict(vel=vel, valid=valid, dt=0.01, pos_dt=1.0, **kw)
+            npos, nvel, acc = rf.ring_hop(pos, radius, pos[:400], gm[:333],
+                                          run0.clone(), plan=plan, **last)
+            want = rf.ring_hop_plain(pos, radius, pos[:400], gm[:333],
+                                     run0.clone(), **last)[2]
+            check(f"{tag} last hop acc", rel(acc, want), BOUND_SMALL)
+            check(f"{tag} last hop vel (epilogue)", rel(nvel, vel + 0.01 * acc),
+                  BOUND_EPILOGUE)
+            check(f"{tag} last hop pos (epilogue)",
+                  rel(npos, pos + df._pos_dt_times_dt(1.0, 0.01) * nvel),
+                  BOUND_EPILOGUE)
+    log_plans("[10] forced", rf.PLANS)
 
 
 def sharded(sh, scene, d: int, device, backend: str = "cuda_ring", **cfg):
@@ -893,6 +984,7 @@ def time_sharded(world, n: int, counter, per_substep: int) -> dict:
     world.update(1.0, 1)
     world.block_until_ready()
     counter.LAUNCHES = 0
+    counter.PLANS.clear()
     torch.cuda.set_sync_debug_mode("error")
     try:
         world.update(1.0, n)
@@ -900,6 +992,7 @@ def time_sharded(world, n: int, counter, per_substep: int) -> dict:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     launches = counter.LAUNCHES
+    plans = dict(counter.PLANS)
     if launches != per_substep * n:
         raise SystemExit(f"chip_smoke: {launches} launches over {n} "
                          f"substeps, expected {per_substep * n}")
@@ -911,7 +1004,7 @@ def time_sharded(world, n: int, counter, per_substep: int) -> dict:
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     return {"ms": start.elapsed_time(end) / n, "enqueue_ms": enqueue_ms / n,
-            "launches": launches}
+            "launches": launches, "plans": plans}
 
 
 def visiting(world) -> tuple:
@@ -933,7 +1026,9 @@ def hop_error(rf, world, rows=None) -> float:
                                               world.radius, world.valid))
     kw = dict(accumulate=False, dt=1.0, pos_dt=1.0)
     acc = rf.ring_hop(pos, radius, src, gm, torch.empty_like(pos),
-                      vel=vel, valid=valid, **kw)[2]
+                      vel=vel, valid=valid, t_real=world.ring.t_real[0],
+                      **kw)[2]
+    log_plans("hop kernel vs plain", rf.PLANS)
     label = "" if rows is None else f" ({len(rows)} targets)"
     rows = torch.arange(pos.shape[0], device=pos.device) if rows is None else rows
     want = rf.ring_hop_plain(pos[rows], radius[rows], src, gm,
@@ -998,13 +1093,13 @@ def force_acc_error(df, world, rows=None) -> float:
     n = gm.shape[0]
     pos, radius = world.pos[0], world.radius[0]
     t = pos.shape[0]
-    splits = df._split_plan(t, n, df.sm_count(pos.device.index or 0))
+    plan = df.cluster_plan(t, n, df.device_sms(pos.device))
     acc = df.force_acc(pos, radius, src, gm)
     label = "" if rows is None else f" ({len(rows)} targets)"
     rows = torch.arange(t, device=pos.device) if rows is None else rows
     want = df.force_acc_plain(pos[rows], radius[rows], src, gm)
     check(f"force_acc ('cuda' backend) vs plain at T={t} S={n}, "
-          f"{splits} source range(s){label}", rel(acc[rows], want),
+          f"{plan.describe()}{label}", rel(acc[rows], want),
           BOUND_BIG if t > BENCH_N else BOUND_SMALL)
     return float((acc[rows] - want).abs().max())
 
@@ -1062,6 +1157,8 @@ def phase_sharded(sh, rf, df, scene_bench, scene_big, device) -> dict:
                      f"launches {r['launches']}" if "launches" in r else "")
             log(f"  N={n} D={d} {backend:9s}: {r['ms']:.4f} ms/substep device, "
                 f"{pairs / (r['ms'] * 1e-3):.4e} pairs/s{extra}")
+            for plan, k in sorted(r.get("plans", {}).items()):
+                log(f"    {k} launch(es) with {plan.describe()}")
         log(f"  N={n} D={d}: t_loc {res['layout'][0]}, s_loc {res['layout'][1]}, "
             f"real sources per shard {res['layout'][2]}")
         out[(n, d)] = res
@@ -1258,6 +1355,7 @@ def main() -> int:
     from nbody_tpu_torch.ops import p3m_pp as pp
     from nbody_tpu_torch.ops import pm_forces
     from nbody_tpu_torch.ops import ring_forces as rf
+    from nbody_tpu_torch.ops import sass
     from nbody_tpu_torch.parallel import sharding as sh
     from nbody_tpu_torch.utils.ref_dump import load_hex_dump
 
@@ -1265,11 +1363,15 @@ def main() -> int:
     smi = phase_env()
     device = torch.device(DEVICE)
     phase_build(_build)
+    pair_loops(_build, sass)
 
     log("[2] kernel against its plain version on the card")
     pos, vel, radius, gm = random_state(1000, 333, device)
+    df.PLANS.clear()
     compare_variants(df, "N=1000 S=333", pos, vel, radius, gm, BOUND_SMALL)
     compare_variants(df, "N=1000 S=0", pos, vel, radius, gm[:0], BOUND_SMALL)
+    log_plans("N=1000", df.PLANS)
+    forced_clusters(df, device)
 
     scene_bench = nt.make_galaxies(BENCH_N, 2, seed=SEED)
     scene_big = nt.make_galaxies(BIG_N, 2, seed=SEED)
@@ -1277,6 +1379,7 @@ def main() -> int:
     st = bench.state
     err_bench = compare_variants(df, f"N={BENCH_N} S={bench.mass_len}", st.pos,
                                  st.vel, st.radius, bench.gm, BOUND_SMALL)
+    log_plans(f"N={BENCH_N}", df.PLANS)
     rows = torch.from_numpy(
         np.random.default_rng(1).choice(BENCH_N, SUBSET, replace=False)).to(device)
     acc64 = accuracy_vs_fp64(df, forces, st.pos, st.radius, bench.gm, rows)
@@ -1288,12 +1391,14 @@ def main() -> int:
     err_big = compare_variants(df, f"N={BIG_N} S={big.mass_len} ({SUBSET} targets)",
                                st.pos, st.vel, st.radius, big.gm, BOUND_BIG,
                                rows=rows)
+    log_plans(f"N={BIG_N} ({SUBSET} targets for force_acc)", df.PLANS)
 
     phase_golden(nt, galaxy_ref, load_hex_dump, device)
 
     log(f"[4] main path: N={BENCH_N}, 2 galaxies, seed {SEED}, default config")
     world = nt.create_world(scene_bench, device=device)
     df.LAUNCHES = 0
+    df.PLANS.clear()
     world.update(1.0, 10)
     world.block_until_ready()
     t0 = time.perf_counter()
@@ -1308,6 +1413,7 @@ def main() -> int:
     pairs = BENCH_N * world.mass_len
     log(f"  kernel: {host_us:.1f} µs/substep host, {main_ms * 1e3:.1f} µs/substep "
         f"device, {pairs / (main_ms * 1e-3):.4e} pairs/s, launches {launches_bench}")
+    log_plans("main path", df.PLANS)
     # in turns: plain, kernel, kernel, plain (the kernel on the main-path
     # world, the plain version on a fresh world of the same scene)
     plain = nt.create_world(scene_bench, device=device)
@@ -1326,6 +1432,7 @@ def main() -> int:
     log(f"[5] N={BIG_N}: update_gpu")
     big_pairs = BIG_N * big.mass_len
     df.LAUNCHES = 0
+    df.PLANS.clear()
     big.update_gpu(1.0, 1)
     big_ms = cuda_ms(lambda: big.update_gpu(1.0, 3)) / 3
     launches_big = df.LAUNCHES
@@ -1336,6 +1443,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: non-finite state at N=1M")
     log(f"  kernel: {big_ms:.2f} ms/substep, {big_pairs / (big_ms * 1e-3):.4e} "
         f"pairs/s, launches {launches_big}")
+    log_plans("update_gpu", df.PLANS)
     big_plain_ms = cuda_ms(lambda: big.update(1.0, 1, backend="torch"))
     log(f"  plain: {big_plain_ms:.1f} ms/substep")
 

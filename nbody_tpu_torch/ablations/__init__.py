@@ -12,6 +12,9 @@ the script's sweep translated to Hopper parameters, and print one line per
 configuration: µs, pairs/s, max|Δ|/max|ref| against the kernel's plain
 version, and the ratio to the direct kernel's ``force_acc`` on the same
 inputs. The two probes (``tune_r2f``, ``tune_r4d_bcast_probe``) run at their
-scripts' shapes on inputs drawn with numpy. Without a CUDA device each
-raises.
+scripts' shapes on inputs drawn with numpy.
+
+``tune_direct`` has no TPU script: it sweeps the plans of the main-path
+pair loop (``csrc/direct_tiles.cuh``) from which ``cluster_plan`` was
+chosen. Without a CUDA device each module raises.
 """

@@ -1,0 +1,134 @@
+"""One side of ``tune_direct parent``: the direct and ring hop kernels of
+whichever ``nbody_tpu_torch`` comes first on ``sys.path``, driven through
+its public wrappers alone (``create_world``, ``direct_forces.fused_substep``,
+``ring_forces.ring_hop`` and a "cuda_ring" ``ShardedWorld``), so that it
+runs against any commit of the port that has the ring. A job passes
+``plan`` only where it gives one.
+
+    PYTHONPATH=ROOT python nbody_tpu_torch/ablations/_side.py JOBS.json OUT_DIR
+
+JOBS.json is a list of jobs, each {"what": "fused" | "hop" | "ring", "n",
+...}: "fused" is one fused substep of the N-particle two-galaxy world (seed
+11037); "hop" that world's state as the only hop of a one-shard ring, with
+its epilogue; "ring" a profiler window over a "cuda_ring" ShardedWorld of
+``d`` shards on the card. A job's outputs go to OUT_DIR/<index>.pt, and
+one JSON line a job gives its times (ms; "reps" calls between CUDA events,
+the best of "repeats").
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+SEED = 11037
+
+
+def world_state(n: int, device) -> tuple:
+    """(pos, vel, radius, gm) of the two-galaxy world of n particles."""
+    import nbody_tpu_torch as nt
+
+    w = nt.create_world(nt.make_galaxies(n, 2, seed=SEED), device=device)
+    st = w.state
+    return st.pos, st.vel, st.radius, w.gm
+
+
+def best_ms(fn, reps: int, repeats: int) -> float:
+    """Milliseconds a call of fn: one warm-up call, then the best of
+    ``repeats`` runs of ``reps`` calls between CUDA events."""
+    fn()
+    best = float("inf")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(repeats):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def ring_window(device, n: int, d: int, substeps: int = 5) -> tuple:
+    """(union, sum of the hop kernel's device intervals, wall ms) a substep
+    of a torch.profiler window over a "cuda_ring" ShardedWorld of n
+    particles in d shards on one card."""
+    import nbody_tpu_torch as nt
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nbody_tpu_torch.parallel import sharding as sh
+
+    w = sh.ShardedWorld(nt.make_galaxies(n, 2, seed=SEED),
+                        sh.make_mesh(devices=[device] * d),
+                        force_backend="cuda_ring")
+    w.update(1.0, 2)
+    w.block_until_ready()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        w.update(1.0, substeps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / substeps
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "ring_hop_kernel" in e.name)
+    union, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            union, lo = union + hi - lo, a
+        hi = max(hi, b)
+    union += hi - lo
+    return (union / 1e3 / substeps,
+            sum(b - a for a, b in spans) / 1e3 / substeps, wall)
+
+
+def run_job(job: dict, device, worlds: dict) -> tuple:
+    """(times, output tensors or None) of one job."""
+    if job["what"] == "ring":
+        union, total, wall = ring_window(device, job["n"], job["d"])
+        return {"union_ms": union, "sum_ms": total, "wall_ms": wall}, None
+    from nbody_tpu_torch.ops import direct_forces as df
+    from nbody_tpu_torch.ops import ring_forces as rf
+
+    n = job["n"]
+    if n not in worlds:
+        worlds.clear()
+        worlds[n] = world_state(n, device)
+    pos, vel, radius, gm = worlds[n]
+    kw = {"precise": job.get("precise", False)}
+    if job.get("plan"):
+        kw["plan"] = tuple(job["plan"])
+    if job["what"] == "fused":
+        def fn():
+            return df.fused_substep(1.0, pos, vel, radius, gm, **kw)
+    else:
+        valid = torch.ones(n, device=device)
+
+        def fn():
+            return rf.ring_hop(pos, radius, pos, gm, torch.empty_like(pos),
+                               accumulate=False, vel=vel, valid=valid,
+                               dt=1.0, **kw)
+    out = [t.cpu() for t in fn()]
+    ms = best_ms(fn, job["reps"], job.get("repeats", 3)) if job.get("reps") else None
+    return {"ms": ms}, out
+
+
+def main(argv: list[str]) -> None:
+    jobs = json.loads(Path(argv[0]).read_text())
+    out = Path(argv[1])
+    device = torch.device("cuda")
+    worlds: dict = {}
+    for i, job in enumerate(jobs):
+        times, tensors = run_job(job, device, worlds)
+        if tensors is not None:
+            torch.save(tensors, out / f"{i}.pt")
+        print(json.dumps({"job": i, **times}), flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

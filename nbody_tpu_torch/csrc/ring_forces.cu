@@ -14,7 +14,7 @@
 // makes D launches per substep, the world D^2.
 //
 // Per target i, with `hop` the force of the slot's first n_src sources
-// (the tile loop of source_tiles.cuh, per-tile partial sums; n_src is the
+// (the pair loop of direct_tiles.cuh, per-run partial sums; n_src is the
 // visiting shard's real source count, so its gm = 0 rows cost nothing):
 //   not last:  acc_run_i = hop                 (first hop)
 //              acc_run_i = acc_run_i + hop     (later hops; JAX's acc + local)
@@ -31,24 +31,32 @@
 // tiling rule) and its VMEM guards have no counterpart.
 //
 // What bounds it on an H100: as for direct_forces.cu, the issue rate of
-// the SM's pipes (about nine fp32 operations, one MUFU rsqrt and one
-// shared-memory broadcast per pair). One hop of N=65536 on four shards is
-// 16384 targets, 64 blocks; the four shards' launches of a hop run at once
-// on their streams, about 256 blocks in flight, as for the direct kernel.
-// Fusing the D hops into one persistent launch per shard is later work.
+// the SM's pipes, and the same pair loop (direct_tiles.cuh) cuts it: the
+// rsqrt without its denormal guard, P targets a thread against each
+// shared-memory read, sources staged 2048 at a time with cp.async, an
+// unrolled batch loop. The plan (ops/direct_forces.cluster_plan) counts the
+// shard's own real targets: the D shards of one card enqueue their hops on
+// their own streams, but the host enqueues them slowly enough that they
+// often run one at a time. At N=65536 on four shards a hop's 16384 targets
+// are 32 blocks of P = 2, and the plan splits its source sum over a
+// cluster of 5 blocks, whose rank-0 block adds the partials through
+// distributed shared memory and runs the epilogue below. With D = 1 the
+// plan is World's, and so are the bits. Fusing the D hops into one
+// persistent launch per shard is later work.
 //
 // The C entry point launches on the stream it is handed, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
+// synchronise, allocates nothing, and returns the launch's cudaError_t.
 
 #include <cuda_runtime.h>
 
-#include "source_tiles.cuh"  // kBlock, kTile, kSofteningFloor, accumulate_tiles
+#include "direct_tiles.cuh"  // launch_tiles, load_targets, tile_sums
+#include "source_tiles.cuh"  // kBlock
 
 namespace {
 
-template <bool kPrecise>
-__global__ void __launch_bounds__(kBlock)
-ring_hop_kernel(const float2* __restrict__ tgt_pos,
+template <int P, bool kPrecise>
+__global__ void __launch_bounds__(kBlock, 2)
+ring_hop_kernel(TilePlan plan, const float2* __restrict__ tgt_pos,
                 const float* __restrict__ tgt_radius,
                 const float2* __restrict__ src_pos,
                 const float* __restrict__ src_gm, int n_tgt, int n_src,
@@ -57,41 +65,52 @@ ring_hop_kernel(const float2* __restrict__ tgt_pos,
                 const float* __restrict__ valid, float dt, float pos_dt,
                 float2* __restrict__ acc_out, float2* __restrict__ pos_out,
                 float2* __restrict__ vel_out) {
-  __shared__ float4 tile[kTile];  // x, y, gm, unused
-
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < n_tgt;
-  const bool warp_live =
-      static_cast<int>(blockIdx.x * kBlock + (threadIdx.x & ~31u)) < n_tgt;
-  // Threads past the last target still help stage sources.
-  const float2 p = live ? tgt_pos[i] : make_float2(0.f, 0.f);
-  const float soft = live ? tgt_radius[i] + kSofteningFloor : 1.f;
-
-  float hx = 0.f, hy = 0.f;
-  accumulate_tiles<kPrecise>(p, soft, warp_live, src_pos, src_gm, n_src, 0,
-                             (n_src + kTile - 1) / kTile, tile, hx, hy);
-
-  if (!live) return;
-  float ax = hx, ay = hy;
-  if (accumulate) {
-    const float2 r = acc_run[i];
-    ax = r.x + hx;
-    ay = r.y + hy;
-  }
-  if (!last) {
-    acc_run[i] = make_float2(ax, ay);
+  const TileTargets<P> t =
+      load_targets<P>(tgt_pos, tgt_radius, n_tgt, blockIdx.x / plan.n_split);
+  float hx[P], hy[P];
+  if (!tile_sums<P, kPrecise>(plan, src_pos, src_gm, n_src,
+                              blockIdx.x % plan.n_split, t, hx, hy))
     return;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int i = t.first + q * kBlock;
+    if (i >= n_tgt) break;
+    float ax = hx[q], ay = hy[q];
+    if (accumulate) {
+      const float2 r = acc_run[i];
+      ax = r.x + hx[q];
+      ay = r.y + hy[q];
+    }
+    if (!last) {
+      acc_run[i] = make_float2(ax, ay);
+      continue;
+    }
+    const float w = valid[i];
+    ax *= w;
+    ay *= w;
+    const float2 v = tgt_vel[i];
+    const float nvx = v.x + dt * ax;
+    const float nvy = v.y + dt * ay;
+    const float pdt = pos_dt * dt;
+    acc_out[i] = make_float2(ax, ay);
+    vel_out[i] = make_float2(nvx, nvy);
+    pos_out[i] = make_float2(t.x[q] + pdt * nvx, t.y[q] + pdt * nvy);
   }
-  const float w = valid[i];
-  ax *= w;
-  ay *= w;
-  const float2 v = tgt_vel[i];
-  const float nvx = v.x + dt * ax;
-  const float nvy = v.y + dt * ay;
-  const float pdt = pos_dt * dt;
-  acc_out[i] = make_float2(ax, ay);
-  vel_out[i] = make_float2(nvx, nvy);
-  pos_out[i] = make_float2(p.x + pdt * nvx, p.y + pdt * nvy);
+}
+
+template <int P>
+cudaError_t launch_p(bool precise, const float2* tp, const float* tr,
+                     const float2* sp, const float* sg, int n_tgt, int n_src,
+                     float2* run, int accumulate, int last, const float2* tv,
+                     const float* va, float dt, float pos_dt, int n_split,
+                     float2* ao, float2* po, float2* vo, cudaStream_t st) {
+  if (precise)
+    return launch_tiles<P>(ring_hop_kernel<P, true>, n_tgt, n_src, n_split,
+                           false, st, tp, tr, sp, sg, n_tgt, n_src, run,
+                           accumulate, last, tv, va, dt, pos_dt, ao, po, vo);
+  return launch_tiles<P>(ring_hop_kernel<P, false>, n_tgt, n_src, n_split,
+                         false, st, tp, tr, sp, sg, n_tgt, n_src, run,
+                         accumulate, last, tv, va, dt, pos_dt, ao, po, vo);
 }
 
 }  // namespace
@@ -103,14 +122,17 @@ ring_hop_kernel(const float2* __restrict__ tgt_pos,
 // hop to acc_run instead of starting from zero. last == 0 writes the sum
 // to acc_run; last != 0 reads tgt_vel (n_tgt, 2) and valid (n_tgt,) and
 // writes acc_out, pos_out and vel_out (n_tgt, 2), leaving acc_run as it
-// was. Returns the launch's cudaError_t (0 on success).
+// was. The plan: p (1 or 2) targets a thread, n_split source ranges per
+// target block as one cluster of n_split blocks (a launch of more than the
+// card's cluster size is refused, and its error returned). Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int nbody_ring_hop(const void* tgt_pos, const void* tgt_radius,
                               const void* src_pos, const void* src_gm,
                               int n_tgt, int n_src, void* acc_run,
                               int accumulate, int last, const void* tgt_vel,
                               const void* valid, float dt, float pos_dt,
-                              int precise, void* acc_out, void* pos_out,
-                              void* vel_out, void* stream) {
+                              int precise, int p, int n_split, void* acc_out,
+                              void* pos_out, void* vel_out, void* stream) {
   if (n_tgt <= 0) return static_cast<int>(cudaSuccess);
   const auto* tp = static_cast<const float2*>(tgt_pos);
   const auto* tr = static_cast<const float*>(tgt_radius);
@@ -123,14 +145,14 @@ extern "C" int nbody_ring_hop(const void* tgt_pos, const void* tgt_radius,
   auto* po = static_cast<float2*>(pos_out);
   auto* vo = static_cast<float2*>(vel_out);
   auto st = static_cast<cudaStream_t>(stream);
-  const int grid = (n_tgt + kBlock - 1) / kBlock;
-  if (precise)
-    ring_hop_kernel<true><<<grid, kBlock, 0, st>>>(
-        tp, tr, sp, sg, n_tgt, n_src, run, accumulate, last, tv, va, dt,
-        pos_dt, ao, po, vo);
+  cudaError_t err;
+  if (p == 1)
+    err = launch_p<1>(precise, tp, tr, sp, sg, n_tgt, n_src, run, accumulate,
+                      last, tv, va, dt, pos_dt, n_split, ao, po, vo, st);
+  else if (p == 2)
+    err = launch_p<2>(precise, tp, tr, sp, sg, n_tgt, n_src, run, accumulate,
+                      last, tv, va, dt, pos_dt, n_split, ao, po, vo, st);
   else
-    ring_hop_kernel<false><<<grid, kBlock, 0, st>>>(
-        tp, tr, sp, sg, n_tgt, n_src, run, accumulate, last, tv, va, dt,
-        pos_dt, ao, po, vo);
-  return static_cast<int>(cudaGetLastError());
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }

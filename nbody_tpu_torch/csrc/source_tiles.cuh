@@ -1,10 +1,10 @@
-// Pieces shared by every direct-force kernel: the softening floor and the
-// pair factor; the source-tile loop of the direct kernel (direct_forces.cu)
-// and the ring hop kernel (ring_forces.cu); the run loop over a staged
-// source chunk and the chunked force kernel of the ablation path
+// Pieces shared by every direct-force kernel: the block and run sizes, the
+// softening floor and the pair factor; the run loop over a staged source
+// chunk and the chunked force kernel of the ablation path
 // (resident_forces.cu, ptile_forces.cu, stationary_forces.cu,
 // newton_forces.cu, flavor_forces.cu); and the fixed-order sum of
-// per-range partials.
+// per-range partials. The main-path kernels (direct_forces.cu,
+// ring_forces.cu) run their own pair loop, direct_tiles.cuh.
 //
 // Math, per target i over sources j < n_src:
 //   dx = sx_j - x_i;  dy = sy_j - y_i
@@ -29,13 +29,12 @@
 
 namespace {
 
-constexpr int kBlock = 256;           // threads per block = targets per block
-constexpr int kTile = kBlock;         // sources staged per shared-memory tile
+constexpr int kBlock = 256;           // threads per block of the main-path kernels
 constexpr float kSofteningFloor = 1e-18f;
 // Sources summed into fresh registers before joining a target's total, so
 // a rounding error grows with kRun plus the number of runs, not with the
 // source count (the TPU kernel's 128 column partials did the same).
-constexpr int kRun = kTile;
+constexpr int kRun = kBlock;
 
 template <bool kPrecise>
 __device__ __forceinline__ float pair_factor(float gm, float r2) {
@@ -173,35 +172,6 @@ __device__ __forceinline__ void accumulate_staged(
 }
 
 #undef ADD_BATCH
-
-// Adds to (ax, ay) the force on the target at p from source tiles
-// [tile_begin, tile_end) of kTile sources each, staged through `tile` by all
-// threads of the block from (S, 2) positions and an (S,) gm row. Warps with
-// no live target stage sources but skip the arithmetic.
-template <bool kPrecise>
-__device__ __forceinline__ void accumulate_tiles(
-    float2 p, float soft, bool warp_live, const float2* __restrict__ src_pos,
-    const float* __restrict__ src_gm, int n_src, int tile_begin,
-    int tile_end, float4* tile, float& ax, float& ay) {
-  float px[1] = {p.x}, py[1] = {p.y}, sf[1] = {soft};
-  float sx[1] = {ax}, sy[1] = {ay};
-  for (int t = tile_begin; t < tile_end; ++t) {
-    const int base = t * kTile;
-    const int j = base + threadIdx.x;
-    if (j < n_src) {
-      const float2 s = src_pos[j];
-      tile[threadIdx.x] = make_float4(s.x, s.y, src_gm[j], 0.f);
-    }
-    __syncthreads();
-    // The ragged last tile stops at n_src: no padding source is computed.
-    if (warp_live)
-      accumulate_staged<1, kPrecise>(tile, min(kTile, n_src - base), px, py,
-                                     sf, sx, sy);
-    __syncthreads();
-  }
-  ax = sx[0];
-  ay = sy[0];
-}
 
 // stage[k] = (x, y, gm, 0) of sources [base, base + len) of the (3, n_src)
 // rows at `src`, written by all threads of the block.

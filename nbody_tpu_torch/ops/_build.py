@@ -41,11 +41,9 @@ SIGNATURES = {
             _vp, _vp, _vp, _vp, _vp,   # tgt pos/vel/radius, src pos/gm
             _i32, _i32, _f32, _f32,    # n_tgt, n_src, dt, pos_dt
             _i32, _i32,                # precise, integrate
+            _i32, _i32,                # plan: p, n_split
+            _vp,                       # partial scratch or NULL
             _vp, _vp, _vp, _vp],       # acc/pos/vel out, stream
-        "nbody_direct_forces_split": [
-            _vp, _vp, _vp, _vp,        # tgt pos/radius, src pos/gm
-            _i32, _i32, _i32, _i32,    # n_tgt, n_src, n_split, precise
-            _vp, _vp, _vp],            # partial scratch, acc out, stream
         "nbody_sm_count": [_vp],       # int* out
     },
     "ring_forces": {
@@ -55,6 +53,7 @@ SIGNATURES = {
             _vp, _i32, _i32,           # acc_run, accumulate, last
             _vp, _vp, _f32, _f32,      # tgt vel, valid, dt, pos_dt
             _i32,                      # precise
+            _i32, _i32,                # plan: p, n_split
             _vp, _vp, _vp, _vp],       # acc/pos/vel out, stream
     },
     "resident_forces": {

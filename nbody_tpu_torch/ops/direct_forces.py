@@ -5,12 +5,16 @@ Counterparts of ``fused_substep`` and ``pallas_acc`` in
 ``nbody_tpu/ops/pallas_forces.py``. One kernel, ``csrc/direct_forces.cu``,
 replaces both TPU kernels there (``_substep_kernel`` with resident sources
 and ``_stream_kernel`` with streamed ones): it stages sources through shared
-memory tile by tile, masks its own ragged edges, and reads sources straight
+memory chunk by chunk, masks its own ragged edges, and reads sources straight
 from ``pos[:S]`` and ``gm``.
 
-``force_acc`` splits the source sum over several blocks when its targets
-alone cannot fill the card (:func:`_split_plan`); ``fused_substep`` always
-makes one launch, since the main path's N fills the card by itself.
+Every launch of the direct kernel and of the ring hop kernel
+(``ops/ring_forces.ring_hop``) takes its plan from :func:`cluster_plan`: P
+targets a thread and the number of blocks that split each target block's
+source sum, as one thread-block cluster of at most 8 blocks. Only
+``force_acc`` with few targets against many sources needs more ranges than
+a cluster holds; it then writes partials to a scratch that a second kernel
+sums in range order. Either way a call counts as one launch.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 version; CUDA tensors launch the kernel, and anything wrong there raises.
@@ -20,21 +24,59 @@ Nothing falls back from the kernel to the plain version.
 from __future__ import annotations
 
 import functools
+from collections import Counter
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import forces
 
-# The kernel's threads per block (= targets per block) and sources per
-# shared-memory tile (csrc/direct_forces.cu kBlock, kTile).
+# The kernel's threads per block, and the sources per shared-memory tile of
+# the one-target-per-thread split that ``_split_plan`` plans for the
+# ablation kernels (csrc/source_tiles.cuh kBlock).
 BLOCK = 256
 TILE = 256
+# The main-path pair loop (csrc/direct_tiles.cuh): sources per run (summed
+# into fresh registers), sources staged per chunk (its kChunk), the most
+# targets a thread, and the portable cluster size. P_MAX and CHUNK were
+# chosen by a sweep on an H100
+# (``python -m nbody_tpu_torch.ablations.tune_direct sweep``).
+RUN = 256
+CHUNK = 2048
+P_MAX = 2
+MAX_CLUSTER = 8
+# Warps with real targets that an SM needs to keep its issue busy: one
+# block of 256 threads at P = 2 per SM ran within 1% of two, more blocks
+# of few live warps ran faster (PERF.md, the sweep).
+LIVE_WARPS = 8
 
 # Kernel launches made by the wrappers in this process (plain-version calls
 # are not counted). A run resets it to 0 and reads it back to show which
 # path it took.
 LAUNCHES = 0
+# The plan of each of those launches, counted ({Plan: launches}).
+PLANS: Counter = Counter()
+
+
+class Plan(NamedTuple):
+    """How a launch of the direct or ring hop kernel cuts its work: ``p``
+    targets a thread, ``n_split`` blocks per target block (each a range of
+    whole runs of the sources)."""
+
+    p: int
+    n_split: int
+
+    @property
+    def cluster(self) -> int:
+        """Blocks of a cluster: ``n_split`` when the ranges are reduced in
+        a cluster, 1 when there is no split or a scratch reduce."""
+        return self.n_split if 1 < self.n_split <= MAX_CLUSTER else 1
+
+    def describe(self) -> str:
+        scratch = self.n_split > 1 and self.cluster == 1
+        return (f"P={self.p} n_split={self.n_split} cluster={self.cluster} "
+                f"chunk={CHUNK}{' (scratch reduce)' if scratch else ''}")
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
@@ -61,7 +103,8 @@ def _device_of(t: torch.Tensor) -> torch.device:
 
 
 def _kernel_args(tgt_pos, tgt_vel, tgt_radius, src_pos, src_gm, dt, pos_dt,
-                 precise, acc, pos_out, vel_out) -> tuple:
+                 precise, acc, pos_out, vel_out, plan: Plan,
+                 partial=None) -> tuple:
     """Arguments of the C entry point ``nbody_direct_forces``, stream aside.
     The source count is len(src_gm): ``src_pos`` may hold more rows (the
     fused substep passes all of ``pos`` and reads its first S rows)."""
@@ -72,6 +115,7 @@ def _kernel_args(tgt_pos, tgt_vel, tgt_radius, src_pos, src_gm, dt, pos_dt,
             src_pos.data_ptr(), src_gm.data_ptr(),
             tgt_pos.shape[0], src_gm.shape[0], float(dt), float(pos_dt),
             int(precise), int(pos_out is not None),
+            plan.p, plan.n_split, ptr(partial),
             acc.data_ptr(), ptr(pos_out), ptr(vel_out))
 
 
@@ -86,15 +130,18 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
-def _launch(*args) -> None:
+def _launch(*args, plan: Plan, partial=None) -> None:
     """Launch the kernel on the current stream of the targets' device with
-    the arguments of :func:`_kernel_args`; raise if the launch failed."""
+    the arguments of :func:`_kernel_args` and ``plan``; raise if the launch
+    failed."""
     global LAUNCHES
     with torch.cuda.device(args[0].device):
         err = _lib().nbody_direct_forces(
-            *_kernel_args(*args), torch.cuda.current_stream().cuda_stream)
+            *_kernel_args(*args, plan, partial),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "direct_forces")
     LAUNCHES += 1
+    PLANS[plan] += 1
 
 
 @functools.cache
@@ -107,6 +154,12 @@ def sm_count(index: int) -> int:
     with torch.cuda.device(index):
         _raise_on(_lib().nbody_sm_count(ctypes.addressof(out)), "sm count")
     return out.value
+
+
+def device_sms(device: torch.device) -> int:
+    """:func:`sm_count` of a CUDA device (its index, or the current one)."""
+    return sm_count(device.index if device.index is not None
+                    else torch.cuda.current_device())
 
 
 def split_ranges(blocks: int, units: int, sms: int) -> int:
@@ -122,10 +175,57 @@ def split_ranges(blocks: int, units: int, sms: int) -> int:
 
 
 def _split_plan(t: int, s: int, sms: int) -> int:
-    """Number of source ranges ``force_acc`` cuts its sum into for T targets,
-    S sources on a card of ``sms`` SMs (:func:`split_ranges` over blocks of
-    256 targets and tiles of 256 sources)."""
+    """Number of source ranges for T targets, one a thread, against S
+    sources on a card of ``sms`` SMs (:func:`split_ranges` over blocks of
+    256 targets and tiles of 256 sources): the split of the kernels of
+    one target a thread (``csrc/ptile_forces.cu`` takes it)."""
     return split_ranges(-(-t // BLOCK), -(-s // TILE), sms)
+
+
+def targets_per_thread(t: int) -> int:
+    """P for T targets: 1 up to one row of a block (256), else P_MAX. A
+    ring of one shard pads N targets to a count on the same side of 256,
+    so it takes World's P."""
+    return 1 if t <= BLOCK else P_MAX
+
+
+def cluster_plan(t: int, s: int, sms: int, *, t_real: int | None = None,
+                 max_split: int | None = None) -> Plan:
+    """The plan of a direct or ring hop launch of T targets against S
+    sources on a card of ``sms`` SMs.
+
+    P = :func:`targets_per_thread` of T. ``t_real`` is the number of real
+    targets among the T (a ring's shard pads its targets; T by default),
+    in blocks of P·256. The source sum is split over n ranges of whole runs
+    of 256 so that the blocks give every SM ``LIVE_WARPS`` warps with real
+    targets (a block has 8, or fewer when ``t_real`` is under 256), at most
+    one range a run and ``max_split`` ranges (``MAX_CLUSTER`` for the
+    kernels that can only reduce in a cluster), with no range left empty.
+    A launch is planned alone, as if it had the card to itself: the D hops
+    of a ring's shards on one card are enqueued on their own streams, but
+    the host enqueues them slowly enough that they often run one at a
+    time."""
+    p = targets_per_thread(t)
+    f = t if t_real is None else t_real
+    blocks = -(-f // (p * BLOCK))
+    runs = -(-s // RUN)
+    if blocks == 0 or runs <= 1:
+        return Plan(p, 1)
+    warps = min(BLOCK // 32, -(-f // 32))
+    want = sms * -(-LIVE_WARPS // warps)
+    n = min(-(-want // blocks), runs)
+    if max_split is not None:
+        n = min(n, max_split)
+    per = -(-runs // n)
+    return Plan(p, -(-runs // per))
+
+
+def _checked_plan(plan) -> Plan:
+    plan = Plan(*plan)
+    if plan.p not in (1, 2) or plan.n_split < 1:
+        raise ValueError(f"a plan takes p in (1, 2) and n_split >= 1, got "
+                         f"{plan}")
+    return plan
 
 
 def force_acc_plain(tgt_pos, tgt_radius, src_pos, src_gm, *,
@@ -142,11 +242,15 @@ def force_acc(
     src_gm: torch.Tensor,      # (S,) G * mass
     *,
     precise: bool = False,
+    t_real: int | None = None,
+    plan: tuple | None = None,
 ) -> torch.Tensor:
     """(T, 2) fp32 accelerations of every target from all S sources (the
-    ``pallas_acc`` counterpart). Any T and S, S = 0 included. On the card,
-    few targets against many sources take the source-split launch
-    (:func:`_split_plan`); either way it counts as one launch."""
+    ``pallas_acc`` counterpart). Any T and S, S = 0 included. On the card
+    the launch follows :func:`cluster_plan` (``t_real``: the real targets
+    among the T, all of them by default), or ``plan`` (p, n_split) where
+    given; more than ``MAX_CLUSTER`` ranges go through a scratch and a
+    second kernel. Either way it counts as one launch."""
     device = _device_of(tgt_pos)
     t, s = tgt_pos.shape[0], src_pos.shape[0]
     _check("tgt_pos", tgt_pos, (t, 2), device)
@@ -156,24 +260,15 @@ def force_acc(
     if device.type == "cpu":
         return force_acc_plain(tgt_pos, tgt_radius, src_pos, src_gm,
                                precise=precise)
+    plan = (cluster_plan(t, s, device_sms(device), t_real=t_real)
+            if plan is None else _checked_plan(plan))
     acc = torch.empty((t, 2), dtype=torch.float32, device=device)
-    n_split = _split_plan(t, s, sm_count(device.index
-                                         if device.index is not None
-                                         else torch.cuda.current_device()))
-    if n_split == 1:
-        _launch(tgt_pos, None, tgt_radius, src_pos, src_gm, 0.0, 1.0,
-                precise, acc, None, None)
-        return acc
-    global LAUNCHES
-    partial = torch.empty((n_split, t, 2), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        err = _lib().nbody_direct_forces_split(
-            tgt_pos.data_ptr(), tgt_radius.data_ptr(), src_pos.data_ptr(),
-            src_gm.data_ptr(), t, s, n_split, int(precise),
-            partial.data_ptr(), acc.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "direct_forces (source split)")
-    LAUNCHES += 1
+    partial = None
+    if plan.n_split > MAX_CLUSTER:
+        partial = torch.empty((plan.n_split, t, 2), dtype=torch.float32,
+                              device=device)
+    _launch(tgt_pos, None, tgt_radius, src_pos, src_gm, 0.0, 1.0, precise,
+            acc, None, None, plan=plan, partial=partial)
     return acc
 
 
@@ -201,6 +296,7 @@ def fused_substep(
     *,
     precise: bool = False,
     pos_dt: float = 1.0,
+    plan: tuple | None = None,
 ):
     """One substep, force and integration, in one kernel launch (the
     ``fused_substep`` counterpart).
@@ -208,8 +304,11 @@ def fused_substep(
     Sources are the first S = len(gm) rows of ``pos``. ``pos_dt=1.0`` is
     the reference's semi-implicit Euler (v += a*dt; x += v*dt); ``0.5`` is
     the kick and half-drift of a DKD stage. ``dt`` is a Python float, so
-    the call makes no host sync. Returns new (pos, vel, acc), each (N, 2),
-    in fresh buffers: the inputs are not modified.
+    the call makes no host sync. The launch follows :func:`cluster_plan`
+    with at most ``MAX_CLUSTER`` ranges, or ``plan`` (p, n_split) where
+    given; a split of more than the card's cluster size is refused
+    and raises. Returns new (pos, vel, acc), each (N, 2), in fresh buffers:
+    the inputs are not modified.
     """
     device = _device_of(pos)
     n, s = pos.shape[0], gm.shape[0]
@@ -222,8 +321,11 @@ def fused_substep(
     if device.type == "cpu":
         return fused_substep_plain(dt, pos, vel, radius, gm, precise=precise,
                                    pos_dt=pos_dt)
+    plan = (cluster_plan(n, s, device_sms(device), max_split=MAX_CLUSTER)
+            if plan is None else _checked_plan(plan))
     acc = torch.empty((n, 2), dtype=torch.float32, device=device)
     npos = torch.empty_like(acc)
     nvel = torch.empty_like(acc)
-    _launch(pos, vel, radius, pos, gm, dt, pos_dt, precise, acc, npos, nvel)
+    _launch(pos, vel, radius, pos, gm, dt, pos_dt, precise, acc, npos, nvel,
+            plan=plan)
     return npos, nvel, acc

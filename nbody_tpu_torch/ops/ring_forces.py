@@ -39,6 +39,7 @@ kernel or raise.
 from __future__ import annotations
 
 import contextlib
+from collections import Counter
 from dataclasses import dataclass
 
 import torch
@@ -46,11 +47,15 @@ import torch
 from .. import forces
 from ..types import DTYPE
 from . import direct_forces
-from .direct_forces import _check, _device_of, _pos_dt_times_dt, _raise_on
+from .direct_forces import (MAX_CLUSTER, _check, _checked_plan, _device_of,
+                            _pos_dt_times_dt, _raise_on, cluster_plan,
+                            device_sms)
 
 # Hop-kernel launches made by ``ring_hop`` in this process (plain-version
-# calls are not counted). A run resets it to 0 and reads it back.
+# calls are not counted), and the plan of each ({Plan: launches}). A run
+# resets them and reads them back.
 LAUNCHES = 0
+PLANS: Counter = Counter()
 
 
 def _lib():
@@ -89,9 +94,16 @@ def ring_hop(
     valid: torch.Tensor | None = None,  # (T,), the last hop only
     dt: float = 0.0,
     pos_dt: float = 1.0,
+    t_real: int | None = None,
+    plan: tuple | None = None,
 ):
     """One hop of the ring on one shard (one launch of the K3 kernel): the
     force on T targets of the S = len(src_gm) visiting sources.
+
+    The launch follows ``direct_forces.cluster_plan``, with ``t_real`` the
+    real targets among the T (the shard's rows below N; all T by default),
+    or ``plan`` (p, n_split) where given; a split of more than the card's
+    cluster size is refused and raises.
 
     Not the last hop (``vel`` is None): ``acc_run`` becomes the hop's force,
     or ``acc_run`` + the hop's force with ``accumulate``, in place; returns
@@ -119,6 +131,9 @@ def ring_hop(
     if device.type == "cpu":
         return ring_hop_plain(tgt_pos, tgt_radius, src_pos, src_gm, acc_run,
                               **kw)
+    plan = (cluster_plan(t, s, device_sms(device), t_real=t_real,
+                         max_split=MAX_CLUSTER)
+            if plan is None else _checked_plan(plan))
     out = [torch.empty((t, 2), dtype=DTYPE, device=device)
            for _ in range(3)] if last else [None] * 3
 
@@ -130,10 +145,11 @@ def ring_hop(
             tgt_pos.data_ptr(), tgt_radius.data_ptr(), src_pos.data_ptr(),
             src_gm.data_ptr(), t, s, acc_run.data_ptr(), int(accumulate),
             int(last), ptr(vel), ptr(valid), float(dt), float(pos_dt),
-            int(precise), *(ptr(x) for x in out),
+            int(precise), plan.p, plan.n_split, *(ptr(x) for x in out),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "ring_forces")
     LAUNCHES += 1
+    PLANS[plan] += 1
     if not last:
         return None
     acc, npos, nvel = out
@@ -221,16 +237,21 @@ class Ring:
     a compute and a copy stream per shard with the schedule's events.
 
     ``n_real[k]`` is the number of real sources of shard k (rows below
-    mass_len): computes read only those. ``serial = True`` synchronises the
+    mass_len): computes read only those. ``t_real[k]`` is the number of its
+    real targets (rows below ``n_targets``, all rows by default), from
+    which its launches are planned. ``serial = True`` synchronises the
     card after every operation, a schedule that cannot race, against which
     the overlapped one must be bit-equal."""
 
     def __init__(self, devices, t_loc: int, s_loc: int, mass_len: int,
-                 gm_src):
+                 gm_src, n_targets: int | None = None):
         self.devices = [torch.device(x) for x in devices]
         d = self.n_devices = len(self.devices)
         self.s_loc = s_loc
         self.n_real = [min(max(mass_len - k * s_loc, 0), s_loc)
+                       for k in range(d)]
+        n_targets = d * t_loc if n_targets is None else n_targets
+        self.t_real = [min(max(n_targets - k * t_loc, 0), t_loc)
                        for k in range(d)]
         self.schedule = ring_schedule(d)
         self.pieces = [source_pieces(k, s_loc, t_loc, self.n_real[k])
@@ -359,7 +380,8 @@ def ring_substep(ring: Ring, dt: float, pos, vel, radius, valid, *,
     def compute(k, h, last, src_pos, src_gm):
         kw = dict(vel=vel[k], valid=valid[k], dt=dt, pos_dt=pos_dt) if last else {}
         res = ring_hop(pos[k], radius[k], src_pos, src_gm, ring.acc_run[k],
-                       accumulate=h > 0, precise=precise, **kw)
+                       accumulate=h > 0, precise=precise,
+                       t_real=ring.t_real[k], **kw)
         if last:
             out[k] = res
     ring.run(pos, compute)
@@ -370,14 +392,19 @@ def ring_force(ring: Ring, pos, radius, valid, *, precise: bool = False,
                plain: bool = False) -> list:
     """Per-shard accelerations over the whole ring, masked by ``valid``,
     with no integration: per hop ``direct_forces.force_acc`` (the direct
-    kernel on CUDA shards) or, with ``plain``, its plain version; hop sums
-    added in hop order (JAX's ``acc + local``)."""
-    force = (direct_forces.force_acc_plain if plain
-             else direct_forces.force_acc)
+    kernel on CUDA shards, planned for the shard's real targets) or, with
+    ``plain``, its plain version; hop sums added in hop order (JAX's
+    ``acc + local``)."""
     acc = [None] * ring.n_devices
 
     def compute(k, h, last, src_pos, src_gm):
-        a = force(pos[k], radius[k], src_pos, src_gm, precise=precise)
+        if plain:
+            a = direct_forces.force_acc_plain(pos[k], radius[k], src_pos,
+                                              src_gm, precise=precise)
+        else:
+            a = direct_forces.force_acc(pos[k], radius[k], src_pos, src_gm,
+                                        precise=precise,
+                                        t_real=ring.t_real[k])
         a = a if h == 0 else acc[k] + a
         acc[k] = a * valid[k][:, None] if last else a
     ring.run(pos, compute)

@@ -92,6 +92,34 @@ def pair_loop(instrs: list[tuple[int, str]], opcode: str = "LDS") -> tuple[int, 
     return n, sum(op.startswith(opcode) for op in ops)
 
 
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(log: str) -> dict[str, dict[str, int]]:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from nvcc's
+    ``-Xptxas -v`` output (the ``.log`` that ``_build`` keeps beside each
+    library)."""
+    out: dict[str, dict[str, int]] = {}
+    current = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            current = out.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = _REGS.search(line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return out
+
+
 def find(funcs: dict, pattern: str) -> str:
     """The one kernel whose mangled name matches ``pattern`` (re.search)."""
     hits = [name for name in funcs if re.search(pattern, name)]

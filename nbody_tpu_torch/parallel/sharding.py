@@ -170,7 +170,8 @@ class ShardedWorld:
         self.mass, self.radius = split(state.mass, t_loc), split(state.radius, t_loc)
         self.valid = split(valid, t_loc)
         self._gm_src = split(gm[:src_len], s_loc)
-        self.ring = Ring(self.mesh, t_loc, s_loc, mass_len, self._gm_src)
+        self.ring = Ring(self.mesh, t_loc, s_loc, mass_len, self._gm_src,
+                         n_targets=n)
         self._host_cache: Particles | None = None
 
     @property

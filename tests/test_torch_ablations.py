@@ -33,8 +33,8 @@ from torch_helpers import rel_err
 import nbody_tpu as nb
 from nbody_tpu import forces as jforces
 from nbody_tpu_torch.ablations import (_scene, tune_r2, tune_r2b, tune_r2c, tune_r2d,
-                                       tune_r2e, tune_r2f, tune_r2g, tune_r2h,
-                                       tune_r4d_bcast_probe)
+                                       tune_direct, tune_r2e, tune_r2f,
+                                       tune_r2g, tune_r2h, tune_r4d_bcast_probe)
 from nbody_tpu_torch.ops import bcast_probe as bp
 from nbody_tpu_torch.ops import flavor_forces as ff
 from nbody_tpu_torch.ops import newton_forces as nwf
@@ -371,7 +371,7 @@ def test_wrapper_argument_errors(call, exc):
 
 @pytest.mark.parametrize("module", [tune_r2, tune_r2g, tune_r2d, tune_r2h,
                                     tune_r2b, tune_r2e, tune_r2c, tune_r2f,
-                                    tune_r4d_bcast_probe])
+                                    tune_r4d_bcast_probe, tune_direct])
 def test_ablation_module_needs_the_card(module, monkeypatch):
     """Each module's entry point measures the card; without one it raises
     before building a scene or drawing inputs."""
@@ -380,6 +380,37 @@ def test_ablation_module_needs_the_card(module, monkeypatch):
     monkeypatch.setattr(module, "run", pytest.fail)
     with pytest.raises(RuntimeError, match="CUDA"):
         module.main()
+
+
+@pytest.mark.parametrize("what", ["fused", "hop"])
+@pytest.mark.parametrize("precise", [False, True])
+def test_parent_side_jobs_run_the_public_wrappers(what, precise):
+    """``tune_direct parent`` drives each commit through its public
+    wrappers (``ablations/_side.py``); on CPU tensors they take their plain
+    versions, and a job's outputs are the fused substep's."""
+    from nbody_tpu_torch.ablations import _side
+    from nbody_tpu_torch.ops import direct_forces as df
+
+    job = {"what": what, "n": 300, "precise": precise, "plan": None}
+    times, out = _side.run_job(job, torch.device("cpu"), {})
+    assert times == {"ms": None}
+    pos, vel, radius, gm = _side.world_state(300, "cpu")
+    want = df.fused_substep_plain(1.0, pos, vel, radius, gm, precise=precise)
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+
+
+def test_parent_compares_each_old_job_with_unsplit_new_ones():
+    """Every bit comparison of ``tune_direct parent`` holds this tree at
+    n_split = 1 (the parent's bits are defined there) against the other
+    commit's job with the same shape and no plan."""
+    assert len(tune_direct.BIT_JOBS) == 6
+    for _, old, new in tune_direct.BIT_JOBS:
+        assert old["plan"] is None and new
+        for job in new:
+            assert job["plan"][1] == 1
+            assert {k: v for k, v in job.items() if k != "plan"} == \
+                {k: v for k, v in old.items() if k != "plan"}
 
 
 @pytest.mark.parametrize("module", [tune_r2b, tune_r2e])

@@ -156,14 +156,17 @@ def test_kernel_args_take_the_source_count_from_gm():
     first len(gm) rows may be read."""
     pos, vel, radius, gm = _t(*_inputs())
     out = [torch.empty((T, 2)) for _ in range(3)]
-    args = df._kernel_args(pos, vel, radius, pos, gm, 0.01, 0.5, True, *out)
+    plan = df.Plan(2, 1)
+    args = df._kernel_args(pos, vel, radius, pos, gm, 0.01, 0.5, True, *out,
+                           plan)
     argtypes = _build.SIGNATURES["direct_forces"]["nbody_direct_forces"]
     assert len(args) == len(argtypes) - 1   # the stream comes last
     assert args[5:11] == (T, S, 0.01, 0.5, 1, 1)
+    assert args[11:14] == (2, 1, None)   # the plan, no scratch
     assert args[3] == pos.data_ptr() and args[4] == gm.data_ptr()
     args = df._kernel_args(pos, None, radius, pos[:S], gm, 0.0, 1.0, False,
-                           out[0], None, None)
-    assert args[1] is None and args[12:] == (None, None)
+                           out[0], None, None, plan)
+    assert args[1] is None and args[-2:] == (None, None)
     assert args[5:11] == (T, S, 0.0, 1.0, 0, 0)
 
 

@@ -127,8 +127,10 @@ def test_world_cuda_matches_torch_backend(cuda, integrator, per_substep):
 @pytest.mark.parametrize("precise", [True, False])
 @pytest.mark.parametrize("t,n_src", [(64, 140_000), (1000, 333)])
 def test_force_acc_source_split_matches_plain(cuda, precise, t, n_src):
-    """Few targets: the launch splits the source sum (_split_plan > 1)."""
-    assert df._split_plan(t, n_src, df.sm_count(cuda.index or 0)) > 1
+    """Few targets: the launch splits the source sum (cluster_plan's
+    n_split > 1: a scratch reduce of ~260 ranges at S = 140000, a cluster
+    of 2 at S = 333)."""
+    assert df.cluster_plan(t, n_src, df.device_sms(cuda)).n_split > 1
     pos, _, radius, gm = _inputs(cuda, max(t, n_src), n_src, seed=5)
     tp, tr = pos[:t].contiguous(), radius[:t].contiguous()
     before = df.LAUNCHES
@@ -139,6 +141,113 @@ def test_force_acc_source_split_matches_plain(cuda, precise, t, n_src):
     # the split sums in a fixed order: the same bits on every run
     again = df.force_acc(tp, tr, pos[:n_src], gm, precise=precise)
     assert torch.equal(got, again)
+
+
+# --- the plans of the main-path pair loop (csrc/direct_tiles.cuh) ---
+
+# (p, n_split): each P unsplit and with a cluster split; a cluster of 8
+# over 12 runs (S = 3000); one over 2 runs (S = 333), 6 ranges empty.
+PLANS = [(1, 1), (2, 1), (1, 2), (2, 3), (1, 5), (2, 8)]
+
+
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("n,n_src", [(1000, 333), (4096, 3000)])
+@pytest.mark.parametrize("precise", [True, False])
+def test_fused_substep_plans_match_plain(cuda, precise, n, n_src, plan):
+    """Every P, with and without a cluster, against the plain version; two
+    runs bit-equal."""
+    pos, vel, radius, gm = _inputs(cuda, n, n_src, seed=7)
+    before = df.LAUNCHES
+    runs = [df.fused_substep(0.01, pos, vel, radius, gm, precise=precise,
+                             plan=plan) for _ in range(2)]
+    assert df.LAUNCHES == before + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    npos, nvel, acc = runs[0]
+    want = df.force_acc_plain(pos, radius, pos[:n_src], gm, precise=precise)
+    assert rel_err(acc.cpu(), want.cpu()) < TOL
+    assert rel_err(nvel.cpu(), (vel + 0.01 * acc).cpu()) < EPILOGUE_TOL
+    assert rel_err(npos.cpu(), (pos + 0.01 * nvel).cpu()) < EPILOGUE_TOL
+
+
+@pytest.mark.parametrize("plan", PLANS + [(1, 12), (2, 12)])
+@pytest.mark.parametrize("precise", [True, False])
+def test_force_acc_plans_match_plain(cuda, precise, plan):
+    """force_acc with each plan, more than 8 ranges through the scratch;
+    two runs bit-equal."""
+    pos, _, radius, gm = _inputs(cuda, 4096, 3000, seed=8)
+    got, again = (df.force_acc(pos, radius, pos[:3000], gm, precise=precise,
+                               plan=plan) for _ in range(2))
+    assert torch.equal(got, again)
+    want = df.force_acc_plain(pos, radius, pos[:3000], gm, precise=precise)
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("precise", [True, False])
+def test_ring_hop_plans_match_plain(cuda, precise, last, plan):
+    """The hop kernel with each plan against its plain version; two runs
+    bit-equal."""
+    pos, vel, radius, gm = _inputs(cuda, 4096, 3000, seed=9)
+    valid = (torch.arange(4096, device=cuda) < 4000).float()
+    run0 = df.force_acc_plain(pos, radius, pos[:50], gm[:50])
+    kw = dict(vel=vel, valid=valid, dt=0.01) if last else {}
+    outs = []
+    for _ in range(2):
+        run = run0.clone()
+        got = rf.ring_hop(pos, radius, pos, gm, run, accumulate=True,
+                          precise=precise, plan=plan, **kw)
+        outs.append(got[2] if last else run)
+    assert torch.equal(outs[0], outs[1])
+    run = run0.clone()
+    want = rf.ring_hop_plain(pos, radius, pos, gm, run, accumulate=True,
+                             precise=precise, **kw)
+    want = want[2] if last else run
+    assert rel_err(outs[0].cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.parametrize("precise", [True, False])
+def test_unsplit_plans_are_bit_equal(cuda, precise):
+    """At n_split = 1 each target sums its runs in source order whatever
+    P: the same bits."""
+    pos, vel, radius, gm = _inputs(cuda, 4096, 3000, seed=10)
+    ref = df.fused_substep(0.01, pos, vel, radius, gm, precise=precise,
+                           plan=(1, 1))
+    got = df.fused_substep(0.01, pos, vel, radius, gm, precise=precise,
+                           plan=(2, 1))
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,n_src", [(4096, 3000), (20_000, 9000)])
+@pytest.mark.parametrize("precise", [True, False])
+def test_ring_hop_d1_is_bit_equal_to_fused_substep(cuda, precise, n, n_src):
+    """One shard's only hop (accumulate off, the epilogue, every row valid)
+    plans as World does and gives fused_substep's bits."""
+    pos, vel, radius, gm = _inputs(cuda, n, n_src, seed=11)
+    want = df.fused_substep(0.01, pos, vel, radius, gm, precise=precise)
+    got = rf.ring_hop(pos, radius, pos, gm, torch.empty_like(pos),
+                      accumulate=False, precise=precise, vel=vel,
+                      valid=torch.ones(n, device=cuda), dt=0.01)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_refused_cluster_launch_raises(cuda):
+    """A cluster of 16 blocks is past the portable size the kernels launch
+    with: the launch is refused and the wrappers raise, with no launch
+    counted and nothing run in another form."""
+    pos, vel, radius, gm = _inputs(cuda, 4096, 3000, seed=12)
+    before = (df.LAUNCHES, rf.LAUNCHES)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        df.fused_substep(0.01, pos, vel, radius, gm, plan=(2, 16))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        rf.ring_hop(pos, radius, pos, gm, torch.zeros_like(pos),
+                    accumulate=False, plan=(2, 16))
+    assert (df.LAUNCHES, rf.LAUNCHES) == before
+    # the card is still usable
+    assert torch.isfinite(df.force_acc(pos, radius, pos[:3000], gm)).all()
 
 
 # --- K4: the P3M pair correction ---

@@ -90,3 +90,12 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0, proc.stdout
         assert '"ok"' not in proc.stdout
+
+
+def test_direct_tiles_is_the_main_path_kernels_own():
+    """The main-path pair loop is included by the direct and ring hop
+    kernels alone: no ablation kernel's code depends on it."""
+    csrc = ROOT / "nbody_tpu_torch" / "csrc"
+    users = sorted(p.name for p in csrc.glob("*.cu*")
+                   if '#include "direct_tiles.cuh"' in p.read_text())
+    assert users == ["direct_forces.cu", "ring_forces.cu"]
