@@ -22,9 +22,16 @@ Phases, each of which raises on failure:
      particles, with the kernel's launch count; the plain "torch" backend
      timed the same way;
   5. N=1M: timed update_gpu substeps;
-  6. the P3M pair-correction kernel (K4) against its plain version: random
-     cells, and the blocks the N=1M p3m world packs with the slice's config
-     (grid 2048, cap 768) and with the default one (grid 512, cap 96);
+  6. the P3M pair-correction kernel (K4) against its plain version, rsqrt
+     and precise: pp_cells (the main path's cells route) against
+     pp_cells_plain, and pp_blocks on the same cells with and without the
+     counts against pp_blocks_plain, its live rows compared bit for bit
+     with the cells route's, on random 8x8 cells (cap 32, an empty cell
+     and cells past the cap), the cells of the N=1M p3m world with the
+     slice's config (grid 2048, gc 512, cap 768) and of the N=65536 world
+     with the default one (grid 512, gc 128, cap 96); with each scene's
+     candidate pairs, pairs inside rc, tasks, lanes busy, K4's time and
+     bound;
   7. the direct kernel's source-split force_acc against its plain version:
      the 64 exact-core rows of the N=1M world against its 524,704 sources,
      and 1000 targets against 333 sources;
@@ -32,6 +39,7 @@ Phases, each of which raises on failure:
      p3m_cell_capacity=768: create_world -> update(1.0, 1, backend="p3m")
      -> 10 timed substeps with no host sync -> particles, with both
      kernels' launch counts and a profiler window split by stage; then
+     the pack's row gather timed against a gather of fp32 rows (bit-equal);
      N=65536 with the default config, for time only; then a "pm" and a
      "p3m" World at N=1M each run twice from the same state, bit-equal,
      and the CIC scatter timed against the index_add_ form it replaced;
@@ -82,6 +90,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -436,124 +445,210 @@ def time_update(world, n: int, backend: str) -> tuple[float, float]:
     return host_s / n * 1e6, dev_ms / n * 1e3
 
 
-def live_pairs(counts_t, counts_s, gc: int, cap_t: int, cap_s: int) -> dict:
-    """What the K4 launch must do on these counts: live pairs (live target
-    slots x live source slots of their 9 neighbour cells), the live slots,
-    and the dense pair slots of the blocks."""
-    ct = counts_t.reshape(gc, gc).clamp(max=cap_t).double()
-    cs = counts_s.reshape(gc, gc).clamp(max=cap_s).double()
-    csp = torch.nn.functional.pad(cs, (1, 1, 1, 1))
-    nsum = sum(csp[i:i + gc, j:j + gc] for i in range(3) for j in range(3))
-    return {"pairs": int((ct * nsum).sum()), "live_t": int(ct.sum()),
-            "live_s": int(cs.sum()), "dense": gc * gc * cap_t * 9 * cap_s,
-            "cells_with_targets": int((ct > 0).sum())}
+def pair_counts(cells, rc, cap: int) -> dict:
+    """What K4's cells route must do on these runs: live target and source
+    rows, candidate pairs (each live target against the live sources of
+    its 9 neighbour cells), pairs inside rc (d² < rc² in fp32, without the
+    kernel's FMA, so a pair on the boundary may count otherwise), and the
+    kernel's tasks (tiles of up to 32 live targets of a cell)."""
+    trows, srows, st, ct, ss, cs = cells
+    n_t, n_s, g = trows.shape[0], srows.shape[0], ct.numel()
+    gc = math.isqrt(g)
+    ct_live, cs_live = ct.clamp(max=cap).long(), cs.clamp(max=cap).long()
+    cell = torch.repeat_interleave(torch.arange(g, device=ct.device), ct.long())
+    rank = torch.arange(n_t, device=ct.device) - st.long()[cell]
+    rows = torch.nonzero(rank < cap).reshape(-1)
+    cell = cell[rows]
+    ci, cj = cell // gc, cell % gc
+    rc = torch.as_tensor(rc, dtype=torch.float32, device=ct.device)
+    rc2 = rc * rc
+    k = torch.arange(cap, device=ct.device)
+    chunk = max(1, (1 << 24) // cap)
+    candidates = inside = 0
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            ni, nj = ci + di, cj + dj
+            ok = (ni >= 0) & (ni < gc) & (nj >= 0) & (nj < gc)
+            nc = torch.where(ok, ni * gc + nj, 0)
+            ns = torch.where(ok, cs_live[nc], 0)
+            candidates += int(ns.sum())
+            for r0 in range(0, rows.shape[0], chunk):
+                r = slice(r0, r0 + chunk)
+                sidx = (ss.long()[nc[r]][:, None] + k).clamp(max=max(n_s - 1, 0))
+                dx = srows[sidx, 0] - trows[rows[r], 0][:, None]
+                dy = srows[sidx, 1] - trows[rows[r], 1][:, None]
+                near = (dx * dx + dy * dy < rc2) & (k < ns[r, None])
+                inside += int(near.sum())
+    return {"live_t": int(ct_live.sum()), "live_s": int(cs_live.sum()),
+            "n_t": n_t, "cells": g, "cap": cap, "candidates": candidates,
+            "inside": inside, "tasks": int(((ct_live + 31) // 32).sum()),
+            "cells_with_targets": int((ct_live > 0).sum())}
 
 
-def pp_bound(gc: int, cap_t: int, live: dict) -> tuple[float, str]:
-    """K4's bound: 14 operations per live pair; the live (x, y, r|gm) slots
+def pp_bound(c: dict) -> tuple[float, str]:
+    """K4's bound on the cells route: 5 operations (dx, dy, d², the
+    compare) for every candidate pair, 14 more and 3 MUFU for every pair
+    inside rc; the live rows (16 bytes each) and the four run arrays read
+    once, one (x, y) written per target row."""
+    nbytes = 16 * (c["live_t"] + c["live_s"]) + 16 * c["cells"] + 8 * c["n_t"]
+    return bound(5 * c["candidates"] + FLOPS_PP * c["inside"], nbytes,
+                 MUFU_PP * c["inside"])
+
+
+def pp_blocks_bound(c: dict) -> tuple[float, str]:
+    """The bound of pp_blocks with counts, as PR 3 counted it: 14
+    operations and 3 MUFU per candidate pair, the live (x, y, r|gm) slots
     and both counts read once, the dense (gc², cap_t, 2) output written."""
-    nbytes = 12 * (live["live_t"] + live["live_s"]) + 8 * gc * gc \
-        + 8 * gc * gc * cap_t
-    return bound(FLOPS_PP * live["pairs"], nbytes, MUFU_PP * live["pairs"])
+    nbytes = 12 * (c["live_t"] + c["live_s"]) + 8 * c["cells"] \
+        + 8 * c["cells"] * c["cap"]
+    return bound(FLOPS_PP * c["candidates"], nbytes,
+                 MUFU_PP * c["candidates"])
 
 
-def world_blocks(p3m_forces, world):
-    """The cell blocks, rc and counts that world.update(backend="p3m")
-    packs from the world's current state."""
+def cells_and_blocks(pp, trows, t_radius, srows, counts_t, counts_s, cap):
+    """The cells route's inputs (rows, each cell's start and count) and the
+    (gc, gc, cap) blocks that nbody_tpu's pp_blocks takes on the same
+    cells: tx, ty, tr (the radius without the softening floor, 1 in an
+    empty slot), sx, sy, sg (0 in an empty slot)."""
+    gc = math.isqrt(counts_t.numel())
+    starts = [torch.cumsum(c, 0, dtype=torch.int32) - c
+              for c in (counts_t, counts_s)]
+    cells = [trows, srows, starts[0], counts_t, starts[1], counts_s]
+    blocks = []
+    for vals, start, counts, fills in (
+            ([trows[:, 0], trows[:, 1], t_radius], starts[0], counts_t,
+             (0.0, 0.0, 1.0)),
+            ([srows[:, 0], srows[:, 1], srows[:, 2]], starts[1], counts_s,
+             (0.0, 0.0, 0.0))):
+        idx, live = pp.run_slots(start, counts, cap, vals[0].shape[0])
+        idx = idx.clamp(max=vals[0].shape[0] - 1)
+        blocks += [torch.where(live, v[idx], f).reshape(gc, gc, cap)
+                   .contiguous() for v, f in zip(vals, fills)]
+    return cells, blocks
+
+
+def world_cells(pp, p3m_forces, world):
+    """The rows, runs and rc that world.update(backend="p3m") hands K4 on
+    the world's current state, and the blocks of the same cells."""
     cfg, st, s = world.config, world.state, world.mass_len
     bins = p3m_forces.p3m_bins(st.pos, st.radius, st.pos[:s], world.gm,
                                grid=cfg.pm_grid, rc_cells=cfg.p3m_rc_cells,
                                exact_targets=0)
-    gc, cap = cfg.pm_grid // cfg.p3m_rc_cells, cfg.p3m_cell_capacity
-    src = p3m_forces._pack_source_blocks(st.pos[:s], world.gm,
-                                         bins["order_s"], bins["counts_s"],
-                                         gc, cap)
-    trow = torch.cat([st.pos, st.radius[:, None]], -1)[bins["order_t"]]
-    tgt = p3m_forces._gather_blocks(
-        [(trow[:, 0], 0.0), (trow[:, 1], 0.0), (trow[:, 2], 1.0)],
-        bins["counts_t"], gc, cap)
-    return ([*tgt, *src], cfg.p3m_rc_cells * bins["h"], bins["counts_t"],
-            bins["counts_s"])
+    trows = p3m_forces._cell_rows(st.pos, st.radius + pp.SOFTENING_FLOOR,
+                                  bins["order_t"])
+    srows = p3m_forces._cell_rows(st.pos[:s], world.gm, bins["order_s"])
+    cells, blocks = cells_and_blocks(
+        pp, trows, st.radius[bins["order_t"]], srows, bins["counts_t"],
+        bins["counts_s"], cfg.p3m_cell_capacity)
+    for mine, theirs in zip(cells[2::2], (bins["start_t"], bins["start_s"])):
+        if not torch.equal(mine, theirs):
+            raise SystemExit("chip_smoke: p3m_bins' run starts are not the "
+                             "exclusive prefix sums of its counts")
+    return cells, blocks, cfg.p3m_rc_cells * bins["h"]
 
 
-def random_blocks(device, gc: int = 8, cap: int = 32):
-    """Random cells: slots inside their own cell of a grid of cell size 4
-    (rc = 4), a random number of live slots per cell, gm 0 elsewhere."""
+def random_cells(pp, device, gc: int = 8, cap: int = 32):
+    """Random cells of size 4 (rc = 4) in cell order: 0 to cap + 8 targets
+    and sources a cell (some cells empty, some past the cap), positions
+    inside their own cell, random radii and gm."""
     rng = np.random.default_rng(0)
-    ij = np.stack(np.meshgrid(np.arange(gc), np.arange(gc), indexing="ij"), -1)
-    counts = [rng.integers(0, cap + 1, gc * gc).astype(np.int32) for _ in range(2)]
-    txy, sxy = ((ij[:, :, None, :] + rng.uniform(size=(gc, gc, cap, 2))) * 4.0
-                for _ in range(2))
-    live_s = (np.arange(cap)[None, :] < counts[1][:, None]).reshape(gc, gc, cap)
-    tr = rng.uniform(0.5, 9.5, (gc, gc, cap))
-    sg = np.where(live_s, rng.uniform(10, 1e4, (gc, gc, cap)), 0.0)
-    arrays = (txy[..., 0], txy[..., 1], tr, sxy[..., 0], sxy[..., 1], sg)
-    blocks = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-              for a in arrays]
-    return blocks, 4.0, *(torch.from_numpy(c).to(device) for c in counts)
+    counts = [rng.integers(0, cap + 9, gc * gc).astype(np.int32)
+              for _ in range(2)]
+    counts[0][:2] = (0, cap)        # an empty cell and a full one
+    rows = []
+    for c, w_lo, w_hi in ((counts[0], 0.5, 9.5), (counts[1], 10.0, 1e4)):
+        cell = np.repeat(np.arange(gc * gc), c)
+        xy = (np.stack([cell // gc, cell % gc], 1)
+              + rng.uniform(size=(len(cell), 2))) * 4.0
+        w = rng.uniform(w_lo, w_hi, len(cell))
+        rows.append(np.concatenate([xy, w[:, None], np.zeros((len(cell), 1))],
+                                   1).astype(np.float32))
+    radius = torch.from_numpy(rows[0][:, 2].copy()).to(device)
+    rows[0][:, 2] += np.float32(pp.SOFTENING_FLOOR)
+    trows, srows = (torch.from_numpy(r).to(device) for r in rows)
+    cells, blocks = cells_and_blocks(pp, trows, radius, srows,
+                                     *(torch.from_numpy(c).to(device)
+                                       for c in counts), cap)
+    return cells, blocks, 4.0
 
 
-def compare_pp(pp, label, blocks, rc, counts_t, counts_s, dense_plain: bool) -> dict:
-    """K4 against pp_blocks_plain, rsqrt and precise, with and without the
-    counts. With ``dense_plain`` the plain version computes every slot;
-    otherwise (the slice's 262144 cells) only the cells holding targets,
-    and the kernel's all-slot output is held to it on the live slots.
-    Returns the largest max|d| and the timings of the counted rsqrt call."""
-    gc, _, cap_t = blocks[0].shape
-    cap_s = blocks[3].shape[-1]
-    live = live_pairs(counts_t, counts_s, gc, cap_t, cap_s)
-    slot = torch.arange(cap_t, device=counts_t.device)
-    live_slots = slot[None, :] < counts_t.reshape(-1, 1)
-    worst = 0.0
-    kw = {"counts_t": counts_t, "counts_s": counts_s}
+def compare_pp(pp, label, cells, blocks, rc, cap: int, dense_plain: bool) -> dict:
+    """K4 on the cells route against pp_cells_plain, rsqrt and precise;
+    pp_blocks on the same cells against the plain version with the counts
+    (and its rows bit for bit against the cells route's) and with every
+    slot (held to the plain version on every slot with ``dense_plain``,
+    else on the live slots). Returns the cells route's largest max|d| and
+    its timings."""
+    trows = cells[0]
+    n_t = trows.shape[0]
+    idx, live = pp.run_slots(cells[2], cells[3], cap, n_t)
+    idx = idx.clamp(max=n_t - 1)
+    kw_c = {"cap_t": cap, "cap_s": cap}
+    kw_b = {"counts_t": cells[3], "counts_s": cells[5]}
+    worst, bits = 0.0, {}
     for precise in (False, True):
         tag = "precise" if precise else "rsqrt"
         t0 = time.perf_counter()
-        want_c = pp.pp_blocks_plain(*blocks, rc, 4.0, precise=precise, **kw)
+        want = pp.pp_cells_plain(*cells, rc, 4.0, precise=precise, **kw_c)
         torch.cuda.synchronize()
         if not precise:
             plain_ms = (time.perf_counter() - t0) * 1e3
-        got_c = pp.pp_blocks(*blocks, rc, 4.0, precise=precise, **kw)
-        check(f"{label} {tag} with counts", rel(got_c, want_c), BOUND_PP)
+        got = pp.pp_cells(*cells, rc, 4.0, precise=precise, **kw_c)
+        check(f"{label} {tag} cells route", rel(got, want), BOUND_PP)
+        worst = max(worst, float((got - want).abs().max()))
+        want_b = torch.where(live[..., None], want[idx], 0.0)
+        got_b = pp.pp_blocks(*blocks, rc, 4.0, precise=precise, **kw_b)
+        check(f"{label} {tag} pp_blocks with counts", rel(got_b, want_b),
+              BOUND_PP)
+        bits[tag] = torch.equal(got_b[live], got[idx[live]])
         got_a = pp.pp_blocks(*blocks, rc, 4.0, precise=precise)
         if not torch.isfinite(got_a).all():
             raise SystemExit(f"chip_smoke: {label} {tag} all slots not finite")
         if dense_plain:
-            want_a = pp.pp_blocks_plain(*blocks, rc, 4.0, precise=precise)
-            check(f"{label} {tag} all slots", rel(got_a, want_a), BOUND_PP)
+            check(f"{label} {tag} pp_blocks all slots", rel(
+                got_a, pp.pp_blocks_plain(*blocks, rc, 4.0, precise=precise)),
+                BOUND_PP)
         else:
-            want_a = want_c
-            check(f"{label} {tag} all slots, on the live slots",
-                  rel(got_a[live_slots], want_c[live_slots]), BOUND_PP)
-            got_a = torch.where(live_slots[..., None], got_a, 0.0)
-        worst = max(worst, float((got_c - want_c).abs().max()),
-                    float((got_a - want_a).abs().max()))
-    ms = cuda_ms(lambda: pp.pp_blocks(*blocks, rc, 4.0, **kw), reps=20)
-    ms_all = cuda_ms(lambda: pp.pp_blocks(*blocks, rc, 4.0), reps=5)
-    bound_ms, bound_by = pp_bound(gc, cap_t, live)
-    log(f"  {label}: {live['cells_with_targets']} of {gc * gc} cells hold "
-        f"targets; live pairs {live['pairs']:.4e} of {live['dense']:.4e} dense "
-        f"slots; kernel {ms:.4f} ms with counts, {ms_all:.4f} ms all slots; "
-        f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}); "
-        f"{FLOPS_PP * live['pairs'] / (ms * 1e-3) / 1e12:.3f} TFLOP/s")
+            check(f"{label} {tag} pp_blocks all slots, on the live slots",
+                  rel(got_a[live], want_b[live]), BOUND_PP)
+        del want, want_b, got_b, got_a
+    log(f"  {label}: the cells route's live rows bit-equal to pp_blocks': "
+        f"rsqrt {bits['rsqrt']}, precise {bits['precise']}")
+    c = pair_counts(cells, rc, cap)
+    ms = cuda_ms(lambda: pp.pp_cells(*cells, rc, 4.0, **kw_c), reps=20)
+    ms_b = cuda_ms(lambda: pp.pp_blocks(*blocks, rc, 4.0, **kw_b), reps=5)
+    ms_all = cuda_ms(lambda: pp.pp_blocks(*blocks, rc, 4.0), reps=3)
+    bound_ms, bound_by = pp_bound(c)
+    bb_ms, bb_by = pp_blocks_bound(c)
+    log(f"  {label}: {c['cells_with_targets']} of {c['cells']} cells hold "
+        f"targets; {c['live_t']} live targets, {c['live_s']} live sources; "
+        f"candidate pairs {c['candidates']:.4e}, inside rc {c['inside']:.4e} "
+        f"({c['inside'] / max(c['candidates'], 1):.1%}); {c['tasks']} tasks, "
+        f"lanes busy {c['live_t'] / max(32 * c['tasks'], 1):.1%}")
+    log(f"  {label}: cells route {ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}, {bound_ms / ms:.1%} of it); plain {plain_ms:.3f} ms; "
+        f"pp_blocks {ms_b:.4f} ms with counts (bound {bb_ms:.4f} ms, "
+        f"{bb_by}), {ms_all:.4f} ms all slots")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "bits": bits,
+            "counts": c, "blocks_ms": ms_b, "all_ms": ms_all}
 
 
 def phase_pp(pp, p3m_forces, slice_w, default_w, device) -> dict:
     log("[6] K4 (P3M pair correction) against its plain version on the card")
     out = {}
-    blocks, rc, ct, cs = random_blocks(device)
-    compare_pp(pp, "random 8x8 cells cap 32", blocks, rc, ct, cs, True)
+    cells, blocks, rc = random_cells(pp, device)
+    compare_pp(pp, "random 8x8 cells cap 32", cells, blocks, rc, 32, True)
     for key, world, dense in (("sized", slice_w, False),
                               ("default", default_w, True)):
         cfg = world.config
-        blocks, rc, ct, cs = world_blocks(p3m_forces, world)
+        cells, blocks, rc = world_cells(pp, p3m_forces, world)
         out[key] = compare_pp(
             pp, f"N={world.total_len} grid {cfg.pm_grid} gc="
             f"{cfg.pm_grid // cfg.p3m_rc_cells} cap={cfg.p3m_cell_capacity}",
-            blocks, rc, ct, cs, dense)
-        del blocks
+            cells, blocks, rc, cfg.p3m_cell_capacity, dense)
+        out[key]["n"] = world.total_len
+        del cells, blocks
     return out
 
 
@@ -670,7 +765,32 @@ def run_p3m(df, pp, world, label: str) -> dict:
     return {"ms": ms, "launches": launches}
 
 
-def phase_p3m(nt, df, pp, scene_big, scene_bench, device, direct_big_ms) -> dict:
+def row_gather(pp, p3m_forces, world) -> None:
+    """p3m.pack's gather of the targets into cell order (each 16-byte row
+    one complex128 element) timed against the same gather of rows of four
+    fp32; the two must give the same bits."""
+    cfg, st = world.config, world.state
+    bins = p3m_forces.p3m_bins(st.pos, st.radius, st.pos[:world.mass_len],
+                               world.gm, grid=cfg.pm_grid,
+                               rc_cells=cfg.p3m_rc_cells, exact_targets=0)
+    w, order = st.radius + pp.SOFTENING_FLOOR, bins["order_t"]
+
+    def fp32_rows():
+        return torch.cat([st.pos, w[:, None], torch.zeros_like(w)[:, None]],
+                         1)[order]
+
+    same = torch.equal(p3m_forces._cell_rows(st.pos, w, order), fp32_rows())
+    ms = cuda_ms(lambda: p3m_forces._cell_rows(st.pos, w, order), reps=20)
+    ms_fp32 = cuda_ms(fp32_rows, reps=20)
+    log(f"  p3m.pack's target gather, {len(order)} rows of 16 bytes: "
+        f"{ms:.4f} ms as complex128 elements, {ms_fp32:.4f} ms as rows of "
+        f"four fp32; bit-equal {same}")
+    if not same:
+        raise SystemExit("chip_smoke: the row gather changed the rows' bits")
+
+
+def phase_p3m(nt, df, pp, p3m_forces, scene_big, scene_bench, device,
+              direct_big_ms) -> dict:
     log(f"[8] p3m main path: N={BIG_N}, 2 galaxies, seed {SEED}, "
         f"{P3M_SIZED}")
     world = nt.create_world(scene_big, config=nt.SimConfig(**P3M_SIZED),
@@ -691,6 +811,7 @@ def phase_p3m(nt, df, pp, scene_big, scene_bench, device, direct_big_ms) -> dict
     log(f"  direct kernel at N={BIG_N} ([5]): {direct_big_ms:.4f} ms/substep, "
         f"{direct_big_ms / out['ms']:.2f}x the p3m substep")
     out["profile"] = prof
+    row_gather(pp, p3m_forces, world)
     small = nt.create_world(scene_bench, config=nt.SimConfig(**P3M_DEFAULT),
                             device=device)
     out["bench"] = run_p3m(df, pp, small, f"N={BENCH_N} default config (time only)")
@@ -1449,12 +1570,13 @@ def main() -> int:
 
     slice_w = nt.create_world(scene_big, config=nt.SimConfig(**P3M_SIZED),
                               device=device)
-    default_w = nt.create_world(scene_big, config=nt.SimConfig(**P3M_DEFAULT),
+    default_w = nt.create_world(scene_bench, config=nt.SimConfig(**P3M_DEFAULT),
                                 device=device)
     k4 = phase_pp(pp, p3m_forces, slice_w, default_w, device)
     del default_w
     split = phase_split(df, p3m_forces, slice_w, device)
-    p3m = phase_p3m(nt, df, pp, scene_big, scene_bench, device, big_ms)
+    p3m = phase_p3m(nt, df, pp, p3m_forces, scene_big, scene_bench, device,
+                    big_ms)
     mesh_repeat(nt, pm_forces, scene_big, device)
     phase_accuracy(nt, df, slice_w, device)
     sizing_table(nt, p3m_forces, device)
@@ -1501,8 +1623,9 @@ def main() -> int:
 
     def pp_row(key, cfg, launches):
         r = k4[key]
-        return {"name": f"p3m_pp pair correction, gc={cfg['pm_grid'] // 4} "
-                        f"cap={cfg['p3m_cell_capacity']}, N={BIG_N} blocks",
+        return {"name": f"p3m_pp pair correction, cells route, gc="
+                        f"{cfg['pm_grid'] // 4} cap={cfg['p3m_cell_capacity']}, "
+                        f"N={r['n']}",
                 "route": "cuda", "source": PP_SRC,
                 "replaces": "nbody_tpu/ops/p3m_pallas.py:38",
                 "launches": launches, "max_abs_err": r["max_abs_err"],

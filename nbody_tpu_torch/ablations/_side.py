@@ -1,19 +1,25 @@
-"""One side of ``tune_direct parent``: the direct and ring hop kernels of
-whichever ``nbody_tpu_torch`` comes first on ``sys.path``, driven through
-its public wrappers alone (``create_world``, ``direct_forces.fused_substep``,
-``ring_forces.ring_hop`` and a "cuda_ring" ``ShardedWorld``), so that it
-runs against any commit of the port that has the ring. A job passes
-``plan`` only where it gives one.
+"""One side of ``tune_direct parent`` and ``tune_p3m parent``: the kernels
+of whichever ``nbody_tpu_torch`` comes first on ``sys.path``, driven
+through its public wrappers alone (``create_world``,
+``direct_forces.fused_substep``, ``ring_forces.ring_hop``, a "cuda_ring"
+``ShardedWorld``, ``p3m_forces.p3m_bins`` and ``p3m_pp``'s ``pp_cells``
+where the tree has it, else ``pp_blocks``), so that it runs against any
+commit of the port that has the ring. A job passes ``plan`` only where it
+gives one.
 
     PYTHONPATH=ROOT python nbody_tpu_torch/ablations/_side.py JOBS.json OUT_DIR
 
-JOBS.json is a list of jobs, each {"what": "fused" | "hop" | "ring", "n",
-...}: "fused" is one fused substep of the N-particle two-galaxy world (seed
-11037); "hop" that world's state as the only hop of a one-shard ring, with
-its epilogue; "ring" a profiler window over a "cuda_ring" ShardedWorld of
-``d`` shards on the card. A job's outputs go to OUT_DIR/<index>.pt, and
-one JSON line a job gives its times (ms; "reps" calls between CUDA events,
-the best of "repeats").
+JOBS.json is a list of jobs, each {"what": "fused" | "hop" | "ring" |
+"pp" | "p3m", "n", ...}: "fused" is one fused substep of the N-particle
+two-galaxy world (seed 11037); "hop" that world's state as the only hop of
+a one-shard ring, with its epilogue; "ring" a profiler window over a
+"cuda_ring" ShardedWorld of ``d`` shards on the card; "pp" the P3M pair
+correction (K4) of that world's initial state with ``grid`` and ``cap``,
+the call that world.update(backend="p3m") makes (its output one (x, y) a
+target in cell order, 0 past a cell's cap); "p3m" ``substeps`` p3m
+substeps of that world. A job's outputs go to OUT_DIR/<index>.pt, and one
+JSON line a job gives its times (ms; "reps" calls between CUDA events, the
+best of "repeats"; a "p3m" job's ms are a substep's).
 """
 
 from __future__ import annotations
@@ -87,11 +93,93 @@ def ring_window(device, n: int, d: int, substeps: int = 5) -> tuple:
             sum(b - a for a, b in spans) / 1e3 / substeps, wall)
 
 
+def p3m_world(n: int, grid: int, cap: int, device):
+    import nbody_tpu_torch as nt
+
+    return nt.create_world(nt.make_galaxies(n, 2, seed=SEED), device=device,
+                           config=nt.SimConfig(pm_grid=grid,
+                                               p3m_cell_capacity=cap))
+
+
+def pp_call(world, precise: bool):
+    """(fn, to_rows): the K4 call that a p3m substep makes on the world's
+    state, and the map from its output to one (x, y) a target in cell
+    order. Through ``pp_cells`` where this tree has it; else through
+    ``pp_blocks`` with the counts, on blocks packed here."""
+    from nbody_tpu_torch.ops import p3m_forces, p3m_pp
+
+    cfg, st, s = world.config, world.state, world.mass_len
+    gc, cap = cfg.pm_grid // cfg.p3m_rc_cells, cfg.p3m_cell_capacity
+    bins = p3m_forces.p3m_bins(st.pos, st.radius, st.pos[:s], world.gm,
+                               grid=cfg.pm_grid, rc_cells=cfg.p3m_rc_cells,
+                               exact_targets=0)
+    rc = cfg.p3m_rc_cells * bins["h"]
+    sides = ((st.pos, st.radius, bins["order_t"], bins["counts_t"]),
+             (st.pos[:s], world.gm, bins["order_s"], bins["counts_s"]))
+    if hasattr(p3m_pp, "pp_cells"):
+        floor = p3m_pp.SOFTENING_FLOOR
+        rows = [torch.cat([xy, w[:, None] + f, torch.zeros_like(w)[:, None]],
+                          1)[order]
+                for (xy, w, order, _), f in zip(sides, (floor, 0.0))]
+        runs = [bins[k] for k in ("start_t", "counts_t", "start_s",
+                                  "counts_s")]
+
+        def fn():
+            return p3m_pp.pp_cells(*rows, *runs, rc, 4.0, cap_t=cap,
+                                   cap_s=cap, precise=precise)
+        return fn, lambda out: out
+    blocks, slots = [], None
+    for (xy, w, order, counts), fills in zip(sides, ((0.0, 0.0, 1.0),
+                                                      (0.0, 0.0, 0.0))):
+        cols = torch.cat([xy, w[:, None]], 1)[order]
+        cid = torch.repeat_interleave(
+            torch.arange(gc * gc, device=xy.device), counts.long())
+        rank = torch.arange(len(cid), device=cid.device) \
+            - (torch.cumsum(counts.long(), 0) - counts.long())[cid]
+        slot = torch.where(rank < cap, cid * cap + rank, gc * gc * cap)
+        slots = slot if slots is None else slots
+        for k, f in enumerate(fills):
+            b = torch.full((gc * gc * cap + 1,), f, device=cid.device)
+            b[slot] = cols[:, k]
+            blocks.append(b[:-1].reshape(gc, gc, cap))
+
+    def fn():
+        return p3m_pp.pp_blocks(*blocks, rc, 4.0, precise=precise,
+                                counts_t=bins["counts_t"],
+                                counts_s=bins["counts_s"])
+
+    def to_rows(out):
+        flat = torch.cat([out.reshape(-1, 2), torch.zeros_like(out[0, :1])])
+        return flat[slots]
+    return fn, to_rows
+
+
+def p3m_substep_ms(world, substeps: int, repeats: int) -> float:
+    """Device ms a p3m substep: the best of ``repeats`` runs of
+    ``substeps`` substeps between CUDA events, after one warm-up."""
+    return best_ms(lambda: world.update(1.0, substeps, backend="p3m"), 1,
+                   repeats) / substeps
+
+
 def run_job(job: dict, device, worlds: dict) -> tuple:
     """(times, output tensors or None) of one job."""
     if job["what"] == "ring":
         union, total, wall = ring_window(device, job["n"], job["d"])
         return {"union_ms": union, "sum_ms": total, "wall_ms": wall}, None
+    if job["what"] in ("pp", "p3m"):
+        key = (job["n"], job["grid"], job["cap"])
+        if key not in worlds:
+            worlds.clear()
+            worlds[key] = p3m_world(*key, device)
+        world = worlds[key]
+        if job["what"] == "p3m":
+            return {"ms": p3m_substep_ms(world, job["substeps"],
+                                         job.get("repeats", 2))}, None
+        fn, to_rows = pp_call(world, job.get("precise", False))
+        out = [to_rows(fn()).cpu()]
+        ms = best_ms(fn, job["reps"], job.get("repeats", 3)) \
+            if job.get("reps") else None
+        return {"ms": ms}, out
     from nbody_tpu_torch.ops import direct_forces as df
     from nbody_tpu_torch.ops import ring_forces as rf
 

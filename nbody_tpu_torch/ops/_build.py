@@ -105,12 +105,12 @@ SIGNATURES = {
     },
     "p3m_pp": {
         "nbody_p3m_pp": [
-            _vp, _vp, _vp,             # tx, ty, tr (gc, gc, cap_t)
-            _vp, _vp, _vp,             # sx, sy, sg (gc, gc, cap_s)
-            _vp, _vp,                  # counts_t, counts_s (gc*gc,) int32 or NULL
-            _i32, _i32, _i32,          # gc, cap_t, cap_s
+            _vp, _i32, _vp, _i32,      # trows (n_t, 4), n_t, srows (n_s, 4), n_s
+            _vp, _vp, _vp, _vp,        # start_t, counts_t, start_s, counts_s (gc*gc,) int32
+            _vp,                       # tile_end (gc*gc,) int32
+            _i32, _i32, _i32, _i32,    # gc, cap_t, cap_s, max_tasks
             _vp,                       # (rc, eps2, 1/rc) fp32 on the device
-            _i32, _vp, _vp],           # precise, out (gc*gc, cap_t, 2), stream
+            _i32, _vp, _vp],           # precise, out (n_t, 2), stream
     },
 }
 

@@ -7,26 +7,30 @@ Counterpart of the single-device path of ``nbody_tpu/ops/p3m_forces.py``:
 * **Mesh stage** (``pm_forces``): the PM solve with the real-space kernel
   multiplied by a smootherstep taper g(d/rc), plain PyTorch as the JAX
   package leaves it to XLA.
-* **PP stage**: targets and sources are packed into dense fixed-capacity
-  cell blocks (gc, gc, cap) on the same adaptive box (cell size >= rc, so
-  every pair closer than rc lies in the 3×3 neighbourhood; gc = grid //
-  rc_cells). The pair correction runs in ``p3m_pp.pp_blocks``: the CUDA
-  kernel on the card, its plain version on the CPU. Each particle pays one
-  gather to pack and one scatter to unpack per substep.
+* **PP stage**: particles are binned into cells of the same adaptive box
+  (cell size >= rc, so every pair closer than rc lies in the 3×3
+  neighbourhood; gc = grid // rc_cells) and sorted by cell. The pair
+  correction runs in ``p3m_pp.pp_cells`` on the sorted rows and each
+  cell's run (start, count): the CUDA kernel on the card, its plain
+  version on the CPU. Each particle pays one gather into cell order and
+  one scatter back per substep; no (gc, gc, cap) block is built.
 * **Capacity**: cells keep up to ``cell_capacity`` sources, heaviest first
   (a stable sort by -gm, then a stable sort by cell, as ``jnp.lexsort``),
-  and up to ``cell_capacity`` targets in their original order. Dropped
-  pairs fall back to mesh-only accuracy; ``p3m_cell_overflow`` counts them.
+  and up to ``cell_capacity`` targets in their original order: the first
+  rows of each cell's run, the slots of ``nbody_tpu``'s cell blocks.
+  Dropped pairs fall back to mesh-only accuracy; ``p3m_cell_overflow``
+  counts them.
 * **Exact cores**: the ``exact_targets`` largest-radius targets get a
   direct-sum row through ``direct_forces.force_acc`` (the CUDA kernel's
   source-split launch on the card) written over the P³M result.
 
-``p3m_bins`` freezes the box, both cell orders and the exact-core rows so a
-caller can reuse them for several substeps (``p3m_rebin_interval``);
-positions are always read fresh through them. The stages run inside
-``torch.profiler.record_function`` ranges named ``p3m.*``, so a profile
-splits a substep by stage. Nothing here waits for the host: sizes are
-static and every data-dependent quantity stays on the device.
+``p3m_bins`` freezes the box, both cell orders and runs and the exact-core
+rows so a caller can reuse them for several substeps
+(``p3m_rebin_interval``); positions are always read fresh through them.
+The stages run inside ``torch.profiler.record_function`` ranges named
+``p3m.*``, so a profile splits a substep by stage. Nothing here waits for
+the host: sizes are static and every data-dependent quantity stays on the
+device.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from ..types import DTYPE
+from ..types import DTYPE, SOFTENING_FLOOR
 from . import direct_forces, p3m_pp
 from .pm_forces import _bounds, _box, _cic_gather, _cic_scatter, _solve
 
@@ -73,7 +77,9 @@ def _cell_pack(pos, lo, inv_c, gc, priority=None):
 
 
 def _gather_blocks(sorted_vals_fills, counts, gc, cap):
-    """(gc, gc, cap) contiguous cell blocks from cell-sorted value arrays:
+    """(gc, gc, cap) contiguous cell blocks from cell-sorted value arrays
+    (the counterpart of ``nbody_tpu``'s, for ``p3m_pp.pp_blocks``; the main
+    path reads the sorted rows directly):
     block[c, k] = vals[starts[c] + k] for k < min(counts[c], cap), else the
     fill (the JAX function's result). Built the other way round from JAX's
     slot gather: each sorted row finds its cell and rank by a binary search
@@ -107,38 +113,19 @@ def _pack_source_blocks(src_pos, src_gm, order_s, counts_s, gc, cap):
         counts_s, gc, cap)
 
 
-def _pp_unpack(corr_blocks, n, order_t, cid_t, rank_t, cap_t):
-    """Per-slot corrections back to original target order: (n, 2). A
-    target that overflowed its cell (rank >= cap) gets 0 (mesh only). The
-    scatter ``out[order_t] = got`` gives the values of JAX's sort-based
-    restore."""
-    safe = torch.clamp(rank_t, max=cap_t - 1)
-    got = corr_blocks[cid_t, safe]
-    got = torch.where((rank_t < cap_t)[:, None], got, 0.0)
-    out = torch.empty((n, 2), dtype=DTYPE, device=got.device)
-    out[order_t] = got
-    return out
+def _cell_rows(xy, w, order):
+    """(n, 4) fp32 rows x, y, w, 0 in cell order: ``p3m_pp.pp_cells``'s
+    layout (16 bytes a row). The gather moves each row as one complex128
+    element, a copy of its bytes: on the card PyTorch gathers 16-byte
+    elements many times faster than rows of four fp32 (``chip_smoke.py``
+    [8] times both)."""
+    rows = torch.cat([xy, w[:, None], torch.zeros_like(w)[:, None]], 1)
+    return rows.view(torch.complex128)[order].view(DTYPE)
 
 
-def _pp_apply(tgt_pos, tgt_radius, src_blocks, order_t, cid_t, rank_t,
-              counts_t, gc, cap_t, rc, eps2, precise, counts_s=None):
-    """PP correction (T, 2) of the targets against packed source blocks,
-    given the targets' cell assignment. ``counts_s`` (the source counts of
-    the blocks) lets the kernel read only occupied source slots."""
-    with record_function("p3m.pack"):
-        trow = torch.cat([tgt_pos, tgt_radius[:, None]], dim=-1)[order_t]
-        # radius fill 1.0: an empty slot stays finite (pp_blocks adds the
-        # softening floor to every slot)
-        tx, ty, trad = _gather_blocks(
-            [(trow[:, 0], 0.0), (trow[:, 1], 0.0), (trow[:, 2], 1.0)],
-            counts_t, gc, cap_t)
-    with record_function("p3m.pair_kernel"):
-        corr = p3m_pp.pp_blocks(tx, ty, trad, *src_blocks, rc, eps2,
-                                precise=precise, counts_t=counts_t,
-                                counts_s=counts_s)
-    with record_function("p3m.unpack"):
-        return _pp_unpack(corr, tgt_pos.shape[0], order_t, cid_t, rank_t,
-                          cap_t)
+def _run_starts(counts):
+    """(gc²,) int32 first row of each cell's run in cell order."""
+    return torch.cumsum(counts, 0, dtype=torch.int32) - counts
 
 
 def _masked_radius(tgt_radius, tgt_mask):
@@ -161,8 +148,8 @@ def p3m_bins(tgt_pos, tgt_radius, src_pos, src_gm, *, grid: int,
              rc_cells: int, exact_targets: int, tgt_mask=None, big=None):
     """The P³M spatial structure, frozen for reuse across substeps: the
     adaptive box, both cell orders (sources heaviest first, targets
-    stable), the per-cell counts and the exact-core rows (``big``, computed
-    here unless given)."""
+    stable), each cell's run in them (start and count, int32) and the
+    exact-core rows (``big``, computed here unless given)."""
     all_min, all_max = _bounds(tgt_pos, src_pos, src_gm, tgt_mask)
     lo, h = _box(all_min, all_max, grid)
     gc = max(grid // rc_cells, 1)
@@ -170,13 +157,14 @@ def p3m_bins(tgt_pos, tgt_radius, src_pos, src_gm, *, grid: int,
     inv_c = 1.0 / cell
     order_s, _, _, counts_s = _cell_pack(src_pos, lo, inv_c, gc,
                                          priority=src_gm)
-    order_t, cid_t, rank_t, counts_t = _cell_pack(tgt_pos, lo, inv_c, gc)
+    order_t, _, _, counts_t = _cell_pack(tgt_pos, lo, inv_c, gc)
     if big is None:
         big = exact_core_rows(tgt_radius, exact_targets, tgt_mask)
     return {
         "lo": lo, "h": h,
-        "order_s": order_s, "counts_s": counts_s,
-        "order_t": order_t, "cid_t": cid_t, "rank_t": rank_t,
+        "order_s": order_s, "start_s": _run_starts(counts_s),
+        "counts_s": counts_s,
+        "order_t": order_t, "start_t": _run_starts(counts_t),
         "counts_t": counts_t, "big": big,
     }
 
@@ -201,14 +189,20 @@ def p3m_acc_from_bins(bins, tgt_pos, tgt_radius, src_pos, src_gm,
     with record_function("p3m.cic_gather"):
         acc = _cic_gather(a_grid, tgt_pos, lo, 1.0 / h, grid)
 
-    gc = max(grid // rc_cells, 1)
+    order_t = bins["order_t"]
     with record_function("p3m.pack"):
-        src_blocks = _pack_source_blocks(src_pos, src_gm, bins["order_s"],
-                                         bins["counts_s"], gc, cell_capacity)
-    acc = acc + _pp_apply(
-        tgt_pos, tgt_radius, src_blocks, bins["order_t"], bins["cid_t"],
-        bins["rank_t"], bins["counts_t"], gc, cell_capacity, rc, eps2,
-        precise, counts_s=bins["counts_s"])
+        trows = _cell_rows(tgt_pos, tgt_radius + SOFTENING_FLOOR, order_t)
+        srows = _cell_rows(src_pos, src_gm, bins["order_s"])
+    with record_function("p3m.pair_kernel"):
+        corr = p3m_pp.pp_cells(
+            trows, srows, bins["start_t"], bins["counts_t"], bins["start_s"],
+            bins["counts_s"], rc, eps2, cap_t=cell_capacity,
+            cap_s=cell_capacity, precise=precise)
+    with record_function("p3m.unpack"):
+        # a target past its cell's capacity got 0 (mesh only)
+        pp = torch.empty_like(corr)
+        pp[order_t] = corr
+    acc = acc + pp
 
     big = bins["big"]
     if big.shape[0]:

@@ -1,20 +1,31 @@
-"""P³M pair correction over packed cell blocks: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""P³M pair correction: the CUDA kernel's wrappers and their plain PyTorch
+versions.
 
 Counterpart of ``pp_blocks`` in ``nbody_tpu/ops/p3m_pallas.py`` (the Pallas
 kernel ``_pp_kernel`` and its jnp twin ``_pp_blocks_jnp``). In the JAX
 package that kernel is a tested alternative and the production PP stage is
 an XLA map; in the port, ``csrc/p3m_pp.cu`` is the PP stage on the card.
 
-Each target slot of cell (i, j) meets every source slot of the 3×3
+Each live target of cell (i, j) meets every live source of the 3×3
 neighbour cells; for pairs with d² < rc² it adds
 ``gm · (exact³ − taper(d/rc) · smooth³) · (dx, dy)``, the exact softened
 force minus what the tapered mesh already delivered. Neighbours outside the
 grid contribute nothing. Both versions form the taper's u as
 ``sqrt(d² + 1e-12) · (1/rc)``, with 1/rc rounded in fp32 as the Pallas
 kernel's caller forms it. ``rc`` and ``eps2`` may be Python floats or 0-dim
-tensors on the blocks' device (the p3m path's rc follows the adaptive box):
+tensors on the inputs' device (the p3m path's rc follows the adaptive box):
 the kernel reads them from device memory, so no call waits for the host.
+
+Two entry points, one kernel:
+
+* :func:`pp_cells`, the main path's: the particles in cell order as rows
+  (targets x, y, radius + SOFTENING_FLOOR, 0; sources x, y, gm, 0) and each
+  cell's run (start, count) on both sides. Only a run's first ``cap`` rows
+  take part, the slots the JAX blocks hold; the result is one (x, y) a
+  target row, 0 for the rows past a cell's cap.
+* :func:`pp_blocks`, the counterpart of ``nbody_tpu``'s: packed
+  (gc, gc, cap) blocks in, (gc², cap_t, 2) out. On the card it runs the
+  same kernel on the blocks written as rows, cell c's run at c · cap.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 version; CUDA tensors launch the kernel, and anything wrong there raises.
@@ -22,13 +33,19 @@ version; CUDA tensors launch the kernel, and anything wrong there raises.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..types import DTYPE, SOFTENING_FLOOR
 
-# Kernel launches made by ``pp_blocks`` in this process (plain-version calls
-# are not counted). A run resets it to 0 and reads it back.
+# Kernel launches made by ``pp_cells`` and ``pp_blocks`` in this process
+# (plain-version calls are not counted). A run resets it to 0 and reads it
+# back.
 LAUNCHES = 0
+
+# Targets a kernel task: one warp, one target a lane (csrc/p3m_pp.cu).
+TILE = 32
 
 # Elements of one (cells, cap_t, 9·cap_s) pair temporary in the plain
 # version: 2**24 fp32 is 64 MiB, and about ten such temporaries are alive
@@ -61,22 +78,20 @@ def _slot_mask(counts: torch.Tensor, cap: int) -> torch.Tensor:
     return slot[None, :] < counts.reshape(-1, 1)
 
 
-def pp_blocks_plain(tx, ty, tr, sx, sy, sg, rc, eps2, *, precise: bool = False,
-                    counts_t=None, counts_s=None) -> torch.Tensor:
-    """Plain version of :func:`pp_blocks`, computed a chunk of cells at a
-    time (memory O(chunk · cap_t · 9 cap_s)). With ``counts_t`` only cells
-    that hold targets are computed; finding them reads the counts on the
-    host."""
+def _pp_plain(tx, ty, trs, sx, sy, sg, rc, eps2, precise, counts_t, counts_s):
+    """The plain pair correction on blocks whose target radii ``trs``
+    already hold the softening floor, a chunk of cells at a time (memory
+    O(chunk · cap_t · 9 cap_s)). With ``counts_t`` only cells that hold
+    targets are computed; finding them reads the counts on the host."""
     gc, _, cap_t = tx.shape
     cap_s = sx.shape[-1]
     rc, eps2, inv_rc = _scalars(rc, eps2, tx.device)
     rc2 = rc * rc
-    tr = tr + SOFTENING_FLOOR
     if counts_s is not None:
         sg = torch.where(_slot_mask(counts_s, cap_s).reshape(sg.shape), sg, 0.0)
     pad = [torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1)).reshape(-1, cap_s)
            for a in (sx, sy, sg)]
-    txf, tyf, trf = (a.reshape(gc * gc, cap_t) for a in (tx, ty, tr))
+    txf, tyf, trf = (a.reshape(gc * gc, cap_t) for a in (tx, ty, trs))
     out = torch.zeros((gc * gc, cap_t, 2), dtype=DTYPE, device=tx.device)
     if counts_t is None:
         todo = torch.arange(gc * gc, device=tx.device)
@@ -111,6 +126,76 @@ def pp_blocks_plain(tx, ty, tr, sx, sy, sg, rc, eps2, *, precise: bool = False,
     return out
 
 
+def pp_blocks_plain(tx, ty, tr, sx, sy, sg, rc, eps2, *, precise: bool = False,
+                    counts_t=None, counts_s=None) -> torch.Tensor:
+    """Plain version of :func:`pp_blocks`."""
+    return _pp_plain(tx, ty, tr + SOFTENING_FLOOR, sx, sy, sg, rc, eps2,
+                     precise, counts_t, counts_s)
+
+
+def run_slots(start: torch.Tensor, counts: torch.Tensor, cap: int,
+              n_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gc², cap) int64 row of every slot of the runs, and whether the slot
+    is live: slot k of cell c is row start[c] + k, live for k <
+    min(counts[c], cap) inside the rows."""
+    k = torch.arange(cap, device=start.device)
+    idx = start.to(torch.int64)[:, None] + k
+    live = (k < counts.clamp(max=cap)[:, None]) & (idx < n_rows)
+    return idx, live
+
+
+def _runs_to_blocks(rows, start, counts, cap, fill):
+    """(gc², cap, 4) blocks of the runs' first ``cap`` rows, ``fill`` in
+    the other slots; and the slots' rows and live mask (:func:`run_slots`)."""
+    n = rows.shape[0]
+    idx, live = run_slots(start, counts, cap, n)
+    padded = torch.cat([rows, torch.tensor([fill], dtype=DTYPE,
+                                           device=rows.device)])
+    return padded[torch.where(live, idx, n)], idx, live
+
+
+def pp_cells_plain(trows, srows, start_t, counts_t, start_s, counts_s, rc,
+                   eps2, *, cap_t: int, cap_s: int,
+                   precise: bool = False) -> torch.Tensor:
+    """Plain version of :func:`pp_cells`: the runs packed into blocks (an
+    empty target slot holds radius 1, a finite value), the plain block
+    correction on them, and its live slots taken back to their rows."""
+    gc = math.isqrt(counts_t.numel())
+    tb, idx, live = _runs_to_blocks(trows, start_t, counts_t, cap_t,
+                                    (0.0, 0.0, 1.0, 0.0))
+    sb, _, _ = _runs_to_blocks(srows, start_s, counts_s, cap_s,
+                               (0.0, 0.0, 0.0, 0.0))
+    # contiguous, as packed blocks are: on these strided views PyTorch's CPU
+    # kernels gave sums that changed from call to call
+    blocks = [b[..., k].reshape(gc, gc, -1).contiguous()
+              for b in (tb, sb) for k in range(3)]
+    corr = _pp_plain(*blocks, rc, eps2, precise, counts_t, counts_s)
+    out = torch.zeros((trows.shape[0], 2), dtype=DTYPE, device=trows.device)
+    out[idx[live]] = corr[live]
+    return out
+
+
+def _check_device(device) -> None:
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"p3m_pp runs on CPU or CUDA tensors, got {device}")
+
+
+def _check_float(name, a, shape, device) -> None:
+    if not isinstance(a, torch.Tensor) or a.dtype != DTYPE:
+        raise TypeError(f"{name} must be a float32 tensor")
+    if tuple(a.shape) != tuple(shape) or a.device != device \
+            or not a.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {tuple(shape)} tensor "
+                         f"on {device}, got {tuple(a.shape)} on {a.device}")
+
+
+def _check_index(name, c, n, device) -> None:
+    if not isinstance(c, torch.Tensor) or c.dtype != torch.int32 \
+            or c.shape != (n,) or c.device != device or not c.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int32 tensor of "
+                         f"gc² = {n} cells on {device}")
+
+
 def _check_blocks(blocks, counts, device):
     (tx, ty, tr), (sx, sy, sg) = blocks
     gc, gc2, cap_t = tx.shape
@@ -120,16 +205,93 @@ def _check_blocks(blocks, counts, device):
     for name, a, shape in (("tx", tx, tx.shape), ("ty", ty, tx.shape),
                            ("tr", tr, tx.shape), ("sx", sx, sx.shape),
                            ("sy", sy, sx.shape), ("sg", sg, sx.shape)):
-        if not isinstance(a, torch.Tensor) or a.dtype != DTYPE:
-            raise TypeError(f"{name} must be a float32 tensor")
-        if a.shape != shape or a.device != device or not a.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {tuple(shape)} "
-                             f"tensor on {device}")
+        _check_float(name, a, shape, device)
     for name, c in counts.items():
-        if c is not None and (c.dtype != torch.int32 or c.numel() != gc * gc
-                              or c.device != device or not c.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous int32 tensor of "
-                             f"gc² = {gc * gc} cells on {device}")
+        if c is not None:
+            _check_index(name, c, gc * gc, device)
+
+
+def _check_cells(trows, srows, runs, cap_t, cap_s, device) -> int:
+    """The grid side gc of valid :func:`pp_cells` inputs; raises on others."""
+    for name, rows in (("trows", trows), ("srows", srows)):
+        if not isinstance(rows, torch.Tensor) or rows.dim() != 2:
+            raise ValueError(f"{name} must be an (n, 4) tensor")
+        _check_float(name, rows, (rows.shape[0], 4), device)
+    n = runs["counts_t"].numel() if isinstance(runs["counts_t"],
+                                                torch.Tensor) else 0
+    gc = math.isqrt(n)
+    if n == 0 or gc * gc != n:
+        raise ValueError(f"counts_t must hold gc² > 0 cells, got {n}")
+    for name, c in runs.items():
+        _check_index(name, c, n, device)
+    for name, cap in (("cap_t", cap_t), ("cap_s", cap_s)):
+        if not isinstance(cap, int) or cap < 1:
+            raise ValueError(f"{name} must be a positive int, got {cap!r}")
+    return gc
+
+
+def _launch(trows, srows, start_t, counts_t, start_s, counts_s, gc, cap_t,
+            cap_s, rc, eps2, precise) -> torch.Tensor:
+    """The kernel on runs of rows: (n_t, 2), zeros outside the live rows."""
+    global LAUNCHES
+    from . import _build
+
+    device = trows.device
+    n_t, n_s = trows.shape[0], srows.shape[0]
+    # one task a tile of TILE targets of a cell: at most ceil(n_t / TILE)
+    # full tiles plus one partial tile a cell that holds targets
+    max_tasks = -(-n_t // TILE) + min(gc * gc, n_t)
+    if max(n_t, n_s, max_tasks) >= 2 ** 31:
+        raise ValueError("p3m_pp: the kernel indexes rows and tasks in int32")
+    if trows.data_ptr() % 16 or srows.data_ptr() % 16:
+        raise ValueError("p3m_pp: the row arrays must be 16-byte aligned")
+    out = torch.zeros((n_t, 2), dtype=DTYPE, device=device)
+    if max_tasks == 0:
+        return out
+    tiles = (counts_t.clamp(max=cap_t) + (TILE - 1)) // TILE
+    tile_end = torch.cumsum(tiles, 0, dtype=torch.int32)
+    scal = _scalars(rc, eps2, device)
+    with torch.cuda.device(device):
+        err = _build.load("p3m_pp").nbody_p3m_pp(
+            trows.data_ptr(), n_t, srows.data_ptr(), n_s, start_t.data_ptr(),
+            counts_t.data_ptr(), start_s.data_ptr(), counts_s.data_ptr(),
+            tile_end.data_ptr(), gc, cap_t, cap_s, max_tasks, scal.data_ptr(),
+            int(precise), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"p3m_pp kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return out
+
+
+def pp_cells(
+    trows: torch.Tensor,     # (n_t, 4) targets in cell order: x, y, r + floor, 0
+    srows: torch.Tensor,     # (n_s, 4) sources in cell order: x, y, gm, 0
+    start_t: torch.Tensor,   # (gc²,) int32 first row of each cell's targets
+    counts_t: torch.Tensor,  # (gc²,) int32 targets in each cell
+    start_s: torch.Tensor,   # (gc²,) int32 first row of each cell's sources
+    counts_s: torch.Tensor,  # (gc²,) int32 sources in each cell
+    rc: float | torch.Tensor, eps2: float | torch.Tensor, *,
+    cap_t: int, cap_s: int, precise: bool = False,
+) -> torch.Tensor:
+    """Per-target P³M pair correction on cell-sorted rows: (n_t, 2) fp32 in
+    the rows' order. The first min(counts_t[c], cap_t) targets of cell c
+    meet the first min(counts_s[n], cap_s) sources of each neighbour cell
+    n, the slots that ``nbody_tpu``'s (gc, gc, cap) blocks hold; every
+    other row is 0 (a target past its cell's cap keeps the mesh force
+    only). The runs must lie inside the rows. The call makes no host
+    sync."""
+    device = trows.device
+    _check_device(device)
+    runs = {"start_t": start_t, "counts_t": counts_t, "start_s": start_s,
+            "counts_s": counts_s}
+    gc = _check_cells(trows, srows, runs, cap_t, cap_s, device)
+    if device.type == "cpu":
+        return pp_cells_plain(trows, srows, start_t, counts_t, start_s,
+                              counts_s, rc, eps2, cap_t=cap_t, cap_s=cap_s,
+                              precise=precise)
+    return _launch(trows, srows, start_t, counts_t, start_s, counts_s, gc,
+                   cap_t, cap_s, rc, eps2, precise)
 
 
 def pp_blocks(
@@ -150,33 +312,24 @@ def pp_blocks(
     zero; with ``counts_s``, only a cell's first ``counts_s`` source slots
     are read (the others must hold gm = 0, as packed blocks do)."""
     device = tx.device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"p3m_pp runs on CPU or CUDA tensors, got {device}")
+    _check_device(device)
     _check_blocks(((tx, ty, tr), (sx, sy, sg)),
                   {"counts_t": counts_t, "counts_s": counts_s}, device)
     if device.type == "cpu":
         return pp_blocks_plain(tx, ty, tr, sx, sy, sg, rc, eps2,
                                precise=precise, counts_t=counts_t,
                                counts_s=counts_s)
-    global LAUNCHES
-    from . import _build
-
     gc, _, cap_t = tx.shape
     cap_s = sx.shape[-1]
-    scal = _scalars(rc, eps2, device)
-    tr = tr + SOFTENING_FLOOR
-    out = torch.empty((gc * gc, cap_t, 2), dtype=DTYPE, device=device)
+    cells = torch.arange(gc * gc, dtype=torch.int32, device=device)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    def runs(counts, cap):
+        full = torch.full_like(cells, cap) if counts is None else counts
+        return cells * cap, full
 
-    with torch.cuda.device(device):
-        err = _build.load("p3m_pp").nbody_p3m_pp(
-            tx.data_ptr(), ty.data_ptr(), tr.data_ptr(), sx.data_ptr(),
-            sy.data_ptr(), sg.data_ptr(), ptr(counts_t), ptr(counts_s),
-            gc, cap_t, cap_s, scal.data_ptr(), int(precise), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"p3m_pp kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return out
+    trows = torch.stack([tx, ty, tr + SOFTENING_FLOOR, torch.zeros_like(tx)],
+                        -1).reshape(-1, 4)
+    srows = torch.stack([sx, sy, sg, torch.zeros_like(sx)], -1).reshape(-1, 4)
+    out = _launch(trows, srows, *runs(counts_t, cap_t), *runs(counts_s, cap_s),
+                  gc, cap_t, cap_s, rc, eps2, precise)
+    return out.reshape(gc * gc, cap_t, 2)

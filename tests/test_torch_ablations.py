@@ -33,8 +33,9 @@ from torch_helpers import rel_err
 import nbody_tpu as nb
 from nbody_tpu import forces as jforces
 from nbody_tpu_torch.ablations import (_scene, tune_r2, tune_r2b, tune_r2c, tune_r2d,
-                                       tune_direct, tune_r2e, tune_r2f,
-                                       tune_r2g, tune_r2h, tune_r4d_bcast_probe)
+                                       tune_direct, tune_p3m, tune_r2e,
+                                       tune_r2f, tune_r2g, tune_r2h,
+                                       tune_r4d_bcast_probe)
 from nbody_tpu_torch.ops import bcast_probe as bp
 from nbody_tpu_torch.ops import flavor_forces as ff
 from nbody_tpu_torch.ops import newton_forces as nwf
@@ -411,6 +412,48 @@ def test_parent_compares_each_old_job_with_unsplit_new_ones():
             assert job["plan"][1] == 1
             assert {k: v for k, v in job.items() if k != "plan"} == \
                 {k: v for k, v in old.items() if k != "plan"}
+
+
+def test_tune_p3m_needs_the_card(monkeypatch):
+    """``tune_p3m parent`` measures the card; without one it raises before
+    it starts a side."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tune_p3m, "parent", pytest.fail)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tune_p3m.main(["parent", "elsewhere"])
+
+
+@pytest.mark.parametrize("route", ["cells", "blocks"])
+def test_parent_side_pp_job_gives_rows_in_cell_order(route, monkeypatch):
+    """``tune_p3m parent``'s K4 job: a tree with ``pp_cells`` calls it, a
+    tree without (the parent) calls ``pp_blocks`` with the counts on blocks
+    packed here from the same bins. Either way the job's output is one
+    (x, y) a target in cell order, 0 past its cell's cap: the plain
+    version's rows. Bound 1e-6 of max|ref|, not bit equality: PyTorch's
+    CPU taper may round a process's first call differently (see
+    test_torch_p3m.py::test_pp_cells_overflow_rows_are_zero)."""
+    from nbody_tpu_torch.ablations import _side
+    from nbody_tpu_torch.ops import p3m_forces, p3m_pp
+
+    n, grid, cap = 2000, 128, 8
+    w = _side.p3m_world(n, grid, cap, "cpu")
+    st, s = w.state, w.mass_len
+    bins = p3m_forces.p3m_bins(st.pos, st.radius, st.pos[:s], w.gm,
+                               grid=grid, rc_cells=4, exact_targets=0)
+    trows = p3m_forces._cell_rows(st.pos, st.radius + p3m_pp.SOFTENING_FLOOR,
+                                  bins["order_t"])
+    srows = p3m_forces._cell_rows(st.pos[:s], w.gm, bins["order_s"])
+    want = p3m_pp.pp_cells_plain(
+        trows, srows, bins["start_t"], bins["counts_t"], bins["start_s"],
+        bins["counts_s"], 4 * bins["h"], 4.0, cap_t=cap, cap_s=cap)
+    if route == "blocks":
+        monkeypatch.delattr(p3m_pp, "pp_cells")
+    job = {"what": "pp", "n": n, "grid": grid, "cap": cap, "precise": False}
+    times, (got,) = _side.run_job(job, torch.device("cpu"), {})
+    assert times == {"ms": None}
+    zero = want == 0
+    assert zero.all(1).any() and torch.equal(got[zero], want[zero])
+    assert rel_err(got, want) < 1e-6
 
 
 @pytest.mark.parametrize("module", [tune_r2b, tune_r2e])

@@ -322,6 +322,132 @@ def test_pp_blocks_zero_counts_write_zeros(cuda):
     assert torch.equal(got, torch.zeros_like(got))
 
 
+def _random_cells(device, gc=8, cap=32, seed=0):
+    """Random cells of size 4 in cell order (rows, starts, counts of both
+    sides) and the sorted targets' radii: 0 to cap + 8 rows a cell, cell 0
+    without targets, cell 1 at cap, cell 2 past it."""
+    rng = np.random.default_rng(seed)
+    counts = [rng.integers(0, cap + 9, gc * gc).astype(np.int32)
+              for _ in range(2)]
+    counts[0][:3] = (0, cap, cap + 5)
+    rows = []
+    for c, lo, hi in ((counts[0], 0.5, 9.5), (counts[1], 10.0, 1e4)):
+        cell = np.repeat(np.arange(gc * gc), c)
+        xy = (np.stack([cell // gc, cell % gc], 1)
+              + rng.uniform(size=(len(cell), 2))) * 4.0
+        w = rng.uniform(lo, hi, len(cell))
+        rows.append(np.concatenate([xy, w[:, None], np.zeros((len(cell), 1))],
+                                   1).astype(np.float32))
+    radius = torch.from_numpy(rows[0][:, 2].copy()).to(device)
+    rows[0][:, 2] += np.float32(p3m_pp.SOFTENING_FLOOR)
+    t = [torch.from_numpy(a).to(device) for a in (*rows, *counts)]
+    starts = [torch.cumsum(c, 0, dtype=torch.int32) - c for c in t[2:]]
+    return [t[0], t[1], starts[0], t[2], starts[1], t[3]], 4.0, radius
+
+
+def _galaxy_cells(device, n=20_000, grid=512):
+    """The rows and runs a p3m world hands K4 for a two-galaxy scene."""
+    w = nt.create_world(nt.make_galaxies(n, 2, seed=11037), device=device)
+    pos, rad, gm = w.state.pos, w.state.radius, w.gm
+    src = pos[:w.mass_len]
+    bins = p3m_forces.p3m_bins(pos, rad, src, gm, grid=grid, rc_cells=4,
+                               exact_targets=0)
+    cells = [p3m_forces._cell_rows(pos, rad + p3m_pp.SOFTENING_FLOOR,
+                                   bins["order_t"]),
+             p3m_forces._cell_rows(src, gm, bins["order_s"]),
+             bins["start_t"], bins["counts_t"], bins["start_s"],
+             bins["counts_s"]]
+    return cells, float(4 * bins["h"]), rad[bins["order_t"]]
+
+
+def _cells_scene(scene, device, cap):
+    if scene == "random":
+        return _random_cells(device, cap=cap)
+    return _galaxy_cells(device)
+
+
+def _cells_as_blocks(cells, radius, cap):
+    """The (gc, gc, cap) blocks of the same cells for pp_blocks, and each
+    slot's row and whether it is live."""
+    gc = int(round(cells[3].numel() ** 0.5))
+    blocks = []
+    for vals, start, counts, fills in (
+            ([cells[0][:, 0], cells[0][:, 1], radius], cells[2], cells[3],
+             (0.0, 0.0, 1.0)),
+            ([cells[1][:, 0], cells[1][:, 1], cells[1][:, 2]], cells[4],
+             cells[5], (0.0, 0.0, 0.0))):
+        idx, live = p3m_pp.run_slots(start, counts, cap, len(vals[0]))
+        idx = idx.clamp(max=len(vals[0]) - 1)
+        blocks += [torch.where(live, v[idx], f).reshape(gc, gc, cap)
+                   .contiguous() for v, f in zip(vals, fills)]
+    idx, live = p3m_pp.run_slots(cells[2], cells[3], cap, len(cells[0]))
+    return blocks, idx, live
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("scene", ["random", "galaxies"])
+def test_pp_cells_matches_plain(cuda, scene, precise):
+    """K4 on the cells route against pp_cells_plain, one launch a call.
+    Bound 1e-5 of max|ref|, pp_blocks' (same sums, same reasons)."""
+    cells, rc, _ = _cells_scene(scene, cuda, 32)
+    before = p3m_pp.LAUNCHES
+    got = p3m_pp.pp_cells(*cells, rc, 4.0, cap_t=32, cap_s=32,
+                          precise=precise)
+    assert p3m_pp.LAUNCHES == before + 1
+    want = p3m_pp.pp_cells_plain(*cells, rc, 4.0, cap_t=32, cap_s=32,
+                                 precise=precise)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("scene", ["random", "galaxies"])
+def test_pp_cells_rows_equal_pp_blocks(cuda, scene, precise):
+    """The same kernel on the rows and on the blocks of the same cells:
+    each live target sums the same pairs in the same order, bit for bit."""
+    cells, rc, radius = _cells_scene(scene, cuda, 32)
+    blocks, idx, live = _cells_as_blocks(cells, radius, 32)
+    got = p3m_pp.pp_cells(*cells, rc, 4.0, cap_t=32, cap_s=32,
+                          precise=precise)
+    per_slot = p3m_pp.pp_blocks(*blocks, rc, 4.0, precise=precise,
+                                counts_t=cells[3], counts_s=cells[5])
+    assert torch.equal(got[idx[live]], per_slot[live])
+
+
+def test_pp_cells_overflow_empty_and_full_cells(cuda):
+    """Rows past a cell's cap are 0; a full cell's rows and the rows beside
+    an empty cell are computed; two calls give the same bits."""
+    cells, rc, _ = _random_cells(cuda)
+    got = p3m_pp.pp_cells(*cells, rc, 4.0, cap_t=32, cap_s=32)
+    again = p3m_pp.pp_cells(*cells, rc, 4.0, cap_t=32, cap_s=32)
+    assert torch.equal(got, again)
+    start, counts = cells[2].long(), cells[3].long()
+    cell = torch.repeat_interleave(torch.arange(len(counts), device=cuda),
+                                   counts)
+    rank = torch.arange(len(cell), device=cuda) - start[cell]
+    over = rank >= 32
+    assert int(over.sum()) >= 5
+    assert torch.equal(got[over], torch.zeros_like(got[over]))
+    assert (got[cell == 1] != 0).any(1).all()      # the cell at cap
+    want = p3m_pp.pp_cells_plain(*cells, rc, 4.0, cap_t=32, cap_s=32)
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+def test_pp_cells_galaxy_overflow_rows_are_zero(cuda):
+    """Cap 8 on the galaxy cells: the rows past a cell's cap are exactly
+    0, the rest within 1e-5 of the plain version."""
+    cells, rc, _ = _galaxy_cells(cuda)
+    got = p3m_pp.pp_cells(*cells, rc, 4.0, cap_t=8, cap_s=8)
+    idx, live = p3m_pp.run_slots(cells[2], cells[3], 8, len(cells[0]))
+    assert int(live.sum()) < len(cells[0])
+    kept = torch.zeros(len(cells[0]), dtype=torch.bool, device=cuda)
+    kept[idx[live]] = True
+    assert torch.equal(got[~kept], torch.zeros_like(got[~kept]))
+    want = p3m_pp.pp_cells_plain(*cells, rc, 4.0, cap_t=8, cap_s=8)
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
 @pytest.mark.parametrize("integrator", ["euler", "leapfrog"])
 def test_world_p3m_on_the_card(cuda, integrator):
     """The p3m world on the card (K4 and the split force_acc) against the

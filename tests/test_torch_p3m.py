@@ -199,6 +199,151 @@ def test_pp_blocks_refuses_bad_inputs():
                          counts_t=torch.zeros(3, dtype=torch.int32))
 
 
+# --- the pair correction on cell-sorted rows (the main path's layout) ---
+
+def _packed_cells(cap=16, grid=128, n=600):
+    """_packed_blocks' scene as nbody_tpu's blocks (numpy) and as the
+    port's cell-sorted rows and runs, both from nbody_tpu's cell orders."""
+    pos, rad, src, gm = _scene(n)
+    (lo, h, ic), _, gc = _cells(pos, src, gm, grid)
+    blocks, _, _ = _packed_blocks(cap, grid, n)
+    order_t, _, _, counts_t = (np.asarray(a) for a in jp3m._cell_pack(
+        jnp.asarray(pos), lo, ic, gc))
+    order_s, _, _, counts_s = (np.asarray(a) for a in jp3m._cell_pack(
+        jnp.asarray(src), lo, ic, gc, priority=jnp.asarray(gm)))
+    zeros = np.zeros((n, 1), np.float32)
+    trows = np.concatenate([pos, (rad + np.float32(nb.types.SOFTENING_FLOOR))
+                            [:, None], zeros], 1)[order_t]
+    srows = np.concatenate([src, gm[:, None], zeros[:len(gm)]], 1)[order_s]
+    runs = [np.cumsum(c).astype(np.int32) - c for c in (counts_t, counts_s)]
+    cells = _t(trows, srows, runs[0], counts_t.astype(np.int32), runs[1],
+               counts_s.astype(np.int32))
+    return blocks, cells, float(4 * h)
+
+
+def _slots_to_rows(per_slot, start, counts, cap, n):
+    """(n, 2) sorted rows from a (gc², cap, 2) per-slot result: each live
+    slot's value at its row, 0 in the rows past a cell's cap."""
+    idx, live = p3m_pp.run_slots(start, counts, cap, n)
+    rows = torch.zeros((n, 2), dtype=torch.float32)
+    rows[idx[live]] = torch.as_tensor(np.asarray(per_slot))[live]
+    return rows
+
+
+@pytest.mark.parametrize("precise", [False, True])
+@pytest.mark.parametrize("oracle", ["pallas_interpret", "jnp"])
+def test_pp_cells_plain_matches_nbody_tpu(precise, oracle):
+    """The rows route against nbody_tpu's pp_blocks on the same cells, its
+    per-slot result taken to sorted rows. Bound 5e-5 of max|ref|, for the
+    reason test_pp_blocks_plain_matches_nbody_tpu gives (a pair on the rc
+    boundary may flip between XLA's FMA and the port's product)."""
+    blocks, cells, rc = _packed_cells()
+    cap = blocks[0].shape[-1]
+    if oracle == "pallas_interpret":
+        want = p3m_pallas.pp_blocks(*map(jnp.asarray, blocks), rc, 4.0,
+                                    precise=precise, interpret=True)
+    else:
+        tx, ty, tr, sx, sy, sg = map(jnp.asarray, blocks)
+        want = p3m_pallas._pp_blocks_jnp(tx, ty, tr + nb.types.SOFTENING_FLOOR,
+                                         sx, sy, sg, rc, 4.0, precise=precise)
+    n = cells[0].shape[0]
+    want = _slots_to_rows(want, cells[2], cells[3], cap, n)
+    got = p3m_pp.pp_cells_plain(*cells, rc, 4.0, cap_t=cap, cap_s=cap,
+                                precise=precise)
+    assert tuple(got.shape) == (n, 2)
+    assert rel_err(got, want) < 5e-5
+
+
+def test_pp_cells_overflow_rows_are_zero():
+    """Cap 8 on the galaxy scene: the targets past their cell's cap get
+    exactly 0 (mesh only); the others match the blocks route, which the
+    plain version computes with the same expressions in the same order.
+    Bound 1e-6 of max|ref|, not bit equality: on the CPU, PyTorch's first
+    evaluation of the taper's ``sqrt(d² + 1e-12) · (1/rc)`` in a process
+    may round differently from later ones (seen in about one process in
+    six), and the large terms of a close pair carry that ulp into the
+    sum."""
+    pos, rad, src, gm = (torch.from_numpy(a) for a in _scene(2048))
+    bins = tp3m.p3m_bins(pos, rad, src, gm, grid=256, rc_cells=4,
+                         exact_targets=0)
+    rc = 4 * bins["h"]
+    trows = tp3m._cell_rows(pos, rad + nb.types.SOFTENING_FLOOR, bins["order_t"])
+    srows = tp3m._cell_rows(src, gm, bins["order_s"])
+    got = p3m_pp.pp_cells(trows, srows, bins["start_t"], bins["counts_t"],
+                          bins["start_s"], bins["counts_s"], rc, 4.0,
+                          cap_t=8, cap_s=8)
+    rank = torch.arange(len(pos)) - bins["start_t"].long().repeat_interleave(
+        bins["counts_t"].long())
+    over = rank >= 8
+    assert over.any() and (~over).any()
+    assert torch.equal(got[over], torch.zeros_like(got[over]))
+    assert (got[~over] != 0).any()
+    gc = 64
+    tb = tp3m._gather_blocks([(trows[:, 0], 0.0), (trows[:, 1], 0.0),
+                              (rad[bins["order_t"]], 1.0)],
+                             bins["counts_t"], gc, 8)
+    sb = tp3m._pack_source_blocks(src, gm, bins["order_s"], bins["counts_s"],
+                                  gc, 8)
+    want = p3m_pp.pp_blocks(*tb, *sb, rc, 4.0, counts_t=bins["counts_t"],
+                            counts_s=bins["counts_s"])
+    rows = _slots_to_rows(want, bins["start_t"], bins["counts_t"], 8, len(pos))
+    assert torch.equal(rows[over], got[over])
+    assert rel_err(got, rows) < 1e-6
+
+
+@pytest.mark.parametrize("cap", [8, 32])
+def test_bins_runs_address_the_block_slots(cap):
+    """p3m_bins' starts and counts address, in the sorted rows, exactly
+    the rows that the packed blocks hold, slot for slot, on both sides."""
+    pos, rad, src, gm = (torch.from_numpy(a) for a in _scene(2048))
+    bins = tp3m.p3m_bins(pos, rad, src, gm, grid=256, rc_cells=4,
+                         exact_targets=0)
+    gc = 64
+    for side, pts, order, vals in (("t", pos, bins["order_t"], rad),
+                                   ("s", src, bins["order_s"], gm)):
+        start, counts = bins["start_" + side], bins["counts_" + side]
+        assert start.dtype == torch.int32 and counts.dtype == torch.int32
+        assert torch.equal(start[1:], torch.cumsum(counts, 0)[:-1].int())
+        rows = tp3m._cell_rows(pts, vals, order)
+        assert torch.equal(rows, torch.cat([pts, vals[:, None],
+                                            torch.zeros_like(vals)[:, None]],
+                                           1)[order])
+        blocks = tp3m._gather_blocks([(rows[:, k], 0.0) for k in range(3)],
+                                     counts, gc, cap)
+        idx, live = p3m_pp.run_slots(start, counts, cap, len(pts))
+        for k, b in enumerate(blocks):
+            b = b.reshape(gc * gc, cap)
+            assert torch.equal(b[live], rows[idx[live], k])
+            assert torch.equal(b[~live], torch.zeros_like(b[~live]))
+
+
+def test_pp_cells_refuses_bad_inputs():
+    _, cells, rc = _packed_cells()
+    trows, srows, st, ct, ss, cs = cells
+    kw = dict(cap_t=16, cap_s=16)
+    with pytest.raises(TypeError):                  # dtype
+        p3m_pp.pp_cells(trows.double(), srows, st, ct, ss, cs, rc, 4.0, **kw)
+    with pytest.raises(ValueError):                 # shape
+        p3m_pp.pp_cells(trows[:, :3].contiguous(), srows, st, ct, ss, cs,
+                        rc, 4.0, **kw)
+    with pytest.raises(ValueError):                 # contiguity
+        wide = torch.zeros((trows.shape[0], 8))
+        p3m_pp.pp_cells(wide[:, :4], srows, st, ct, ss, cs, rc, 4.0, **kw)
+    with pytest.raises(ValueError):                 # device
+        p3m_pp.pp_cells(trows, srows, st, ct, ss, cs.to("meta"), rc, 4.0,
+                        **kw)
+    with pytest.raises(ValueError):                 # count length
+        p3m_pp.pp_cells(trows, srows, st, ct, ss, cs[:-1], rc, 4.0, **kw)
+    with pytest.raises(ValueError):                 # not gc² cells
+        p3m_pp.pp_cells(trows, srows, st[:-1], ct[:-1], ss[:-1], cs[:-1],
+                        rc, 4.0, **kw)
+    with pytest.raises(ValueError):                 # count dtype
+        p3m_pp.pp_cells(trows, srows, st, ct.long(), ss, cs, rc, 4.0, **kw)
+    with pytest.raises(ValueError):                 # capacity
+        p3m_pp.pp_cells(trows, srows, st, ct, ss, cs, rc, 4.0, cap_t=0,
+                        cap_s=16)
+
+
 # --- p3m_acc and the World ---
 
 @pytest.mark.parametrize("cap", [32, 96])
