@@ -81,6 +81,22 @@ Phases, each of which raises on failure:
      the script's T=512, S=4096, REPS=2048, on its inputs (NaN where r2 < 0)
      and with the third target row made positive. Each against its plain
      version, twice bit-equal; its wall time printed.
+ 15. force hooks, adaptive dt and diagnostics: at N=65536 a hooked World
+     ("cuda": force_acc, the hook and the integration in PyTorch, one
+     launch a substep, no host sync) against the hooked "torch" World, a
+     zero hook against the fused path, and update_adaptive on "cuda"
+     against "torch" from the same state (equal substep counts, launches
+     exact, no host sync inside a batch); hooked against unhooked and
+     adaptive against fixed-dt ms/substep, with profiler windows of the
+     adaptive loop and of the hooked and unhooked p3m substep (device
+     busy, idle share, p3m stages); at the N=1M p3m slice a hooked
+     update (K4 and force_acc counts exact, no host sync) and a hooked
+     update_adaptive; summary() on the card against a CPU copy,
+     potential_energy_pm against potential_energy, potential_energy_pm
+     timed at N=1M; and D=4 shards on one card, "cuda_ring" (the hop
+     kernel without its epilogue) and "cuda", hooked against the hooked
+     World and adaptive with the World's count. The kernels line gets a
+     row for each path's kernel.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -89,6 +105,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -205,6 +222,25 @@ BOUND_EPILOGUE = 1e-6
 GOLDEN_BOUNDS = ((20, 5e-7, 5e-6), (100, 1.5e-4, 3e-2))
 GOLDEN = "tests/data/ref_traj_n2000_g2_seed11037_s{steps}_dt0.01.hex"
 DEVICE = "cuda"
+# [15] hooks and adaptive dt. The hooked and adaptive runs start from the
+# scene and run HOOK_SUBSTEPS of HOOK_DT, as [11]'s D=4-against-World
+# check does; the adaptive span is ADAPTIVE_SUBSTEPS times the criterion's
+# dt at the start (P3M_ADAPTIVE_SUBSTEPS at the N=1M p3m slice). A hooked
+# or adaptive World on "cuda" integrates outside the kernel, so against
+# the plain "torch" World, and a zero hook against the fused path, it
+# differs by the order of the force sums and by FMA contraction, amplified
+# by close pairs from substep to substep: the comparison that
+# SHARD_VS_WORLD's bounds were set for from readings ([11]).
+HOOK_DT = 0.01
+HOOK_SUBSTEPS = 10
+ADAPTIVE_SUBSTEPS = 30
+P3M_ADAPTIVE_SUBSTEPS = 4
+HOOK_VS_PLAIN = SHARD_VS_WORLD
+# potential_energy_pm against potential_energy (tests/test_diagnostics.py)
+PE_PM_BOUND = 0.02
+# summary() on the card against the same on a CPU copy of the state
+SUMMARY_BOUND = 1e-5
+TIMED_SUBSTEPS = 20
 
 
 def log(msg: str) -> None:
@@ -695,9 +731,11 @@ def phase_split(df, p3m_forces, slice_w, device) -> dict:
             "bound_by": bound_by, "t": t, "s": s}
 
 
-def profile_stages(world, n: int = 3) -> dict:
+def profile_stages(world, n: int = 3, dt: float = 1.0,
+                   extra_force=None) -> dict:
     """Device and host ms per substep of each p3m stage, the device busy
-    time and the idle share of a torch.profiler window over n substeps.
+    time and the idle share of a torch.profiler window over n substeps of
+    dt (with the hook ``extra_force`` where given).
     A stage's device time is that of the kernels, copies and fills that run
     inside the span its record_function range has on the device timeline;
     its host time is the range's own. (The kernels launched through ctypes
@@ -709,7 +747,7 @@ def profile_stages(world, n: int = 3) -> dict:
     world.block_until_ready()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        world.update(1.0, n, backend="p3m")
+        world.update(dt, n, backend="p3m", extra_force=extra_force)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
@@ -1461,6 +1499,349 @@ def phase_probes(device) -> dict:
     return out
 
 
+def drag(pos, vel):
+    """The hook of [15]: linear drag, written with operators only."""
+    return -0.1 * vel
+
+
+def zero_hook(pos, vel):
+    return 0.0 * vel
+
+
+@contextlib.contextmanager
+def no_sync(world_mod=None):
+    """Host syncs turned into errors while the block runs; with
+    ``world_mod`` (nbody_tpu_torch.world) the adaptive loops' own reads of
+    their flag and count (``world._host``) are let through."""
+    orig = None if world_mod is None else world_mod._host
+    if orig is not None:
+        def lifted(x):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return orig(x)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        world_mod._host = lifted
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        if orig is not None:
+            world_mod._host = orig
+
+
+def expect_launches(what: str, got, want) -> None:
+    if got != want:
+        raise SystemExit(f"chip_smoke: {what}: expected {want} launches, "
+                         f"got {got}")
+
+
+def check_gaps(label: str, got, want, bounds: dict) -> dict:
+    """max|d|/max of pos, vel and acc of two worlds' particles, each
+    checked against ``bounds``; the state must be finite."""
+    a, b = got.particles, want.particles
+    if not all(torch.isfinite(x).all() for x in (a.pos, a.vel, a.acc)):
+        raise SystemExit(f"chip_smoke: non-finite state, {label}")
+    gaps = {}
+    for name, limit in bounds.items():
+        gaps[name] = rel(getattr(a, name), getattr(b, name))
+        check(f"{label}: {name}", gaps[name], limit)
+    return gaps
+
+
+def adaptive_evaluations(k: int, stages: int = 1) -> int:
+    """Force evaluations of an adaptive call of k substeps: the priming
+    substep, then whole batches up to the one that reaches the span."""
+    from nbody_tpu_torch.world import ADAPTIVE_BATCH
+
+    return stages * (1 + ADAPTIVE_BATCH * -(-k // ADAPTIVE_BATCH))
+
+
+def timed(fn) -> tuple[float, float, object]:
+    """(device ms from CUDA events, host ms, fn's result) of one call."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3, out
+
+
+def hooked_vs_unhooked(world, n: int, backend: str) -> dict:
+    """ms per substep of n unhooked and n hooked substeps of HOOK_DT, in
+    turns (unhooked, hooked, hooked, unhooked): the mean device and host
+    times of each kind, and every run's device time under "runs"."""
+    runs = {"unhooked": [], "hooked": []}
+    for kind in ("unhooked", "hooked", "hooked", "unhooked"):
+        hook = drag if kind == "hooked" else None
+        dev, host, _ = timed(lambda: world.update(HOOK_DT, n, backend=backend,
+                                                  extra_force=hook))
+        runs[kind].append((dev / n, host / n))
+    out = {kind: (float(np.mean([d for d, _ in v])),
+                  float(np.mean([h for _, h in v]))) for kind, v in runs.items()}
+    out["runs"] = {kind: [d for d, _ in v] for kind, v in runs.items()}
+    return out
+
+
+def profile_call(fn) -> dict:
+    """A torch.profiler window over one call of fn: the call's result, the
+    device busy time (the union of its kernels', copies' and fills'
+    intervals), the wall time and the idle share, in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise SystemExit("chip_smoke: the profiler saw no device time")
+    busy = union_ms(spans)
+    return {"out": out, "busy_ms": busy, "wall_ms": wall_ms,
+            "idle": 1.0 - busy / wall_ms}
+
+
+def phase_hooks(nt, sh, df, rf, pp, world_mod, diagnostics, scene_bench,
+                scene_big, device) -> dict:
+    """[15]: force hooks, adaptive dt and diagnostics on the card."""
+    log(f"[15] hooks and adaptive dt: N={BENCH_N} direct, N={BIG_N} p3m "
+        f"slice, diagnostics, D=4 sharded on one card")
+    out = {}
+    # hooked World, N=65536: force_acc + hook + integration a substep
+    hooked = nt.create_world(scene_bench, device=device)
+    df.LAUNCHES = 0
+    df.PLANS.clear()
+    with no_sync():
+        hooked.update(HOOK_DT, HOOK_SUBSTEPS, extra_force=drag)
+    torch.cuda.synchronize()
+    out["hook_launches"] = df.LAUNCHES
+    expect_launches("hooked World 'cuda'", df.LAUNCHES, HOOK_SUBSTEPS)
+    log(f"  hooked World 'cuda', {HOOK_SUBSTEPS} substeps of {HOOK_DT}: "
+        f"force_acc launches {df.LAUNCHES}, no host sync")
+    log_plans("hooked World", df.PLANS)
+    plain = nt.create_world(scene_bench, device=device)
+    plain.update(HOOK_DT, HOOK_SUBSTEPS, backend="torch", extra_force=drag)
+    out["hook_gaps"] = check_gaps("hooked 'cuda' vs hooked 'torch' World",
+                                  hooked, plain, HOOK_VS_PLAIN)
+    zero = nt.create_world(scene_bench, device=device)
+    fused = nt.create_world(scene_bench, device=device)
+    zero.update(HOOK_DT, HOOK_SUBSTEPS, extra_force=zero_hook)
+    fused.update(HOOK_DT, HOOK_SUBSTEPS)
+    out["zero_gaps"] = check_gaps("zero hook vs unhooked fused World", zero,
+                                  fused, HOOK_VS_PLAIN)
+    del plain, zero, fused
+
+    # the force_acc of the hooked path at its shapes, against its plain version
+    st, gm = hooked.state, hooked.gm
+    n, m = st.n, gm.shape[0]
+    args = (st.pos, st.radius, st.pos[:m], gm)
+    err = rel(df.force_acc(*args), df.force_acc_plain(*args))
+    check(f"force_acc vs plain at the hooked World's shapes N={n} S={m}",
+          err, BOUND_SMALL)
+    b_ms, b_by = bound(FLOPS_DIRECT * n * m, 20 * n + 12 * m, MUFU_DIRECT * n * m)
+    out["force_acc"] = {
+        "n": n, "s": m, "launches": out["hook_launches"],
+        "max_abs_err": float((df.force_acc(*args)
+                              - df.force_acc_plain(*args)).abs().max()),
+        "ms": cuda_ms(lambda: df.force_acc(*args), reps=20),
+        "plain_ms": cuda_ms(lambda: df.force_acc_plain(*args), reps=2),
+        "bound_ms": b_ms, "bound_by": b_by}
+    t = hooked_vs_unhooked(hooked, TIMED_SUBSTEPS, "cuda")
+    out["times_direct"] = t
+    log(f"  N={BENCH_N} 'cuda' ms/substep, device (host): unhooked fused "
+        f"{t['unhooked'][0]:.4f} ({t['unhooked'][1]:.4f}), hooked "
+        f"{t['hooked'][0]:.4f} ({t['hooked'][1]:.4f}), in turns "
+        f"{t['runs']}; force_acc alone {out['force_acc']['ms']:.4f}")
+    del hooked
+
+    # adaptive World, N=65536: the span sized for ~ADAPTIVE_SUBSTEPS substeps
+    probe = nt.create_world(scene_bench, device=device)
+    probe.update(0.0, 1)
+    dt0 = float(diagnostics.suggest_dt(probe.state))
+    span = ADAPTIVE_SUBSTEPS * dt0
+    del probe
+    a_k = nt.create_world(scene_bench, device=device)
+    df.LAUNCHES = 0
+    with no_sync(world_mod):
+        dev, host, k = timed(lambda: a_k.update_adaptive(span))
+    expect_launches(f"adaptive 'cuda' ({k} substeps)", df.LAUNCHES,
+                    adaptive_evaluations(k))
+    out["adaptive"] = {"k": k, "span": span, "dt0": dt0,
+                       "launches": df.LAUNCHES}
+    a_p = nt.create_world(scene_bench, device=device)
+    k_p = a_p.update_adaptive(span, backend="torch")
+    log(f"  adaptive World, span {span:.6g} (criterion dt {dt0:.6g} at the "
+        f"start): 'cuda' {k} substeps, {df.LAUNCHES} force_acc launches, no "
+        f"host sync inside a batch; 'torch' {k_p} substeps")
+    if k != k_p:
+        raise SystemExit(f"chip_smoke: adaptive substeps 'cuda' {k} != "
+                         f"'torch' {k_p}")
+    out["adaptive"]["gaps"] = check_gaps("adaptive 'cuda' vs 'torch' World",
+                                         a_k, a_p, HOOK_VS_PLAIN)
+    del a_p
+    # ms per substep: a second adaptive call against fixed-dt update at its count
+    dev, host, k2 = timed(lambda: a_k.update_adaptive(span))
+    fixed = nt.create_world(scene_bench, device=device)
+    fixed.update(dt0, 1)
+    f_dev, f_host, _ = timed(lambda: fixed.update(dt0, k2))
+    out["adaptive"]["times"] = {"k": k2, "ms": dev / k2, "host_ms": host / k2,
+                                "fixed_ms": f_dev / k2,
+                                "fixed_host_ms": f_host / k2}
+    log(f"  N={BENCH_N} ms/substep, device (host): adaptive {dev / k2:.4f} "
+        f"({host / k2:.4f}) over {k2} substeps ({adaptive_evaluations(k2)} "
+        f"force evaluations), fixed-dt fused update {f_dev / k2:.4f} "
+        f"({f_host / k2:.4f}) at the same count")
+    prof = profile_call(lambda: a_k.update_adaptive(span))
+    k3 = prof["out"]
+    out["adaptive"]["profile"] = {key: prof[key] / k3 for key in
+                                  ("busy_ms", "wall_ms")}
+    out["adaptive"]["profile"]["idle"] = prof["idle"]
+    log(f"  adaptive profiler window, {k3} substeps: card busy "
+        f"{prof['busy_ms'] / k3:.4f} ms a substep of {prof['wall_ms'] / k3:.4f}"
+        f" wall (idle {prof['idle']:.2%}, the profiler's host cost included)")
+    del a_k, fixed
+
+    # the N=1M p3m slice, hooked and adaptive, from the scene at HOOK_DT
+    # (drag at dt 1.0 slows the galaxies into denser cores: a costlier
+    # state than [8] times)
+    slice_cfg = nt.SimConfig(**P3M_SIZED)
+    w = nt.create_world(scene_big, config=slice_cfg, device=device)
+    w.update(HOOK_DT, 1, backend="p3m", extra_force=drag)
+    df.LAUNCHES = pp.LAUNCHES = 0
+    with no_sync():
+        w.update(HOOK_DT, P3M_SUBSTEPS, backend="p3m", extra_force=drag)
+    torch.cuda.synchronize()
+    got = {"force_acc": df.LAUNCHES, "pp": pp.LAUNCHES}
+    expect_launches("hooked p3m", got, {"force_acc": P3M_SUBSTEPS,
+                                        "pp": P3M_SUBSTEPS})
+    finite_state(w, "hooked p3m")
+    t = hooked_vs_unhooked(w, P3M_SUBSTEPS, "p3m")
+    out["times_p3m"] = t
+    log(f"  N={BIG_N} p3m slice, hooked: launches K4 {got['pp']}, force_acc "
+        f"{got['force_acc']} in {P3M_SUBSTEPS} substeps, no host sync; "
+        f"ms/substep device (host): unhooked {t['unhooked'][0]:.4f} "
+        f"({t['unhooked'][1]:.4f}), hooked {t['hooked'][0]:.4f} "
+        f"({t['hooked'][1]:.4f}), in turns {t['runs']}")
+    for kind, hook in (("unhooked", None), ("hooked", drag)):
+        prof = profile_stages(w, 3, dt=HOOK_DT, extra_force=hook)
+        out[f"p3m_profile_{kind}"] = prof
+        log(f"  {kind} p3m profiler window, 3 substeps of {HOOK_DT}: card "
+            f"busy {prof['busy_ms']:.4f} ms a substep of {prof['wall_ms']:.4f}"
+            f" wall (idle {prof['idle']:.2%}); device ms by stage " + ", ".join(
+                f"{name} {ms:.4f}" for name, ms in prof["stages"].items()))
+    p_dt0 = float(diagnostics.suggest_dt(w.state))
+    df.LAUNCHES = pp.LAUNCHES = 0
+    with no_sync(world_mod):
+        dev, host, k = timed(lambda: w.update_adaptive(
+            P3M_ADAPTIVE_SUBSTEPS * p_dt0, backend="p3m", extra_force=drag))
+    evals = adaptive_evaluations(k)
+    expect_launches("adaptive p3m", {"force_acc": df.LAUNCHES,
+                                     "pp": pp.LAUNCHES},
+                    {"force_acc": evals, "pp": evals})
+    finite_state(w, "adaptive p3m")
+    out["p3m_adaptive"] = {"k": k, "ms": dev / k, "evaluations": evals}
+    log(f"  N={BIG_N} p3m slice, hooked adaptive over {P3M_ADAPTIVE_SUBSTEPS}"
+        f" x {p_dt0:.6g}: {k} substeps, {evals} force evaluations (K4 and "
+        f"force_acc each), fresh bins at each, {dev / k:.4f} ms/substep "
+        f"device ({host / k:.4f} host), finite, no host sync inside a batch")
+    del w
+
+    # diagnostics: the card against the plain judge on a CPU copy
+    w = nt.create_world(scene_bench, device=device)
+    w.update(1.0, 1)
+    dev, host, s_k = timed(lambda: diagnostics.summary(w))
+    cpu = type("CpuCopy", (), {"state": w.state.to("cpu"),
+                               "total_len": w.total_len,
+                               "mass_len": w.mass_len})()
+    t0 = time.perf_counter()
+    s_c = diagnostics.summary(cpu)
+    cpu_s = time.perf_counter() - t0
+    for key in ("kinetic_energy", "potential_energy", "angular_momentum",
+                "suggested_dt"):
+        check(f"summary {key}, card vs CPU copy",
+              abs(s_k[key] - s_c[key]) / abs(s_c[key]), SUMMARY_BOUND)
+    for key in ("momentum", "center_of_mass"):
+        got_, want_ = torch.tensor(s_k[key]), torch.tensor(s_c[key])
+        check(f"summary {key}, card vs CPU copy", rel(got_, want_),
+              SUMMARY_BOUND)
+    log(f"  summary at N={BENCH_N}: {host:.1f} ms on the card (wall), "
+        f"{cpu_s:.1f} s on the CPU copy; suggested_dt bit-equal: "
+        f"{s_k['suggested_dt'] == s_c['suggested_dt']}")
+    u = s_k["potential_energy"]
+    pe_ms = cuda_ms(lambda: diagnostics.potential_energy(w.state, w.mass_len))
+    u_pm = float(diagnostics.potential_energy_pm(w.state, w.mass_len))
+    check(f"potential_energy_pm vs potential_energy at N={BENCH_N}",
+          abs(u_pm - u) / abs(u), PE_PM_BOUND)
+    big = nt.create_world(scene_big, device=device)
+    pm_ms = cuda_ms(lambda: diagnostics.potential_energy_pm(
+        big.state, big.mass_len), reps=3)
+    out["diagnostics"] = {"summary_ms": host, "cpu_s": cpu_s,
+                          "potential_ms": pe_ms, "pm_big_ms": pm_ms}
+    log(f"  potential_energy at N={BENCH_N} {pe_ms:.4f} ms; "
+        f"potential_energy_pm (grid 512) at N={BIG_N} {pm_ms:.4f} ms")
+    del w, big, cpu
+
+    # D=4 shards on one card, N=65536: hooked and adaptive
+    ref = nt.create_world(scene_bench, device=device)
+    ref.update(HOOK_DT, HOOK_SUBSTEPS, extra_force=drag)
+    out["sharded"] = {}
+    for backend, counter in (("cuda_ring", rf), ("cuda", df)):
+        sw = sharded(sh, scene_bench, 4, device, backend)
+        counter.LAUNCHES = 0
+        with no_sync():
+            sw.update(HOOK_DT, HOOK_SUBSTEPS, extra_force=drag)
+        torch.cuda.synchronize()
+        launches = counter.LAUNCHES
+        expect_launches(f"hooked sharded {backend} D=4", launches,
+                        16 * HOOK_SUBSTEPS)
+        gaps = check_gaps(f"hooked sharded {backend} D=4 vs hooked World",
+                          sw, ref, SHARD_VS_WORLD)
+        res = {"launches": launches, "gaps": gaps}
+        if backend == "cuda_ring":
+            # the hop kernel without its epilogue: one pass of the ring
+            pos, rad, valid = sw.pos, sw.radius, sw.valid
+
+            def ring_pass(kind):
+                with sw.ring.fork():
+                    acc = rf.ring_force(sw.ring, pos, rad, valid, backend=kind)
+                return torch.cat(acc)
+            got_, want_ = ring_pass("cuda_ring"), ring_pass("torch")
+            check(f"ring_force hop kernel (no epilogue) vs plain, N={BENCH_N}"
+                  f" D=4", rel(got_, want_), BOUND_SMALL)
+            nn, mm = sw.total_len, sw.mass_len
+            b_ms, b_by = bound(FLOPS_DIRECT * nn * mm, 20 * nn + 12 * mm,
+                               MUFU_DIRECT * nn * mm)
+            res.update(max_abs_err=float((got_ - want_).abs().max()),
+                       ms=cuda_ms(lambda: ring_pass("cuda_ring"), reps=5),
+                       plain_ms=cuda_ms(lambda: ring_pass("torch")),
+                       bound_ms=b_ms, bound_by=b_by, n=nn, s=mm)
+        sw2 = sharded(sh, scene_bench, 4, device, backend)
+        counter.LAUNCHES = 0
+        with no_sync(world_mod):
+            k_s = sw2.update_adaptive(span)
+        expect_launches(f"adaptive sharded {backend} D=4", counter.LAUNCHES,
+                        16 * adaptive_evaluations(k_s))
+        if k_s != out["adaptive"]["k"]:
+            raise SystemExit(f"chip_smoke: adaptive sharded {backend} took "
+                             f"{k_s} substeps, World {out['adaptive']['k']}")
+        finite_state(sw2, f"adaptive sharded {backend}")
+        log(f"  sharded {backend} D=4: hooked {launches} launches in "
+            f"{HOOK_SUBSTEPS} substeps, no host sync; adaptive {k_s} "
+            f"substeps (World {out['adaptive']['k']}), "
+            f"{16 * adaptive_evaluations(k_s)} launches")
+        out["sharded"][backend] = res
+        del sw, sw2
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1468,7 +1849,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import nbody_tpu_torch as nt
-    from nbody_tpu_torch import forces
+    from nbody_tpu_torch import diagnostics, forces
+    from nbody_tpu_torch import world as world_mod
     from nbody_tpu_torch.models import galaxy_ref
     from nbody_tpu_torch.ops import _build
     from nbody_tpu_torch.ops import direct_forces as df
@@ -1590,6 +1972,8 @@ def main() -> int:
     if idle:
         raise SystemExit(f"chip_smoke: a kernel of the ablation path was not "
                          f"launched: {idle}")
+    hooks = phase_hooks(nt, sh, df, rf, pp, world_mod, diagnostics,
+                        scene_bench, scene_big, device)
 
     log(f"card: {smi}")
     log(f"rsqrt path vs fp64 at N={BENCH_N}: max|d|/max|a| {acc64['rsqrt'][0]:.3e}, "
@@ -1608,6 +1992,15 @@ def main() -> int:
             f"({shard[(n, d)]['profile']['kernel_sum_ms']:.4f})"
             for n, d in SHARDED if d > 1))
 
+    t_d, t_p, ad = hooks["times_direct"], hooks["times_p3m"], hooks["adaptive"]
+    log(f"hooks ms/substep on the card, device: N={BENCH_N} 'cuda' unhooked "
+        f"{t_d['unhooked'][0]:.4f}, hooked {t_d['hooked'][0]:.4f}; N={BIG_N} "
+        f"p3m slice unhooked {t_p['unhooked'][0]:.4f}, hooked "
+        f"{t_p['hooked'][0]:.4f}")
+    log(f"adaptive ms/substep on the card, device: N={BENCH_N} 'cuda' "
+        f"{ad['times']['ms']:.4f} over {ad['times']['k']} substeps (fixed dt "
+        f"{ad['times']['fixed_ms']:.4f}); N={BIG_N} p3m slice "
+        f"{hooks['p3m_adaptive']['ms']:.4f} over {hooks['p3m_adaptive']['k']}")
     log("ablation path, best ms of each sweep: " + ", ".join(
         f"{key} {ablation[key]['best']['ms']:.4f} ({ablation[key]['best']['name']})"
         for key in ABLATION_KERNELS) + f" (K1 force_acc {ablation['k1_ms']:.4f})")
@@ -1660,6 +2053,14 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None}
 
+    def hooked_row(r, label, source, replaces):
+        return {"name": f"{label}, N={r['n']} S={r['s']}", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None}
+
     log(json.dumps({"kernels": [
         fused_row(BENCH_N, world.mass_len, "nbody_tpu/ops/pallas_forces.py:220",
                   launches_bench, err_bench, kernel_ms, plain_ms),
@@ -1678,6 +2079,12 @@ def main() -> int:
         ring_row(BENCH_N, 4),
         ring_row(BIG_N, 4),
         *(ablation_row(key) for key in ABLATION_KERNELS),
+        hooked_row(hooks["force_acc"], "direct_forces force_acc, hooked World "
+                   "substep", KERNEL_SRC, "nbody_tpu/ops/pallas_forces.py:220"),
+        hooked_row(hooks["sharded"]["cuda_ring"], "ring_forces hop without "
+                   "epilogue, hooked sharded substep D=4 on one card, one "
+                   "pass of the ring", RING_SRC,
+                   "nbody_tpu/ops/ring_forces.py:58"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@ The same public names as ``nbody_tpu`` for the ported subset: scene
 generation (numpy), world creation (on the GPU unless the caller asks for
 the CPU), substeps of exact direct-sum gravity through a hand-written CUDA
 kernel ("cuda" backend) or plain PyTorch ("torch" backend), the
-particle-mesh ("pm") and P³M ("p3m") solvers, and readback; and, in
-``nbody_tpu_torch.parallel``, the world sharded over a list of devices with
-the ring of source tiles. Imports neither JAX nor ``nbody_tpu``.
+particle-mesh ("pm") and P³M ("p3m") solvers, user force hooks, adaptive
+dt, and readback; in ``nbody_tpu_torch.diagnostics``, energy, momentum and
+the dt criterion; and, in ``nbody_tpu_torch.parallel``, the world sharded
+over a list of devices with the ring of source tiles. Imports neither JAX
+nor ``nbody_tpu``.
 """
 
 from .types import (
@@ -18,12 +20,15 @@ from .types import (
     DEFAULT_GALAXY_CONFIG,
     DEFAULT_SIM_CONFIG,
     make_particles,
+    zeros_particles,
+    concat_particles,
 )
-from .forces import direct_sum_acc, pair_acc
+from .forces import acc_from_particles, direct_sum_acc, pair_acc
 from .galaxy import make_galaxies
 from .ops.p3m_forces import p3m_acc, p3m_cell_overflow
 from .ops.pm_forces import pm_acc, suggest_grid
-from .world import World, create_world, partition_massive_first
+from .world import (World, create_world, partition_massive_first,
+                    resolve_backend, update_state)
 
 __version__ = "0.1.0"
 
@@ -36,6 +41,9 @@ __all__ = [
     "DEFAULT_GALAXY_CONFIG",
     "DEFAULT_SIM_CONFIG",
     "make_particles",
+    "zeros_particles",
+    "concat_particles",
+    "acc_from_particles",
     "direct_sum_acc",
     "pair_acc",
     "make_galaxies",
@@ -46,5 +54,7 @@ __all__ = [
     "World",
     "create_world",
     "partition_massive_first",
+    "resolve_backend",
+    "update_state",
     "__version__",
 ]

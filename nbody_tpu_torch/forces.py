@@ -10,18 +10,38 @@ The math is the reference's (sim_cpu.c:156-194, particle_cs.glsl:35-49):
 ``precise=True`` is sqrt and divide, as the shader writes it; ``False`` is
 rsqrt cubed. Only the sources handed in (the massive prefix) exert force;
 self-interaction contributes zero because radv == 0.
+
+Every square root of the port's plain code goes through :func:`sqrt`,
+which is correctly rounded on the CPU as on the card.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .types import SOFTENING_FLOOR
+from .types import DTYPE, G, SOFTENING_FLOOR
 
 # Elements of one (chunk, S) temporary in ``direct_sum_acc``: 2**25 fp32 is
 # 128 MiB, and one chunk holds about eight such temporaries alive at once,
 # so a chunk stays near 1 GiB of device memory whatever S is.
 CHUNK_ELEMS = 1 << 25
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root (``jnp.sqrt``'s), on any device.
+
+    On CUDA tensors this is ``torch.sqrt``. On the CPU, PyTorch's float
+    sqrt calls MKL's vector sqrt (VML, high-accuracy mode) on each worker
+    thread's share of the elements: within 1 ulp, not correctly rounded,
+    and on the first call of a process it sometimes computes one thread's
+    share to about 12 bits (3.3e-4 relative). numpy's sqrt is the IEEE
+    instruction, elementwise and single-threaded, so the CPU takes it."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    np.sqrt(x.numpy(), out=out.numpy())
+    return out
 
 
 def pair_acc(
@@ -42,7 +62,7 @@ def pair_acc(
     dist_sq = dx * dx + dy * dy
     r2 = dist_sq + (tgt_radius + SOFTENING_FLOOR)[:, None]
     if precise:
-        f = src_gm[None, :] / (torch.sqrt(r2) * r2)
+        f = src_gm[None, :] / (sqrt(r2) * r2)
     else:
         inv = torch.rsqrt(r2)
         f = src_gm[None, :] * (inv * inv * inv)
@@ -78,6 +98,37 @@ def direct_sum_acc(
                  precise=precise)
         for i in range(0, n, chunk)
     ])
+
+
+def acc_from_particles(
+    pos: torch.Tensor,
+    radius: torch.Tensor,
+    mass: torch.Tensor,
+    mass_len: int,
+    *,
+    chunk: int | None = None,
+    precise: bool = True,
+    g: float = G,
+) -> torch.Tensor:
+    """Convenience oracle: all particles as targets, the first ``mass_len``
+    as sources (the massive-first partition invariant, world.c:33-46)."""
+    src_gm = g * mass[:mass_len]
+    return direct_sum_acc(pos, radius, pos[:mass_len], src_gm, chunk=chunk,
+                          precise=precise)
+
+
+def checked_extra_acc(extra_force, pos, vel, *params) -> torch.Tensor:
+    """Call a user ``extra_force(pos, vel, *params)`` hook and return its
+    accelerations as fp32 on ``pos``'s device, or raise ``ValueError``
+    unless their shape is ``pos.shape``: ``acc + out`` would broadcast a
+    (N, 1) or scalar return silently."""
+    out = torch.as_tensor(extra_force(pos, vel, *params), dtype=DTYPE,
+                          device=pos.device)
+    if out.shape != pos.shape:
+        raise ValueError(
+            "extra_force must return accelerations with the same shape as "
+            f"pos {tuple(pos.shape)}, got {tuple(out.shape)}")
+    return out
 
 
 def integrate(pos, vel, acc, dt: float):

@@ -51,11 +51,16 @@ def stage_weights(integrator: str) -> tuple[float, ...] | None:
         f"integrator must be one of {INTEGRATORS}, got {integrator!r}")
 
 
-def stage_dt(w: float, dt: float) -> float:
+def stage_dt(w: float, dt):
     """The stage's dt, ``w * dt`` rounded in fp32 as the JAX step forms it
     (``w`` is weakly typed there, ``dt`` an fp32 array); ``dt`` itself for
-    a weight of 1."""
-    return dt if w == 1.0 else float(np.float32(w) * np.float32(dt))
+    a weight of 1. ``dt`` is a Python float, or a 0-dim fp32 tensor (the
+    adaptive loop's, on the device), which gives a tensor."""
+    if w == 1.0:
+        return dt
+    if isinstance(dt, (float, int)):
+        return float(np.float32(w) * np.float32(dt))
+    return dt * float(np.float32(w))
 
 
 def advance(

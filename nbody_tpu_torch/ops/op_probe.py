@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import forces
 from .direct_forces import _check, _device_of, _raise_on
 
 EXPRS = ("add", "mul", "fma_pat", "rsqrt", "sqrt", "recip_apx", "rsqrt3",
@@ -50,7 +51,7 @@ def expr_plain(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if name == "rsqrt":
         return torch.rsqrt(a) + c[0.5]
     if name == "sqrt":
-        return torch.sqrt(a) + c[0.1]
+        return forces.sqrt(a) + c[0.1]
     if name == "recip_apx":
         return torch.reciprocal(a) + c[0.5]
     if name == "rsqrt3":

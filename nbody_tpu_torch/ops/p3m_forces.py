@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
+from .. import forces
 from ..types import DTYPE, SOFTENING_FLOOR
 from . import direct_forces, p3m_pp
 from .pm_forces import _bounds, _box, _cic_gather, _cic_scatter, _solve
@@ -46,7 +47,7 @@ from .pm_forces import _bounds, _box, _cic_gather, _cic_scatter, _solve
 def _taper(d2, rc):
     """Smootherstep 6u⁵-15u⁴+10u³ of u = d/rc, clamped above at 1 (the
     1e-12 bias keeps sqrt's derivative finite at d2 = 0, as in JAX)."""
-    u = torch.clamp(torch.sqrt(d2 + 1e-12) / rc, max=1.0)
+    u = torch.clamp(forces.sqrt(d2 + 1e-12) / rc, max=1.0)
     return u * u * u * (10.0 + u * (6.0 * u - 15.0))
 
 

@@ -37,6 +37,7 @@ import math
 
 import torch
 
+from .. import forces
 from ..types import DTYPE, SOFTENING_FLOOR
 
 # Kernel launches made by ``pp_cells`` and ``pp_blocks`` in this process
@@ -108,14 +109,14 @@ def _pp_plain(tx, ty, trs, sx, sy, sg, rc, eps2, precise, counts_t, counts_s):
         r2 = d2 + trf[cells][:, :, None]
         q2 = d2 + eps2
         if precise:
-            exact3 = 1.0 / (torch.sqrt(r2) * r2)
-            smooth3 = 1.0 / (torch.sqrt(q2) * q2)
+            exact3 = 1.0 / (forces.sqrt(r2) * r2)
+            smooth3 = 1.0 / (forces.sqrt(q2) * q2)
         else:
             inv = torch.rsqrt(r2)
             exact3 = inv * inv * inv
             invq = torch.rsqrt(q2)
             smooth3 = invq * invq * invq
-        u = torch.clamp(torch.sqrt(d2 + 1e-12) * inv_rc, max=1.0)
+        u = torch.clamp(forces.sqrt(d2 + 1e-12) * inv_rc, max=1.0)
         taper = u * u * u * (10.0 + u * (6.0 * u - 15.0))
         w = nsg[:, None, :] * (exact3 - taper * smooth3)
         w = torch.where(d2 < rc2, w, 0.0)
@@ -165,10 +166,7 @@ def pp_cells_plain(trows, srows, start_t, counts_t, start_s, counts_s, rc,
                                     (0.0, 0.0, 1.0, 0.0))
     sb, _, _ = _runs_to_blocks(srows, start_s, counts_s, cap_s,
                                (0.0, 0.0, 0.0, 0.0))
-    # contiguous, as packed blocks are: on these strided views PyTorch's CPU
-    # kernels gave sums that changed from call to call
-    blocks = [b[..., k].reshape(gc, gc, -1).contiguous()
-              for b in (tb, sb) for k in range(3)]
+    blocks = [b[..., k].reshape(gc, gc, -1) for b in (tb, sb) for k in range(3)]
     corr = _pp_plain(*blocks, rc, eps2, precise, counts_t, counts_s)
     out = torch.zeros((trows.shape[0], 2), dtype=DTYPE, device=trows.device)
     out[idx[live]] = corr[live]

@@ -30,10 +30,10 @@ CPU shards (in order, events ignored); a CPU test checks the list itself.
 
 Per hop, :func:`ring_substep` launches the hop kernel
 (``csrc/ring_forces.cu``), whose last hop also integrates;
-:func:`ring_force` calls the direct kernel (``direct_forces.force_acc``) or
-its plain version and leaves the integration to the caller. On CPU tensors
-the wrappers take their plain versions; on CUDA tensors they launch their
-kernel or raise.
+:func:`ring_force` calls the direct kernel (``direct_forces.force_acc``),
+the hop kernel without its epilogue, or the plain version, and leaves the
+integration to the caller. On CPU tensors the wrappers take their plain
+versions; on CUDA tensors they launch their kernel or raise.
 """
 
 from __future__ import annotations
@@ -389,16 +389,28 @@ def ring_substep(ring: Ring, dt: float, pos, vel, radius, valid, *,
 
 
 def ring_force(ring: Ring, pos, radius, valid, *, precise: bool = False,
-               plain: bool = False) -> list:
+               backend: str = "cuda") -> list:
     """Per-shard accelerations over the whole ring, masked by ``valid``,
-    with no integration: per hop ``direct_forces.force_acc`` (the direct
-    kernel on CUDA shards, planned for the shard's real targets) or, with
-    ``plain``, its plain version; hop sums added in hop order (JAX's
-    ``acc + local``)."""
+    with no integration. Per hop, by ``backend``: "cuda" the direct kernel
+    (``direct_forces.force_acc``, planned for the shard's real targets),
+    "cuda_ring" the hop kernel without its epilogue (``ring_hop`` summing
+    into the shard's running acceleration), "torch" the plain version.
+    Hop sums are added in hop order (JAX's ``acc + local``). On CPU
+    shards each takes its plain version."""
+    if backend not in ("torch", "cuda", "cuda_ring"):
+        raise ValueError(f"backend must be 'torch', 'cuda' or 'cuda_ring', "
+                         f"got {backend!r}")
     acc = [None] * ring.n_devices
 
     def compute(k, h, last, src_pos, src_gm):
-        if plain:
+        if backend == "cuda_ring":
+            ring_hop(pos[k], radius[k], src_pos, src_gm, ring.acc_run[k],
+                     accumulate=h > 0, precise=precise,
+                     t_real=ring.t_real[k])
+            if last:
+                acc[k] = ring.acc_run[k] * valid[k][:, None]
+            return
+        if backend == "torch":
             a = direct_forces.force_acc_plain(pos[k], radius[k], src_pos,
                                               src_gm, precise=precise)
         else:

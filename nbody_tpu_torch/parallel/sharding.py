@@ -20,6 +20,12 @@ direct-sum backends.
 Backends (the port's names for JAX's): "torch" ("jnp") plain per-hop force
 then integrate; "cuda" ("pallas") the direct kernel per hop; "cuda_ring"
 ("pallas_ring") the ring hop kernel K3, whose last hop integrates.
+
+A user field ``extra_force(pos, vel)`` is pointwise per shard: it sees
+the shard's rows, its term is masked by ``valid`` and added to the ring's
+force, and the integration runs in PyTorch on each shard's stream. So does
+the adaptive loop, whose dt is a tensor on the device. On "cuda_ring" such
+a substep takes its force from the hop kernel without its epilogue.
 """
 
 from __future__ import annotations
@@ -28,10 +34,10 @@ from typing import Literal
 
 import torch
 
-from .. import integrators
+from .. import diagnostics, forces, integrators, world
 from ..ops.ring_forces import Ring, ring_force, ring_substep
 from ..types import DEFAULT_SIM_CONFIG, DTYPE, Particles, SimConfig, round_up
-from ..world import partition_massive_first
+from ..world import _scalar, partition_massive_first
 
 # Source shards align to 128 rows, as in nbody_tpu
 # (nbody_tpu/ops/pallas_forces.py:66). There it is the TPU's lane width; here
@@ -180,51 +186,107 @@ class ShardedWorld:
         return torch.cat([g.cpu() for g in self._gm_src])
 
     def update(self, dt: float, n: int = 1, extra_force=None) -> "ShardedWorld":
-        """n substeps of size dt. The loop never syncs with the host: ``dt``
-        stays a Python float, and only ``particles`` and
-        ``block_until_ready`` wait."""
-        if extra_force is not None:
-            raise NotImplementedError(
-                "extra_force on a sharded world is not yet ported to "
-                "nbody_tpu_torch")
+        """n substeps of size dt. ``extra_force(pos, vel) -> acc`` composes
+        a user acceleration field with self-gravity per shard: a pointwise
+        per-particle function, which sees one shard's rows. The loop never
+        syncs with the host: ``dt`` stays a Python float, and only
+        ``particles`` and ``block_until_ready`` wait."""
         if n <= 0:
             return self
-        dt = float(dt)
-        ws = integrators.stage_weights(self.config.integrator)
+        dts = [float(dt)] * self.n_devices
         with self.ring.fork():
             for _ in range(n):
-                if ws is None:
-                    self._stage(dt, dkd=False)
-                    continue
-                for w in ws:
-                    self._stage(integrators.stage_dt(w, dt), dkd=True)
+                self._substep(dts, extra_force)
         self._host_cache = None
         return self
 
-    def _stage(self, dt: float, *, dkd: bool) -> None:
+    def update_adaptive(self, t_span: float, *, eta: float = 0.1,
+                        dt_min: float = 1e-5, dt_max: float = 1.0,
+                        extra_force=None) -> int:
+        """Integrate ``t_span`` physical time units with per-substep global
+        adaptive dt, as :func:`nbody_tpu_torch.world.update_state_adaptive`
+        does for a World; returns the number of substeps taken. The
+        criterion's min runs over every shard, in shard order, on the first
+        shard's device, so every shard steps with the same dt. Padding rows
+        hold acc exactly 0 (masked by ``valid``), a timescale of +inf."""
+        dev0 = self.mesh[0]
+        knobs = {key: _scalar(v, dev0) for key, v in (
+            ("dt_min", dt_min), ("dt_max", dt_max), ("t_span", t_span))}
+        eta = _scalar(eta, dev0)
+        with self.ring.fork():  # prime acc: dt = 0, nothing moves
+            self._substep([_scalar(0.0, dev) for dev in self.mesh],
+                          extra_force)
+        t = _scalar(0.0, dev0)
+        k = torch.zeros((), dtype=torch.int32, device=dev0)
+        while True:
+            for _ in range(world.ADAPTIVE_BATCH):
+                live = t < knobs["t_span"]
+                crit = eta * torch.stack([
+                    diagnostics.timescale(a, r).to(dev0)
+                    for a, r in zip(self.acc, self.radius)]).amin()
+                dt = torch.where(live, diagnostics.clip_dt(
+                    crit, t=t, **knobs), 0.0)
+                old = (self.pos, self.vel, self.acc)
+                lives = [live.to(dev) for dev in self.mesh]
+                with self.ring.fork():
+                    self._substep([dt.to(dev) for dev in self.mesh],
+                                  extra_force)
+                    # a substep past the end keeps the old state
+                    for j in range(self.n_devices):
+                        with self.ring.on(j):
+                            for new, prev in zip(
+                                    (self.pos, self.vel, self.acc), old):
+                                new[j] = torch.where(lives[j], new[j], prev[j])
+                t = t + dt
+                k = k + live.to(torch.int32)
+            if not world._host(t < knobs["t_span"]):
+                break
+        self._host_cache = None
+        return world._host(k)
+
+    def _substep(self, dts: list, extra_force=None) -> None:
+        """One substep of the integrator with each shard's dt in ``dts``
+        (Python floats, or 0-dim tensors on the shards' devices). Fused
+        through the hop kernel's epilogue on "cuda_ring" when dt is a float
+        and there is no hook; else the ring's force, the hook, and the
+        integration in PyTorch."""
+        ws = integrators.stage_weights(self.config.integrator)
+        fused = (self.force_backend == "cuda_ring" and extra_force is None
+                 and isinstance(dts[0], float))
+        vel0 = self.vel
+        for w in (1.0,) if ws is None else ws:
+            self._stage([integrators.stage_dt(w, dt) for dt in dts],
+                        dkd=ws is not None, fused=fused,
+                        extra_force=extra_force, vel0=vel0)
+
+    def _stage(self, dts: list, *, dkd: bool, fused: bool, extra_force,
+               vel0) -> None:
         """One force evaluation and its integration: a whole Euler substep,
-        or one drift-kick-drift stage whose force is taken at the midpoint."""
+        or one drift-kick-drift stage whose force is taken at the midpoint.
+        The hook sees the substep-entry velocity ``vel0``."""
         ring, cfg = self.ring, self.config
         pos_in = self.pos
         if dkd:
             pos_in = []
             for k in range(self.n_devices):
                 with ring.on(k):
-                    pos_in.append(self.pos[k] + (0.5 * dt) * self.vel[k])
-        if self.force_backend == "cuda_ring":
+                    pos_in.append(self.pos[k] + (0.5 * dts[k]) * self.vel[k])
+        if fused:
             self.pos, self.vel, self.acc = ring_substep(
-                ring, dt, pos_in, self.vel, self.radius, self.valid,
+                ring, dts[0], pos_in, self.vel, self.radius, self.valid,
                 precise=cfg.precise, pos_dt=0.5 if dkd else 1.0)
             return
         acc = ring_force(ring, pos_in, self.radius, self.valid,
-                         precise=cfg.precise,
-                         plain=self.force_backend == "torch")
-        drift = 0.5 * dt if dkd else dt
+                         precise=cfg.precise, backend=self.force_backend)
         pos, vel = [], []
         for k in range(self.n_devices):
             with ring.on(k):
+                if extra_force is not None:
+                    acc[k] = acc[k] + forces.checked_extra_acc(
+                        extra_force, pos_in[k], vel0[k]) * self.valid[k][:, None]
+                dt = dts[k]
                 vel.append(self.vel[k] + dt * acc[k])
-                pos.append(pos_in[k] + drift * vel[k])
+                pos.append(pos_in[k] + (0.5 * dt if dkd else dt) * vel[k])
         self.pos, self.vel, self.acc = pos, vel, acc
 
     @property

@@ -88,6 +88,21 @@ def make_particles(
     )
 
 
+def zeros_particles(n: int, device: torch.device | str = "cpu") -> Particles:
+    """n inert rows: zero pos, vel, acc and mass, radius 1."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=DTYPE, device=device)
+
+    return Particles(pos=z(n, 2), vel=z(n, 2), acc=z(n, 2), mass=z(n),
+                     radius=torch.ones(n, dtype=DTYPE, device=device))
+
+
+def concat_particles(a: Particles, b: Particles) -> Particles:
+    """The rows of ``a`` followed by those of ``b``, field by field."""
+    return Particles(*(torch.cat([x, y]) for x, y in
+                       zip(astuple_shallow(a), astuple_shallow(b))))
+
+
 @dataclass(frozen=True)
 class SimConfig:
     """Simulation configuration: the fields of ``nbody_tpu.types.SimConfig``

@@ -7,16 +7,27 @@ paths.
     device ("cuda" unless the caller names another), and forms
     ``gm = g * mass[:mass_len]``.
     State has exactly N rows: the CUDA kernel masks its own ragged edges,
-    so no target or source padding is needed.
-  * ``update(dt, n)`` is a Python loop of n substeps. On the "cuda" backend
-    each substep (each DKD stage for leapfrog/yoshida4) is one launch of
-    the fused force-and-integrate kernel; "torch" is the plain PyTorch
-    version. "pm" and "p3m" are the mesh solvers (``ops/pm_forces.py``,
-    ``ops/p3m_forces.py``) with the integrator's stage loop around them;
-    p3m's pair correction and exact-core rows run through the CUDA kernels
-    on a CUDA world and their plain versions on a CPU one. The loop never
-    syncs with the host: ``dt`` stays a Python float, and only
-    ``particles`` and ``block_until_ready`` wait.
+    so no target or source padding is needed, and no ``valid`` mask.
+  * ``update(dt, n)`` (:func:`update_state`) is a Python loop of n
+    substeps. On the "cuda" backend each substep (each DKD stage for
+    leapfrog/yoshida4) is one launch of the fused force-and-integrate
+    kernel; "torch" is the plain PyTorch version. "pm" and "p3m" are the
+    mesh solvers (``ops/pm_forces.py``, ``ops/p3m_forces.py``) with the
+    integrator's stage loop around them; p3m's pair correction and
+    exact-core rows run through the CUDA kernels on a CUDA world and their
+    plain versions on a CPU one. The loop never syncs with the host:
+    ``dt`` stays a Python float, and only ``particles`` and
+    ``block_until_ready`` wait.
+  * ``extra_force(pos, vel) -> acc`` adds a user acceleration field to
+    self-gravity. With a hook, "cuda" takes the generic stage loop: the
+    direct kernel's force (``force_acc``), plus the hook, then the
+    integration in PyTorch.
+  * ``update_adaptive(t_span)`` (:func:`update_state_adaptive`) integrates
+    a fixed physical time with a global dt chosen every substep from the
+    accelerations (``diagnostics.next_adaptive_dt``). dt, the time and the
+    substep count stay on the device as 0-dim tensors; substeps are
+    enqueued in batches of ``ADAPTIVE_BATCH``, and a substep past the end
+    keeps the state as it was. The host reads one flag a batch.
   * Jacobi substeps: every launch reads (pos, vel) and writes new buffers,
     and the World swaps them in, as the reference double-buffers its
     storage (sim_gpu.c:19). PyTorch's caching allocator hands the freed
@@ -30,8 +41,8 @@ from typing import Literal
 import torch
 from torch.profiler import record_function
 
-from . import forces, integrators
-from .ops.direct_forces import fused_substep
+from . import diagnostics, forces, integrators
+from .ops.direct_forces import force_acc, fused_substep
 from .ops.p3m_forces import exact_core_rows, p3m_acc_from_bins, p3m_bins
 from .ops.pm_forces import pm_acc
 from .types import (DEFAULT_SIM_CONFIG, DTYPE, Particles, SimConfig,
@@ -45,6 +56,11 @@ BACKENDS = ("torch", "cuda", "pm", "p3m")
 # and number (nbody_tpu/world.py:81-100), set on a TPU; the H100's own
 # crossover is a measurement still to make (ROADMAP A6).
 AUTO_P3M_MIN_PAIRS = 16_000_000_000
+
+# Substeps the adaptive loop enqueues between two reads of its flag. A
+# batch costs one host sync; the substeps of the last batch that fall past
+# the end are computed and thrown away.
+ADAPTIVE_BATCH = 8
 
 
 def resolve_backend(backend: Backend, total_len: int, mass_len: int, *,
@@ -78,6 +94,197 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _scalar(value, device) -> torch.Tensor:
+    """A 0-dim fp32 tensor on ``device``, filled there (no host copy)."""
+    return torch.full((), value, dtype=DTYPE, device=device)
+
+
+def _mesh_sources(gm):
+    """The mesh solvers' sources: max(mass_len, 1) of them (a world with no
+    mass gets one inert gm = 0 source), as nbody_tpu's effective_src_len."""
+    if gm.shape[0]:
+        return gm
+    return torch.zeros(1, dtype=DTYPE, device=gm.device)
+
+
+def _gravity(backend: str, radius, gm, config: SimConfig, *, bins=None,
+             softening=None):
+    """``force(pos) -> acc``: self-gravity on ``backend`` for targets of
+    ``radius`` and the sources ``pos[:len(gm)]``. "cuda" is the direct
+    kernel's force alone (``force_acc``). "p3m" uses the frozen ``bins``
+    where given, else builds fresh bins at every evaluation, as
+    nbody_tpu's ``p3m_acc`` does (the exact-core rows, which depend only
+    on the constant radius, are chosen once). ``softening``: the mesh's,
+    a 0-dim tensor on the device, made here unless given."""
+    m = gm.shape[0]
+    if backend == "torch":
+        return lambda p: forces.direct_sum_acc(p, radius, p[:m], gm,
+                                               precise=config.precise)
+    if backend == "cuda":
+        return lambda p: force_acc(p, radius, p[:m], gm,
+                                   precise=config.precise)
+    mesh_gm = _mesh_sources(gm)
+    s = mesh_gm.shape[0]
+    if softening is None:
+        softening = _scalar(config.pm_softening, radius.device)
+    if backend == "pm":
+        return lambda p: pm_acc(p, p[:s], mesh_gm, softening,
+                                grid=config.pm_grid)
+    if backend != "p3m":
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    big = None if bins is not None else exact_core_rows(
+        radius, config.p3m_exact_targets)
+
+    def p3m_force(p):
+        return p3m_acc_from_bins(
+            bins if bins is not None else _p3m_bins(p, radius, mesh_gm,
+                                                    config, big),
+            p, radius, p[:s], mesh_gm, softening, grid=config.pm_grid,
+            rc_cells=config.p3m_rc_cells,
+            cell_capacity=config.p3m_cell_capacity, precise=config.precise)
+    return p3m_force
+
+
+def _p3m_bins(pos, radius, mesh_gm, config: SimConfig, big):
+    with record_function("p3m.bins"):
+        return p3m_bins(pos, radius, pos[:mesh_gm.shape[0]], mesh_gm,
+                        grid=config.pm_grid, rc_cells=config.p3m_rc_cells,
+                        exact_targets=config.p3m_exact_targets, big=big)
+
+
+def _step(state: Particles, gravity, dt, config: SimConfig,
+          extra_force=None) -> Particles:
+    """One substep of the integrator's stage loop with ``gravity(pos)``
+    plus the hook. The hook sees the substep-entry ``vel`` at every stage,
+    as in nbody_tpu. nbody_tpu masks the sum by its ``valid`` row; the
+    port's World has no padding rows, so every row, massless ones
+    included, gets the hook's acceleration. ``dt`` is a Python float or a
+    0-dim tensor on the device."""
+    vel0 = state.vel
+
+    def force_at(p):
+        acc = gravity(p)
+        if extra_force is not None:
+            acc = acc + forces.checked_extra_acc(extra_force, p, vel0)
+        return acc
+
+    pos, vel, acc = integrators.advance(config.integrator, force_at,
+                                        state.pos, state.vel, dt)
+    return Particles(pos=pos, vel=vel, acc=acc, mass=state.mass,
+                     radius=state.radius)
+
+
+def _fused_step(state: Particles, gm, dt: float, config: SimConfig) -> Particles:
+    """One substep on "cuda" without a hook: one launch of the fused
+    force-and-integrate kernel per DKD stage (the stage's first half-drift
+    outside it)."""
+    ws = integrators.stage_weights(config.integrator)
+    pos, vel, acc = state.pos, state.vel, state.acc
+    for w in (1.0,) if ws is None else ws:
+        dtk = integrators.stage_dt(w, dt)
+        pos_in = pos if ws is None else pos + (0.5 * dtk) * vel
+        pos, vel, acc = fused_substep(
+            dtk, pos_in, vel, state.radius, gm, precise=config.precise,
+            pos_dt=1.0 if ws is None else 0.5)
+    return Particles(pos=pos, vel=vel, acc=acc, mass=state.mass,
+                     radius=state.radius)
+
+
+def _check_backend(backend: str, device: torch.device) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(
+            f"backend 'cuda' needs a world on a CUDA device, this one is "
+            f"on {device}")
+
+
+def update_state(state: Particles, gm: torch.Tensor, dt: float, n: int, *,
+                 config: SimConfig = DEFAULT_SIM_CONFIG, backend: Backend,
+                 extra_force=None) -> Particles:
+    """``n`` substeps of size ``dt`` from ``state`` (massive rows first,
+    their ``gm`` = g·mass) on ``backend`` (a concrete one); returns the new
+    state. The functional form of :meth:`World.update`: "p3m" builds its
+    cell bins at the first substep and again at every substep index that
+    is a multiple of ``p3m_rebin_interval``, as nbody_tpu does."""
+    _check_backend(backend, state.pos.device)
+    dt = float(dt)
+    if backend == "cuda" and extra_force is None:
+        for _ in range(n):
+            state = _fused_step(state, gm, dt, config)
+        return state
+    if backend != "p3m":
+        gravity = _gravity(backend, state.radius, gm, config)
+        for _ in range(n):
+            state = _step(state, gravity, dt, config, extra_force)
+        return state
+    mesh_gm = _mesh_sources(gm)
+    # radius is constant: the exact-core rows are chosen once per call
+    big = exact_core_rows(state.radius, config.p3m_exact_targets)
+    softening = _scalar(config.pm_softening, state.pos.device)
+    for i in range(n):
+        if i % config.p3m_rebin_interval == 0:
+            # every stage of a substep shares the substep's bins
+            gravity = _gravity("p3m", state.radius, gm, config,
+                               bins=_p3m_bins(state.pos, state.radius,
+                                              mesh_gm, config, big),
+                               softening=softening)
+        state = _step(state, gravity, dt, config, extra_force)
+    return state
+
+
+def _host(x: torch.Tensor):
+    """A 0-dim tensor's value on the host: the adaptive loops' one sync a
+    batch (its flag) and at the end (its count)."""
+    return x.item()
+
+
+def update_state_adaptive(state: Particles, gm: torch.Tensor, t_span: float,
+                          *, eta: float = 0.1, dt_min: float = 1e-5,
+                          dt_max: float = 1.0,
+                          config: SimConfig = DEFAULT_SIM_CONFIG,
+                          backend: Backend, extra_force=None
+                          ) -> tuple[Particles, int]:
+    """Integrate ``t_span`` physical time units with a global dt chosen
+    every substep (nbody_tpu's ``update_state_adaptive``); returns (new
+    state, substeps taken).
+
+    One priming substep with dt = 0 stores the accelerations. Then, while
+    t < t_span: dt = min(clip(criterion, max(dt_min, 1e-9), dt_max),
+    t_span − t) (``diagnostics.next_adaptive_dt``), one substep, t += dt in
+    fp32. dt, t and the count are 0-dim tensors on the device: the loop
+    enqueues ``ADAPTIVE_BATCH`` substeps, then reads one flag (t < t_span)
+    on the host. A substep past the end takes dt = 0, keeps the old state and
+    leaves the count as it was. Every backend integrates in PyTorch with
+    the tensor dt; "cuda" takes its force from the direct kernel
+    (``force_acc``), and "p3m" builds fresh bins at every evaluation,
+    whatever ``p3m_rebin_interval`` says, as nbody_tpu does."""
+    device = state.pos.device
+    _check_backend(backend, device)
+    gravity = _gravity(backend, state.radius, gm, config)
+    knobs = {key: _scalar(v, device) for key, v in (
+        ("eta", eta), ("dt_min", dt_min), ("dt_max", dt_max),
+        ("t_span", t_span))}
+    state = _step(state, gravity, _scalar(0.0, device), config, extra_force)
+    t = _scalar(0.0, device)
+    k = torch.zeros((), dtype=torch.int32, device=device)
+    while True:
+        for _ in range(ADAPTIVE_BATCH):
+            live = t < knobs["t_span"]
+            dt = torch.where(live, diagnostics.next_adaptive_dt(
+                state.acc, state.radius, t=t, **knobs), 0.0)
+            new = _step(state, gravity, dt, config, extra_force)
+            state = Particles(
+                *(torch.where(live, a, b) for a, b in
+                  zip((new.pos, new.vel, new.acc),
+                      (state.pos, state.vel, state.acc))),
+                mass=state.mass, radius=state.radius)
+            t = t + dt
+            k = k + live.to(torch.int32)
+        if not _host(t < knobs["t_span"]):
+            return state, _host(k)
+
+
 class World:
     """Stateful wrapper mirroring the reference World ergonomics
     (nbody.h:61-73): create, update, read back."""
@@ -97,13 +304,6 @@ class World:
             acc=put(particles.acc), mass=put(particles.mass),
             radius=put(particles.radius))
         self.gm = (config.g * self.state.mass[:mass_len]).contiguous()
-        # The mesh solvers take max(mass_len, 1) sources (a world with no
-        # mass gets one inert gm = 0 source), as nbody_tpu's
-        # effective_src_len does.
-        self._mesh_gm = (self.gm if mass_len else
-                         torch.zeros(1, dtype=DTYPE, device=self.device))
-        self._softening = torch.tensor(config.pm_softening, dtype=DTYPE,
-                                       device=self.device)
         self.total_len = self.state.n
         self.mass_len = mass_len
         self.config = config
@@ -122,95 +322,37 @@ class World:
                              f"got {backend!r}")
         return backend
 
-    def update(self, dt: float, n: int = 1, backend: Backend | None = None) -> "World":
+    def update(self, dt: float, n: int = 1, backend: Backend | None = None,
+               extra_force=None) -> "World":
         """n substeps of size dt on ``backend`` (default: the world's
         ``default_backend``; "auto" resolves as :func:`resolve_backend`
-        says). "p3m" builds its cell bins at the first substep of the call
-        and again at every substep index that is a multiple of
-        ``p3m_rebin_interval``, as ``nbody_tpu`` does."""
+        says), see :func:`update_state`. ``extra_force(pos, vel) -> acc``
+        optionally adds a user acceleration field (external potential,
+        drag, thrust) on top of self-gravity; it must return (N, 2)."""
         backend = self._resolve(backend or self.default_backend)
-        if backend == "cuda" and self.device.type != "cuda":
-            raise ValueError(
-                f"backend 'cuda' needs a world on a CUDA device, this one is "
-                f"on {self.device}")
+        _check_backend(backend, self.device)
         if n <= 0:
             return self
-        dt = float(dt)
-        if backend == "p3m":
-            self._update_p3m(dt, n)
-        else:
-            step = {"cuda": self._step_cuda, "torch": self._step_torch,
-                    "pm": self._step_pm}[backend]
-            for _ in range(n):
-                step(dt)
+        self.state = update_state(self.state, self.gm, dt, n,
+                                  config=self.config, backend=backend,
+                                  extra_force=extra_force)
         self._host_cache = None
         return self
 
-    def _advance(self, force_at, dt: float) -> None:
-        st = self.state
-        pos, vel, acc = integrators.advance(
-            self.config.integrator, force_at, st.pos, st.vel, dt)
-        self.state = Particles(pos=pos, vel=vel, acc=acc, mass=st.mass,
-                               radius=st.radius)
-
-    def _step_pm(self, dt: float) -> None:
-        s = self._mesh_gm.shape[0]
-
-        def force_at(p):
-            return pm_acc(p, p[:s], self._mesh_gm, self._softening,
-                          grid=self.config.pm_grid)
-
-        self._advance(force_at, dt)
-
-    def _update_p3m(self, dt: float, n: int) -> None:
-        cfg = self.config
-        radius = self.state.radius
-        s = self._mesh_gm.shape[0]
-        # radius is constant: the exact-core rows are chosen once per call
-        big = exact_core_rows(radius, cfg.p3m_exact_targets)
-
-        def bins_of(pos):
-            with record_function("p3m.bins"):
-                return p3m_bins(pos, radius, pos[:s], self._mesh_gm,
-                                grid=cfg.pm_grid, rc_cells=cfg.p3m_rc_cells,
-                                exact_targets=cfg.p3m_exact_targets, big=big)
-
-        bins = bins_of(self.state.pos)
-        for i in range(n):
-            if i > 0 and i % cfg.p3m_rebin_interval == 0:
-                bins = bins_of(self.state.pos)
-
-            # every stage of a substep shares the substep's bins
-            def force_at(p, bins=bins):
-                return p3m_acc_from_bins(
-                    bins, p, radius, p[:s], self._mesh_gm, self._softening,
-                    grid=cfg.pm_grid, rc_cells=cfg.p3m_rc_cells,
-                    cell_capacity=cfg.p3m_cell_capacity, precise=cfg.precise)
-
-            self._advance(force_at, dt)
-
-    def _step_cuda(self, dt: float) -> None:
-        st = self.state
-        ws = integrators.stage_weights(self.config.integrator)
-        pos, vel, acc = st.pos, st.vel, st.acc
-        for w in (1.0,) if ws is None else ws:
-            dtk = integrators.stage_dt(w, dt)
-            pos_in = pos if ws is None else pos + (0.5 * dtk) * vel
-            pos, vel, acc = fused_substep(
-                dtk, pos_in, vel, st.radius, self.gm,
-                precise=self.config.precise,
-                pos_dt=1.0 if ws is None else 0.5)
-        self.state = Particles(pos=pos, vel=vel, acc=acc, mass=st.mass,
-                               radius=st.radius)
-
-    def _step_torch(self, dt: float) -> None:
-        radius = self.state.radius
-
-        def force_at(p):
-            return forces.direct_sum_acc(p, radius, p[:self.mass_len],
-                                         self.gm, precise=self.config.precise)
-
-        self._advance(force_at, dt)
+    def update_adaptive(self, t_span: float, *, eta: float = 0.1,
+                        dt_min: float = 1e-5, dt_max: float = 1.0,
+                        backend: Backend | None = None,
+                        extra_force=None) -> int:
+        """Integrate ``t_span`` physical time units with per-substep
+        adaptive dt (see :func:`update_state_adaptive`); returns the number
+        of substeps taken."""
+        backend = self._resolve(backend or self.default_backend)
+        self.state, k = update_state_adaptive(
+            self.state, self.gm, t_span, eta=eta, dt_min=dt_min,
+            dt_max=dt_max, config=self.config, backend=backend,
+            extra_force=extra_force)
+        self._host_cache = None
+        return k
 
     # Reference API names (nbody.h:69-73): "CPU" = the plain PyTorch
     # version, "GPU" = the CUDA kernel.

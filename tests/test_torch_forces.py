@@ -187,3 +187,49 @@ def test_library_name_follows_the_sources():
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert names == sorted(_build.SIGNATURES)
 
+
+
+# --- the CPU square root: correctly rounded, the same in every process ---
+
+@pytest.mark.parametrize("lo,hi", [(0.5, 2e6), (1e-30, 1e-20), (1e20, 3e38)])
+def test_cpu_sqrt_is_numpys_and_jnps_on_every_element(lo, hi):
+    """forces.sqrt on the CPU equals np.sqrt and jnp.sqrt on every element
+    of 1e6 fp32 inputs; PyTorch's CPU torch.sqrt is off by 1 ulp on about
+    0.6% of them (5697 of the first range)."""
+    x = np.random.default_rng(0).uniform(lo, hi, 1_000_000).astype(np.float32)
+    got = forces.sqrt(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.sqrt(x))
+    np.testing.assert_array_equal(got, np.asarray(jnp.sqrt(x)))
+
+
+def test_cpu_sqrt_keeps_shape_and_strides_of_views():
+    x = torch.arange(1.0, 25.0).reshape(4, 6)
+    for view in (x[:, ::2], x.t(), x[1, 2]):
+        got = forces.sqrt(view)
+        assert got.shape == view.shape and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.sqrt(view.numpy()))
+
+
+def test_precise_plain_versions_repeat_in_fresh_processes():
+    """direct_sum_acc(precise=True) at N=4096 (first), pp_cells and K5f's
+    sqrt chain, three calls each in three fresh processes at 8 threads:
+    one hash each. With torch.sqrt the first call of a process sometimes
+    computed one thread's share of the elements to ~12 bits."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = subprocess.run(
+        [sys.executable, "-m", "nbody_tpu_torch.utils.sqrt_repeat",
+         "--processes", "3", "--first", "direct"],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True,
+        text=True, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    summary = json.loads(out.stdout.splitlines()[-1])
+    assert summary["sqrt"] == "forces.sqrt"
+    assert len(summary["results"]) == 6
+    for key, res in summary["results"].items():
+        assert res == {"distinct": 1, "processes_moved": 0}, key
+    assert summary["block"]["processes_moved"] == 0
+    assert summary["block"]["max_rel_err"] < 6e-8   # half an ulp

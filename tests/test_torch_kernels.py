@@ -717,3 +717,107 @@ def test_sharded_world_matches_world(cuda, backend, per_stage, integrator, stage
         got, want = getattr(w.particles, name), getattr(ref.particles, name)
         assert torch.isfinite(got).all()
         assert rel_err(got, want) < TOL, name
+
+
+# --- force hooks and adaptive dt on the card ---
+
+def _drag(pos, vel):
+    return -0.1 * vel
+
+
+@pytest.mark.parametrize("integrator,stages", [("euler", 1), ("yoshida4", 3)])
+def test_hooked_world_cuda_matches_torch_backend(cuda, integrator, stages):
+    """A hook takes "cuda" off its fused launch: one force_acc a stage,
+    then the hook and the integration in PyTorch; against the plain
+    "torch" backend on the card."""
+    p = nt.make_galaxies(2000, 2, seed=11037)
+    cfg = nt.SimConfig(integrator=integrator)
+    w_k = nt.create_world(p, config=cfg, device=cuda)
+    w_p = nt.create_world(p, config=cfg, device=cuda)
+    df.LAUNCHES = 0
+    w_k.update(0.01, 5, extra_force=_drag)
+    assert df.LAUNCHES == 5 * stages
+    w_p.update(0.01, 5, backend="torch", extra_force=_drag)
+    assert df.LAUNCHES == 5 * stages
+    for name in ("pos", "vel", "acc"):
+        got, want = getattr(w_k.particles, name), getattr(w_p.particles, name)
+        assert rel_err(got, want) < TOL, name
+
+
+def _adaptive_launches(k: int, stages: int, batch: int) -> int:
+    """Force evaluations of update_adaptive: the priming substep, then
+    whole batches until the one that reaches t_span."""
+    return stages * (1 + batch * -(-k // batch))
+
+
+@pytest.mark.parametrize("integrator,stages", [("euler", 1), ("leapfrog", 1)])
+def test_adaptive_cuda_matches_torch_backend(cuda, monkeypatch, integrator,
+                                             stages):
+    """update_adaptive on "cuda" and on the plain "torch" backend from the
+    same state take the same substeps; the batch makes no host sync (the
+    sync debug mode raises on any but the loop's own flag and count
+    reads)."""
+    from nbody_tpu_torch import world as world_mod
+
+    def lifted(x):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return x.item()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    p = nt.make_galaxies(2000, 2, seed=11037)
+    cfg = nt.SimConfig(integrator=integrator)
+    w_k = nt.create_world(p, config=cfg, device=cuda)
+    w_p = nt.create_world(p, config=cfg, device=cuda)
+    monkeypatch.setattr(world_mod, "_host", lifted)
+    df.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k = w_k.update_adaptive(0.05, dt_max=0.01)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert df.LAUNCHES == _adaptive_launches(k, stages, world_mod.ADAPTIVE_BATCH)
+    assert w_p.update_adaptive(0.05, dt_max=0.01, backend="torch") == k
+    for name in ("pos", "vel", "acc"):
+        got, want = getattr(w_k.particles, name), getattr(w_p.particles, name)
+        assert torch.isfinite(got).all()
+        assert rel_err(got, want) < TOL, name
+
+
+@pytest.mark.parametrize("backend", ["cuda_ring", "cuda"])
+def test_hooked_and_adaptive_sharded_match_world(cuda, backend):
+    """Four shards on one card, hooked and adaptive, against the World:
+    the hop kernel without its epilogue (D² launches a substep) or the
+    direct kernel per hop; the same adaptive count."""
+    counter = rf if backend == "cuda_ring" else df
+    w = _sharded(cuda, 4, backend, n=2000)
+    ref = nt.create_world(nt.make_galaxies(2000, 2, seed=11037), device=cuda)
+    counter.LAUNCHES = 0
+    w.update(0.01, 5, extra_force=_drag)
+    assert counter.LAUNCHES == 5 * 16
+    ref.update(0.01, 5, extra_force=_drag)
+    for name in ("pos", "vel", "acc"):
+        got, want = getattr(w.particles, name), getattr(ref.particles, name)
+        assert rel_err(got, want) < TOL, name
+    assert w.update_adaptive(0.03, dt_max=0.01) == ref.update_adaptive(
+        0.03, dt_max=0.01)
+
+
+def test_diagnostics_on_the_card_match_the_cpu(cuda):
+    from nbody_tpu_torch import diagnostics
+
+    p = nt.make_galaxies(4000, 2, seed=11037)
+    w_k = nt.create_world(p, device=cuda)
+    w_c = nt.create_world(p, device="cpu")
+    w_k.update(0.01, 2, backend="torch")
+    w_c.update(0.01, 2, backend="torch")
+    got, want = diagnostics.summary(w_k), diagnostics.summary(w_c)
+    for key in ("kinetic_energy", "potential_energy", "angular_momentum",
+                "suggested_dt"):
+        assert got[key] == pytest.approx(want[key], rel=1e-5), key
+    u = float(diagnostics.potential_energy(w_k.state, w_k.mass_len))
+    u_pm = float(diagnostics.potential_energy_pm(w_k.state, w_k.mass_len,
+                                                 grid=256))
+    assert abs(u_pm - u) / abs(u) < 0.02

@@ -256,13 +256,10 @@ def test_pp_cells_plain_matches_nbody_tpu(precise, oracle):
 
 def test_pp_cells_overflow_rows_are_zero():
     """Cap 8 on the galaxy scene: the targets past their cell's cap get
-    exactly 0 (mesh only); the others match the blocks route, which the
-    plain version computes with the same expressions in the same order.
-    Bound 1e-6 of max|ref|, not bit equality: on the CPU, PyTorch's first
-    evaluation of the taper's ``sqrt(d² + 1e-12) · (1/rc)`` in a process
-    may round differently from later ones (seen in about one process in
-    six), and the large terms of a close pair carry that ulp into the
-    sum."""
+    exactly 0 (mesh only); the others match the blocks route bit for bit,
+    which the plain version computes with the same expressions in the same
+    order (the taper's ``sqrt(d² + 1e-12) · (1/rc)`` through the correctly
+    rounded ``forces.sqrt``, the same in every process and call)."""
     pos, rad, src, gm = (torch.from_numpy(a) for a in _scene(2048))
     bins = tp3m.p3m_bins(pos, rad, src, gm, grid=256, rc_cells=4,
                          exact_targets=0)
@@ -288,7 +285,7 @@ def test_pp_cells_overflow_rows_are_zero():
                             counts_s=bins["counts_s"])
     rows = _slots_to_rows(want, bins["start_t"], bins["counts_t"], 8, len(pos))
     assert torch.equal(rows[over], got[over])
-    assert rel_err(got, rows) < 1e-6
+    assert torch.equal(got, rows)
 
 
 @pytest.mark.parametrize("cap", [8, 32])

@@ -43,7 +43,7 @@ def _module_level(tree):
 def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("nbody_tpu_torch/world.py", "nbody_tpu_torch/ops/direct_forces.py",
-                 "chip_smoke.py"):
+                 "nbody_tpu_torch/diagnostics.py", "chip_smoke.py"):
         assert want in names
 
 

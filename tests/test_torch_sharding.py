@@ -164,7 +164,7 @@ def test_unknown_force_backend_raises(name):
         ShardedWorld(_particles(64, seed=32), _cpu_mesh(2), force_backend=name)
 
 
-# --- what is not ported yet, and the mesh ---
+# --- what is not ported yet, hooks, and the mesh ---
 
 @pytest.mark.parametrize("name", ["pm", "p3m", "auto"])
 def test_unported_force_backend_raises(name):
@@ -173,9 +173,12 @@ def test_unported_force_backend_raises(name):
 
 
 def test_extra_force_raises():
+    """A hook whose output is not (rows, 2) raises instead of
+    broadcasting; a well-shaped one runs (tests/test_torch_hooks.py)."""
     sw = ShardedWorld(_particles(64), _cpu_mesh(2))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        sw.update(0.01, 1, extra_force=lambda pos, vel: 0 * pos)
+    with pytest.raises(ValueError, match="extra_force must return"):
+        sw.update(0.01, 1, extra_force=lambda pos, vel: 0 * pos[:, :1])
+    sw.update(0.01, 1, extra_force=lambda pos, vel: 0 * pos)
 
 
 def test_make_mesh_without_cuda_raises():
