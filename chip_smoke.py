@@ -97,6 +97,20 @@ Phases, each of which raises on failure:
      kernel without its epilogue) and "cuda", hooked against the hooked
      World and adaptive with the World's count. The kernels line gets a
      row for each path's kernel.
+ 16. collision merging and the CLI: the contact kernel of the merge pass
+     (csrc/merge_contacts.cu) against its plain version, bit for bit
+     (is_loser, winner and the whole pass), on the N=65536 scene after 10
+     substeps of dt 0.01 and on a dense synthetic cluster with equal-mass
+     ties, a chain and dead rows; its time, bound and the plain pass's
+     time, and its time at the N=1M scene; a merging World at N=65536 on
+     "cuda" (10 substeps twice from one state: merges, mass conserved, gm
+     = g*mass, bit-equal, exactly 10 contact and 10 fused launches, no
+     host sync) timed against the World unmerged; the same gates for D=4
+     "cuda_ring" shards on one card; "p3m" merging at the N=1M slice; an
+     adaptive merging World on "cuda" and "torch"; then the CLI as a
+     user runs it (python -m nbody_tpu_torch run --merge --traj --save,
+     render, a resume that keeps merge_collisions, gif to .npz), with the
+     files and shapes checked.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -1842,6 +1856,338 @@ def phase_hooks(nt, sh, df, rf, pp, world_mod, diagnostics, scene_bench,
     return out
 
 
+# [16] collision merging and the CLI: the N=65536 scene merges in 10
+# substeps of MERGE_DT (102 contacts at the start); the contact kernel's
+# bound counts MERGE_FLOPS fp32 operations a pair
+MERGE_DT = 0.01
+MERGE_SUBSTEPS = 10
+MERGE_FLOPS = 12
+MERGE_SRC = "nbody_tpu_torch/csrc/merge_contacts.cu"
+MASS_BOUND = 1e-5
+GM_RTOL = 1e-6
+MERGE_ADAPTIVE_SUBSTEPS = 10
+
+
+def synthetic_cluster(device, n: int = 4096):
+    """A dense cluster with equal-mass ties, plus a chain of increasing
+    masses in a row (one merge a pass): (pos, vel, radius, mass, gm)."""
+    rng = np.random.default_rng(SEED)
+    k = n - 512
+    pos = np.concatenate([rng.uniform(-25, 25, (k, 2)),
+                          np.stack([np.arange(512) * 1.0 + 100.0,
+                                    np.zeros(512)], 1)])
+    mass = np.concatenate([np.round(rng.uniform(0.5, 2.0, k) * 4) / 4,
+                           np.arange(1, 513) * 1.0])
+    radius = np.concatenate([np.full(k, 0.4), np.full(512, 0.6)])
+    vel = rng.normal(0, 0.2, (n, 2))
+    t = [torch.from_numpy(np.asarray(a, np.float32)).to(device)
+         for a in (pos, vel, radius, mass)]
+    gm = 10.0 * t[3]
+    gm[::97] = 0.0                                    # some dead rows
+    return (*t, gm)
+
+
+def contact_inputs(pos, radius, mass, gm):
+    m = gm.shape[0]
+    return (pos[:m].contiguous(), radius[:m].contiguous(),
+            mass[:m].contiguous(), gm > 0, 1.0)
+
+
+def merge_bits(col, label, pos, vel, radius, mass, gm) -> int:
+    """The contact kernel against contacts_plain and merge_pass against
+    merge_pass_plain on identical inputs: bit-equal, or fail. Returns the
+    losers."""
+    args = contact_inputs(pos, radius, mass, gm)
+    got = col.contacts(*args)
+    want = col.contacts_plain(*args)
+    full = col.merge_pass(pos, vel, radius, mass, gm, factor=1.0, g=10.0)
+    plain = col.merge_pass_plain(pos, vel, radius, mass, gm, factor=1.0,
+                                 g=10.0)
+    torch.cuda.synchronize()
+    same = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and all(torch.equal(a, b) for a, b in zip(full, plain)))
+    losers = int(got[0].sum())
+    m = gm.shape[0]
+    merged = int((full[3][:m] == 0).sum() - (mass[:m] == 0).sum())
+    log(f"  {label}: M={m}, {losers} losers, {merged} merged; kernel vs "
+        f"plain (is_loser, winner, whole pass) "
+        f"{'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        raise SystemExit(f"chip_smoke: contact kernel differs from its plain "
+                         f"version, {label}")
+    return losers
+
+
+def check_merged(label, mass0, mass, gm, mass_len) -> int:
+    """Gates of a merging run: merges happened, mass conserved, gm = g·mass
+    below mass_len. Returns the merges."""
+    m0 = float(mass0.double().sum())
+    rel_mass = abs(float(mass.double().sum()) - m0) / m0
+    merged = int((mass[:mass_len] == 0).sum())
+    gm_err = float(((gm.cpu().double() - 10.0 * mass[:mass_len].double()).abs()
+                    / (10.0 * mass[:mass_len].double()).abs().clamp(min=1e-30))
+                   .max()) if mass_len else 0.0
+    log(f"  {label}: {merged} merged rows, total mass rel change "
+        f"{rel_mass:.3e} (bound {MASS_BOUND:.0e}), gm vs g*mass max rel "
+        f"{gm_err:.3e} (bound {GM_RTOL:.0e})")
+    if merged == 0 or not rel_mass < MASS_BOUND or not gm_err <= GM_RTOL:
+        raise SystemExit(f"chip_smoke: merging gates failed, {label}")
+    return merged
+
+
+def profile_merging(world) -> dict:
+    """A profiler window over MERGE_SUBSTEPS merging substeps, in device ms
+    a substep: the kernels of the contact search (contacts_kernel and
+    winner_kernel), the fused direct kernel, every other kernel and copy
+    (the scatter's PyTorch ops); the merge pass's own range (its
+    record_function, first kernel to last, the gaps between them
+    included); the card's busy time (the union of the kernels' and
+    copies' intervals) and its idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        world.update(MERGE_DT, MERGE_SUBSTEPS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    work, ranges = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if getattr(e, "is_user_annotation", False) or e.name == "merge_pass":
+            ranges.append(span)
+        else:
+            work.append((*span, e.name))
+    if not work:
+        raise SystemExit("chip_smoke: the profiler saw no device time")
+    by = {"contacts": 0.0, "direct": 0.0, "other": 0.0}
+    for a, b, name in work:
+        key = ("contacts" if "contacts_kernel" in name or "winner_kernel" in name
+               else "direct" if "direct_forces_kernel" in name else "other")
+        by[key] += (b - a) / 1e3 / MERGE_SUBSTEPS
+    busy = union_ms([(a, b) for a, b, _ in work])
+    return {**by, "merge_range_ms": sum(b - a for a, b in ranges) / 1e3
+            / MERGE_SUBSTEPS, "busy_ms": busy / MERGE_SUBSTEPS,
+            "wall_ms": wall / MERGE_SUBSTEPS, "idle": 1.0 - busy / wall}
+
+
+def run_cli(args: list) -> float:
+    """``python -m nbody_tpu_torch`` with ``args`` as a subprocess from the
+    repository root; its wall seconds, or fail."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nbody_tpu_torch", *args],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    tail = " | ".join(proc.stderr.strip().splitlines()[-3:])
+    log(f"  $ python -m nbody_tpu_torch {' '.join(args)}: rc {proc.returncode}, "
+        f"{secs:.1f} s wall; {tail}")
+    if proc.returncode != 0:
+        raise SystemExit(f"chip_smoke: the CLI failed: {proc.stderr[-2000:]}")
+    return secs
+
+
+def phase_merge(nt, sh, df, rf, pp, world_mod, diagnostics, scene_bench,
+                scene_big, device) -> dict:
+    """[16]: collision merging (the contact kernel, World, ShardedWorld,
+    p3m, adaptive) and the CLI."""
+    from nbody_tpu_torch.ops import collisions as col
+
+    log(f"[16] collision merging: the contact kernel, N={BENCH_N} World and "
+        f"D=4 shards, the N={BIG_N} p3m slice, adaptive; the CLI")
+    out = {}
+    # a. the kernel against its plain version
+    ref = nt.create_world(scene_bench, device=device)
+    ref.update(MERGE_DT, MERGE_SUBSTEPS)
+    st = ref.state
+    merge_bits(col, f"N={BENCH_N} after {MERGE_SUBSTEPS} substeps of "
+               f"{MERGE_DT}", st.pos, st.vel, st.radius, st.mass, ref.gm)
+    merge_bits(col, "synthetic cluster (ties, a chain, dead rows)",
+               *synthetic_cluster(device))
+    args = contact_inputs(st.pos, st.radius, st.mass, ref.gm)
+    m = ref.mass_len
+    col.contacts(*args)
+    ms = cuda_ms(lambda: col.contacts(*args), reps=20)
+    plain_ms = cuda_ms(lambda: col.contacts_plain(*args))
+    b_ms, b_by = bound(MERGE_FLOPS * m * m, 26 * m)
+    big = nt.create_world(scene_big, device=device)
+    big_args = contact_inputs(big.state.pos, big.state.radius,
+                              big.state.mass, big.gm)
+    col.contacts(*big_args)
+    big_ms = cuda_ms(lambda: col.contacts(*big_args))
+    big_bound = bound(MERGE_FLOPS * big.mass_len ** 2, 26 * big.mass_len)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"  contact kernel: N={BENCH_N} M={m} {ms:.4f} ms (bound {b_ms:.4f} "
+        f"ms by {b_by}, {b_ms / ms:.1%} of it), plain {plain_ms:.4f} ms; "
+        f"N={BIG_N} M={big.mass_len} {big_ms:.4f} ms (bound "
+        f"{big_bound[0]:.4f}); plans (n_split, tiles a range) "
+        f"{col.contact_plan(m, sms)} and {col.contact_plan(big.mass_len, sms)}")
+    del ref, big, big_args
+    out["kernel"] = {"m": m, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "big_ms": big_ms,
+                     "big_bound_ms": big_bound[0]}
+
+    # b. the merging World, twice from one state
+    cfg = nt.SimConfig(merge_collisions=True)
+    w1 = nt.create_world(scene_bench, config=cfg, device=device)
+    w2 = nt.create_world(scene_bench, config=cfg, device=device)
+    mass0 = w1.state.mass.clone()
+    col.LAUNCHES = 0
+    df.LAUNCHES = 0
+    with no_sync():
+        w1.update(MERGE_DT, MERGE_SUBSTEPS)
+    launches = (col.LAUNCHES, df.LAUNCHES)
+    expect_launches("merging World, contact kernel", launches[0], MERGE_SUBSTEPS)
+    expect_launches("merging World, fused substep", launches[1], MERGE_SUBSTEPS)
+    w2.update(MERGE_DT, MERGE_SUBSTEPS)
+    a, b = w1.particles, w2.particles
+    same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+               ("pos", "vel", "acc", "mass", "radius")) and torch.equal(w1.gm, w2.gm)
+    if not same or not all(torch.isfinite(x).all() for x in (a.pos, a.vel)):
+        raise SystemExit("chip_smoke: merging World not bit-equal run to run")
+    merged = check_merged(f"merging World N={BENCH_N}", mass0, a.mass, w1.gm,
+                          w1.mass_len)
+    log(f"  merging World: {launches[0]} contact and {launches[1]} fused "
+        f"launches in {MERGE_SUBSTEPS} substeps, no host sync; two runs "
+        f"bit-equal")
+    plain_w = nt.create_world(scene_bench, device=device)
+    plain_w.update(MERGE_DT, MERGE_SUBSTEPS)
+    runs = {"unmerged": [], "merging": []}
+    for kind in ("unmerged", "merging", "merging", "unmerged"):
+        w = w1 if kind == "merging" else plain_w
+        dev, host, _ = timed(lambda: w.update(MERGE_DT, MERGE_SUBSTEPS))
+        runs[kind].append((dev / MERGE_SUBSTEPS, host / MERGE_SUBSTEPS))
+    times = {k: (float(np.mean([d for d, _ in v])),
+                 float(np.mean([h for _, h in v]))) for k, v in runs.items()}
+    log(f"  ms/substep, device (host), in turns: merging "
+        f"{times['merging'][0]:.4f} ({times['merging'][1]:.4f}), unmerged "
+        f"{times['unmerged'][0]:.4f} ({times['unmerged'][1]:.4f}); runs "
+        f"{runs}")
+    prof = profile_merging(w1)
+    log(f"  merging profiler window, {MERGE_SUBSTEPS} substeps: device ms a "
+        f"substep, contact search {prof['contacts']:.4f}, fused direct "
+        f"kernel {prof['direct']:.4f}, every other kernel and copy (the "
+        f"scatter) {prof['other']:.4f}; the merge pass's range "
+        f"{prof['merge_range_ms']:.4f}; card busy {prof['busy_ms']:.4f} of "
+        f"{prof['wall_ms']:.4f} wall (idle {prof['idle']:.2%}, the "
+        f"profiler's host cost included)")
+    out["world"] = {"launches": launches[0], "merged": merged, "times": times,
+                    "profile": prof}
+    del w2, plain_w
+
+    # c. D=4 shards on one card, "cuda_ring"
+    def shards():
+        return sh.ShardedWorld(scene_bench, sh.make_mesh(devices=[device] * 4),
+                               config=cfg, force_backend="cuda_ring")
+    s1, s2 = shards(), shards()
+    col.LAUNCHES = 0
+    rf.LAUNCHES = 0
+    with no_sync():
+        s1.update(MERGE_DT, MERGE_SUBSTEPS)
+    expect_launches("merging D=4, contact kernel", col.LAUNCHES, MERGE_SUBSTEPS)
+    expect_launches("merging D=4, hop kernel", rf.LAUNCHES, 16 * MERGE_SUBSTEPS)
+    s2.update(MERGE_DT, MERGE_SUBSTEPS)
+    p1, p2 = s1.particles, s2.particles
+    if not (all(torch.equal(getattr(p1, f), getattr(p2, f)) for f in
+                ("pos", "vel", "acc", "mass", "radius"))
+            and torch.equal(s1.gm_src, s2.gm_src)):
+        raise SystemExit("chip_smoke: merging D=4 not bit-equal run to run")
+    finite_state(s1, "merging D=4")
+    check_merged("merging D=4 cuda_ring", mass0, p1.mass,
+                 s1.gm_src[:s1.mass_len], s1.mass_len)
+    w_ref = nt.create_world(scene_bench, config=cfg, device=device)
+    w_ref.update(MERGE_DT, MERGE_SUBSTEPS)
+    differ = int((p1.mass != w_ref.particles.mass).sum())
+    log(f"  merging D=4 cuda_ring: {MERGE_SUBSTEPS} contact and "
+        f"{16 * MERGE_SUBSTEPS} hop launches, no host sync, two runs "
+        f"bit-equal; {differ} mass rows differ from the World's (not gated)")
+    out["sharded"] = {"differ": differ}
+    del s1, s2, w_ref
+
+    # d. p3m merging at the N=1M slice config, rebin 1
+    pcfg = nt.SimConfig(merge_collisions=True, **P3M_SIZED)
+    pw = nt.create_world(scene_big, config=pcfg, device=device)
+    pmass0 = pw.state.mass.clone()
+    col.LAUNCHES = 0
+    pp.LAUNCHES = 0
+    with no_sync():
+        dev, host, _ = timed(lambda: pw.update(MERGE_DT, 2, backend="p3m"))
+    expect_launches("p3m merging, contact kernel", col.LAUNCHES, 2)
+    expect_launches("p3m merging, K4", pp.LAUNCHES, 2)
+    finite = all(torch.isfinite(x).all() for x in
+                 (pw.particles.pos, pw.particles.vel))
+    if not finite:
+        raise SystemExit("chip_smoke: non-finite p3m merging state")
+    p_merged = check_merged(f"p3m merging N={BIG_N} slice", pmass0,
+                            pw.particles.mass, pw.gm, pw.mass_len)
+    log(f"  p3m merging N={BIG_N}: {dev / 2:.4f} ms/substep device, "
+        f"{host / 2:.4f} host, {p_merged} merged rows in 2 substeps")
+    out["p3m"] = {"ms": dev / 2, "host_ms": host / 2, "merged": p_merged}
+    del pw
+
+    # e. adaptive with merging, "cuda" and "torch"
+    probe = nt.create_world(scene_bench, device=device)
+    probe.update(0.0, 1)
+    span = MERGE_ADAPTIVE_SUBSTEPS * float(diagnostics.suggest_dt(probe.state))
+    del probe
+    ak = nt.create_world(scene_bench, config=cfg, device=device)
+    with no_sync(world_mod):
+        a_dev, _, k = timed(lambda: ak.update_adaptive(span))
+    ap = nt.create_world(scene_bench, config=cfg, device=device)
+    k_p = ap.update_adaptive(span, backend="torch")
+    if not all(torch.isfinite(x).all() for x in (ak.particles.pos,
+                                                  ak.particles.vel)):
+        raise SystemExit("chip_smoke: non-finite adaptive merging state")
+    rel_mass = abs(float(ak.particles.mass.double().sum())
+                   - float(mass0.double().sum())) / float(mass0.double().sum())
+    if not rel_mass < MASS_BOUND:
+        raise SystemExit("chip_smoke: adaptive merging lost mass")
+    a_merged = int((ak.particles.mass[:ak.mass_len] == 0).sum())
+    log(f"  adaptive merging, span {span:.6g}: 'cuda' {k} substeps "
+        f"({a_dev / max(k, 1):.4f} ms a substep), 'torch' {k_p} substeps; "
+        f"{a_merged} merged rows, mass rel change {rel_mass:.3e} (bound "
+        f"{MASS_BOUND:.0e})")
+    out["adaptive"] = {"k": k, "k_torch": k_p}
+    del ak, ap
+
+    # f. the CLI, as a user runs it
+    tmp = ROOT / "build" / "chip_smoke_cli"
+    tmp.mkdir(parents=True, exist_ok=True)
+    f = {name: str(tmp / name) for name in
+         ("T.npz", "S.npz", "F.ppm", "S2.npz", "A.npz")}
+    secs = [
+        run_cli(["run", "--n", str(BENCH_N), "--galaxies", "2", "--seed",
+                 str(SEED), "--steps", "20", "--merge", "--traj", f["T.npz"],
+                 "--frames", "4", "--save", f["S.npz"]]),
+        run_cli(["render", "--state", f["S.npz"], "--out", f["F.ppm"]]),
+        run_cli(["run", "--state", f["S.npz"], "--steps", "5", "--save",
+                 f["S2.npz"]]),
+        run_cli(["gif", "--n", "4096", "--frames", "3", "--out", f["A.npz"]]),
+    ]
+    with np.load(f["T.npz"]) as d:
+        ok = d["traj"].shape == (4, BENCH_N, 2) and np.isfinite(d["traj"]).all()
+    with np.load(f["S.npz"]) as d:
+        ok &= d["pos"].shape == (BENCH_N, 2) and int(d["step"]) == 20
+        ok &= int((d["mass"] == 0).sum()) > int((scene_bench.mass == 0).sum())
+    ok &= Path(f["F.ppm"]).read_bytes().startswith(b"P6\n1280 720\n255\n")
+    with np.load(f["S2.npz"]) as d:
+        ok &= int(d["step"]) == 25
+        ok &= json.loads(str(d["sim_config"]))["merge_collisions"] is True
+    with np.load(f["A.npz"]) as d:
+        ok &= d["frames"].shape == (3, 360, 640, 3)
+    if not ok:
+        raise SystemExit("chip_smoke: the CLI's files are not as expected")
+    log(f"  CLI: run {secs[0]:.1f} s, render {secs[1]:.1f} s, resume "
+        f"{secs[2]:.1f} s, gif {secs[3]:.1f} s (wall, each a fresh process); "
+        f"files and shapes as expected, the resume kept merge_collisions")
+    out["cli"] = secs
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1974,7 +2320,10 @@ def main() -> int:
                          f"launched: {idle}")
     hooks = phase_hooks(nt, sh, df, rf, pp, world_mod, diagnostics,
                         scene_bench, scene_big, device)
+    merge = phase_merge(nt, sh, df, rf, pp, world_mod, diagnostics,
+                        scene_bench, scene_big, device)
 
+    mk = merge["kernel"]
     log(f"card: {smi}")
     log(f"rsqrt path vs fp64 at N={BENCH_N}: max|d|/max|a| {acc64['rsqrt'][0]:.3e}, "
         f"precise {acc64['precise'][0]:.3e}")
@@ -2001,6 +2350,13 @@ def main() -> int:
         f"{ad['times']['ms']:.4f} over {ad['times']['k']} substeps (fixed dt "
         f"{ad['times']['fixed_ms']:.4f}); N={BIG_N} p3m slice "
         f"{hooks['p3m_adaptive']['ms']:.4f} over {hooks['p3m_adaptive']['k']}")
+    log(f"merging ms/substep on the card, device: N={BENCH_N} 'cuda' "
+        f"{merge['world']['times']['merging'][0]:.4f} (unmerged "
+        f"{merge['world']['times']['unmerged'][0]:.4f}); contact kernel "
+        f"{mk['ms']:.4f} (plain {mk['plain_ms']:.4f}, bound "
+        f"{mk['bound_ms']:.4f}), N={BIG_N} {mk['big_ms']:.4f}; p3m slice "
+        f"merging {merge['p3m']['ms']:.4f}; CLI run/render/resume/gif "
+        + ", ".join(f"{x:.1f}" for x in merge["cli"]) + " s")
     log("ablation path, best ms of each sweep: " + ", ".join(
         f"{key} {ablation[key]['best']['ms']:.4f} ({ablation[key]['best']['name']})"
         for key in ABLATION_KERNELS) + f" (K1 force_acc {ablation['k1_ms']:.4f})")
@@ -2085,6 +2441,13 @@ def main() -> int:
                    "epilogue, hooked sharded substep D=4 on one card, one "
                    "pass of the ring", RING_SRC,
                    "nbody_tpu/ops/ring_forces.py:58"),
+        {"name": f"merge_contacts contact search, merging World N={BENCH_N} "
+                 f"after {MERGE_SUBSTEPS} substeps, M={mk['m']}",
+         "route": "cuda", "source": MERGE_SRC,
+         "replaces": "nbody_tpu/ops/collisions.py:75",
+         "launches": merge["world"]["launches"], "max_abs_err": 0.0,
+         "ms": mk["ms"], "plain_ms": mk["plain_ms"], "bound_ms": mk["bound_ms"],
+         "bound_by": mk["bound_by"], "library_ms": None},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,13 @@ generation (numpy), world creation (on the GPU unless the caller asks for
 the CPU), substeps of exact direct-sum gravity through a hand-written CUDA
 kernel ("cuda" backend) or plain PyTorch ("torch" backend), the
 particle-mesh ("pm") and P³M ("p3m") solvers, user force hooks, adaptive
-dt, and readback; in ``nbody_tpu_torch.diagnostics``, energy, momentum and
-the dt criterion; and, in ``nbody_tpu_torch.parallel``, the world sharded
-over a list of devices with the ring of source tiles. Imports neither JAX
-nor ``nbody_tpu``.
+dt, collision merging (``SimConfig.merge_collisions``), and readback; in
+``nbody_tpu_torch.diagnostics``, energy, momentum and the dt criterion; in
+``nbody_tpu_torch.parallel``, the world sharded over a list of devices with
+the ring of source tiles; trajectory capture (``trajectory``), headless
+rendering (``render``, ``viewer.export_animation``), npz checkpoints and
+debug checks (``utils``), and the command line, ``python -m
+nbody_tpu_torch run|render|gif``. Imports neither JAX nor ``nbody_tpu``.
 """
 
 from .types import (

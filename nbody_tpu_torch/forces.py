@@ -44,6 +44,27 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def add_at(dst: torch.Tensor, index: torch.Tensor, src: torch.Tensor) -> None:
+    """dst[index[k]] += src[k] in place, for every k in row order (rows of
+    a 2-D ``dst``): the serial scatter-add of XLA's CPU backend, with the
+    same bits. On the CPU, ``scatter_add_`` of each column runs serially
+    (``index_put_`` with accumulate there adds by float atomics across
+    threads once it has 32768 entries, in an order that varies from run to
+    run); on the card, ``index_put_(accumulate=True)`` sorts the indices
+    stably and sums each destination's entries in order (``index_add_``
+    and ``scatter_add_`` add by float atomics there)."""
+    if dst.device.type != "cpu":
+        dst.index_put_((index,), src, accumulate=True)
+        return
+    if dst.dim() == 1:
+        dst.scatter_add_(0, index, src)
+        return
+    for k in range(dst.shape[1]):
+        col = dst[:, k].contiguous()
+        col.scatter_add_(0, index, src[:, k].contiguous())
+        dst[:, k] = col
+
+
 def pair_acc(
     tgt_pos: torch.Tensor,
     tgt_radius: torch.Tensor,

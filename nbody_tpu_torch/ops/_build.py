@@ -112,6 +112,13 @@ SIGNATURES = {
             _vp,                       # (rc, eps2, 1/rc) fp32 on the device
             _i32, _vp, _vp],           # precise, out (n_t, 2), stream
     },
+    "merge_contacts": {
+        "nbody_merge_contacts": [
+            _vp, _vp, _vp, _vp,        # pos (m, 2), radius, mass, live (bytes)
+            _i32, _f32,                # m, factor
+            _i32, _i32,                # n_split, tiles_per_split
+            _vp, _vp, _vp],            # keys (n_split, m), winner (m,) int64, stream
+    },
 }
 
 

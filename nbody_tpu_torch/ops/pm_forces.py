@@ -12,11 +12,13 @@ The convolution is free-space (zero-padded to 2G per axis) through
 ``torch.fft.rfft2``/``irfft2``. The box adapts to the bounding square of the
 particles at every call. ``_box`` and ``_cic_weights`` keep the JAX
 package's fp32 operation order, so cell indices agree with it bit for bit.
-The CIC scatter accumulates with ``index_put_(..., accumulate=True)`` into
-the flattened grid. On the card that op sorts its indices and sums each
-cell's entries in their order, so two runs give the same bits
-(``index_add_`` sums by float atomics there, in an order that varies from
-run to run); on the CPU it runs serially in the same order.
+The CIC scatter accumulates into the flattened grid with
+``forces.add_at``: on the card ``index_put_(..., accumulate=True)``, which
+sorts its indices and sums each cell's entries in their order, so two runs
+give the same bits (``index_add_`` sums by float atomics there, in an order
+that varies from run to run); on the CPU ``scatter_add_``, serially in the
+same order (``index_put_`` there adds by float atomics across threads from
+32768 entries on).
 
 The sizes and shapes stay on the device: the box is a pair of 0-dim
 tensors, so nothing here waits for the host.
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ..forces import add_at
 from ..types import DTYPE
 
 
@@ -91,7 +94,7 @@ def _cic_scatter(src_pos, src_gm, lo, inv_h, grid):
     mass = torch.cat([src_gm * ((1 - wx) * (1 - wy)), src_gm * (wx * (1 - wy)),
                       src_gm * ((1 - wx) * wy), src_gm * (wx * wy)])
     rho = torch.zeros(grid * grid, dtype=DTYPE, device=src_pos.device)
-    rho.index_put_((cells,), mass, accumulate=True)
+    add_at(rho, cells, mass)
     return rho.reshape(grid, grid)
 
 

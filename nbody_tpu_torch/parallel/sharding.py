@@ -26,6 +26,14 @@ the shard's rows, its term is masked by ``valid`` and added to the ring's
 force, and the integration runs in PyTorch on each shard's stream. So does
 the adaptive loop, whose dt is a tensor on the device. On "cuda_ring" such
 a substep takes its force from the hop kernel without its epilogue.
+
+Under ``SimConfig.merge_collisions`` every substep is followed by one merge
+pass (``ops/collisions.merge_pass``): the ``src_len`` rows of the massive
+prefix are gathered from the shards, in global row order, onto the first
+shard's device, merged there once, and the changed rows and ``gm_src``
+copied back to their shards: the single-controller form of the pass that
+nbody_tpu runs on the global sharded arrays. The ring reads the shards' gm
+tensors, which the merge updates in place.
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ from typing import Literal
 import torch
 
 from .. import diagnostics, forces, integrators, world
+from ..ops.collisions import merge_pass
 from ..ops.ring_forces import Ring, ring_force, ring_substep
+from ..trajectory import stack_frames
 from ..types import DEFAULT_SIM_CONFIG, DTYPE, Particles, SimConfig, round_up
 from ..world import _scalar, partition_massive_first
 
@@ -121,9 +131,13 @@ def padded_state(particles: Particles, mass_len: int, n_pad: int, g: float):
     return state, gm, valid
 
 
-def _resolve_force_backend(force_backend, devices) -> str:
+def _resolve_force_backend(force_backend, devices, merging=False) -> str:
     if force_backend is None:
         return "cuda" if devices[0].type == "cuda" else "torch"
+    if merging and force_backend == "p3m":
+        raise ValueError(
+            "merge_collisions is not supported with force_backend='p3m' "
+            "(frozen cell blocks); use 'torch', 'cuda' or 'cuda_ring'")
     if force_backend in NOT_PORTED:
         raise NotImplementedError(
             f"force_backend {force_backend!r} on a sharded world is not yet "
@@ -157,7 +171,8 @@ class ShardedWorld:
         self.mesh = make_mesh(devices=mesh) if mesh is not None else make_mesh()
         d = self.n_devices = len(self.mesh)
         self.config = config
-        self.force_backend = _resolve_force_backend(force_backend, self.mesh)
+        self.force_backend = _resolve_force_backend(
+            force_backend, self.mesh, merging=config.merge_collisions)
         n = particles.pos.shape[0]
         mass_len = int(torch.count_nonzero(particles.mass > 0))
         s_loc, t_loc, src_len, n_pad = shard_layout(n, mass_len, config, d)
@@ -188,15 +203,22 @@ class ShardedWorld:
     def update(self, dt: float, n: int = 1, extra_force=None) -> "ShardedWorld":
         """n substeps of size dt. ``extra_force(pos, vel) -> acc`` composes
         a user acceleration field with self-gravity per shard: a pointwise
-        per-particle function, which sees one shard's rows. The loop never
-        syncs with the host: ``dt`` stays a Python float, and only
-        ``particles`` and ``block_until_ready`` wait."""
+        per-particle function, which sees one shard's rows. Under merging,
+        each substep is followed by a merge pass. The loop never syncs with
+        the host: ``dt`` stays a Python float, and only ``particles`` and
+        ``block_until_ready`` wait."""
         if n <= 0:
             return self
         dts = [float(dt)] * self.n_devices
-        with self.ring.fork():
+        if not self.config.merge_collisions:
+            with self.ring.fork():
+                for _ in range(n):
+                    self._substep(dts, extra_force)
+        else:
             for _ in range(n):
-                self._substep(dts, extra_force)
+                with self.ring.fork():
+                    self._substep(dts, extra_force)
+                self._merge()
         self._host_cache = None
         return self
 
@@ -208,14 +230,20 @@ class ShardedWorld:
         does for a World; returns the number of substeps taken. The
         criterion's min runs over every shard, in shard order, on the first
         shard's device, so every shard steps with the same dt. Padding rows
-        hold acc exactly 0 (masked by ``valid``), a timescale of +inf."""
+        hold acc exactly 0 (masked by ``valid``), a timescale of +inf. A
+        substep past the end keeps the old state (under merging its mass,
+        radius and gm too: no merge happens there); the priming dt = 0
+        substep merges, as nbody_tpu's does."""
         dev0 = self.mesh[0]
+        merging = self.config.merge_collisions
         knobs = {key: _scalar(v, dev0) for key, v in (
             ("dt_min", dt_min), ("dt_max", dt_max), ("t_span", t_span))}
         eta = _scalar(eta, dev0)
         with self.ring.fork():  # prime acc: dt = 0, nothing moves
             self._substep([_scalar(0.0, dev) for dev in self.mesh],
                           extra_force)
+        if merging:
+            self._merge()
         t = _scalar(0.0, dev0)
         k = torch.zeros((), dtype=torch.int32, device=dev0)
         while True:
@@ -226,23 +254,131 @@ class ShardedWorld:
                     for a, r in zip(self.acc, self.radius)]).amin()
                 dt = torch.where(live, diagnostics.clip_dt(
                     crit, t=t, **knobs), 0.0)
-                old = (self.pos, self.vel, self.acc)
+                old = (self.pos, self.vel, self.acc, self.radius, self.mass)
                 lives = [live.to(dev) for dev in self.mesh]
                 with self.ring.fork():
                     self._substep([dt.to(dev) for dev in self.mesh],
                                   extra_force)
                     # a substep past the end keeps the old state
-                    for j in range(self.n_devices):
+                    for j in range(0 if merging else self.n_devices):
                         with self.ring.on(j):
                             for new, prev in zip(
                                     (self.pos, self.vel, self.acc), old):
                                 new[j] = torch.where(lives[j], new[j], prev[j])
+                if merging:  # masks after the merge, the state's every field
+                    self._merge(lives, old)
                 t = t + dt
                 k = k + live.to(torch.int32)
             if not world._host(t < knobs["t_span"]):
                 break
         self._host_cache = None
         return world._host(k)
+
+    def _merged(self) -> tuple:
+        """Per-shard (pos, vel, radius, mass, gm_src) lists after one merge
+        pass over the massive prefix, run once on the first shard's device;
+        the world's own lists are not modified."""
+        dev0 = self.mesh[0]
+        # (shard k, rows): rows [k·t_loc, k·t_loc + rows) of the src_len
+        # prefix rows lie in shard k
+        pieces = [(k, min(self.t_loc, self.src_len - k * self.t_loc))
+                  for k in range(self.n_devices)
+                  if k * self.t_loc < self.src_len]
+
+        def gather(xs):
+            return torch.cat([xs[k][:rows].to(dev0) for k, rows in pieces])
+
+        out = merge_pass(gather(self.pos), gather(self.vel),
+                         gather(self.radius), gather(self.mass),
+                         torch.cat([g.to(dev0) for g in self._gm_src]),
+                         factor=self.config.merge_factor, g=self.config.g)
+        lists = []
+        for xs, merged in zip((self.pos, self.vel, self.radius, self.mass),
+                              out[:4]):
+            new, lo = list(xs), 0
+            for k, rows in pieces:
+                new[k] = torch.cat([merged[lo:lo + rows].to(self.mesh[k]),
+                                    xs[k][rows:]])
+                lo += rows
+            lists.append(new)
+        s = self.s_loc
+        gms = [out[4][k * s:(k + 1) * s].to(dev)
+               for k, dev in enumerate(self.mesh)]
+        return (*lists, gms)
+
+    def _merge(self, lives=None, old=None) -> None:
+        """Apply one merge pass; with ``lives`` (a 0-dim bool per shard) and
+        ``old`` (the pre-substep pos, vel, acc, radius, mass lists), a shard
+        whose flag is False keeps ``old`` and its gm. The shards' gm tensors
+        are updated in place, where the ring reads them."""
+        pos, vel, radius, mass, gms = self._merged()
+        acc = self.acc
+        if lives is not None:
+            def keep(new, prev):
+                return [torch.where(f, a, b) for f, a, b in zip(lives, new, prev)]
+            pos, vel, acc, radius, mass = (
+                keep(a, b) for a, b in zip((pos, vel, acc, radius, mass), old))
+            gms = keep(gms, self._gm_src)
+        self.pos, self.vel, self.acc = pos, vel, acc
+        self.radius, self.mass = radius, mass
+        for g, new in zip(self._gm_src, gms):
+            g.copy_(new)
+
+    def record(self, dt: float, frames: int, steps_per_frame: int = 1,
+               extra_force=None):
+        """Trajectory capture: ``frames`` × ``steps_per_frame`` substeps (as
+        :meth:`update`), the positions of the N real rows gathered onto the
+        first shard's device after each frame and stacked there, then
+        copied to the host once. Advances the world's state. Returns a host
+        numpy array (frames, total_len, 2)."""
+        return self._capture(dt, frames, steps_per_frame, extra_force,
+                             lambda st, gm: st.pos[:self.total_len])
+
+    def record_observables(self, dt: float, frames: int,
+                           steps_per_frame: int = 1, extra_force=None,
+                           energy: str | None = "exact", capture=None,
+                           **capture_kw) -> dict:
+        """Observable streaming, the sharded form of
+        :func:`nbody_tpu_torch.trajectory.record_observables`: after each
+        frame ``capture(state, gm)`` (default
+        ``diagnostics.observables_capture``) runs on the padded state
+        gathered onto the first shard's device (:attr:`state`; padding rows
+        have mass 0) and the whole ``gm_src`` row; the series are stacked on
+        the device and copied to the host once. Advances the world's state;
+        returns host numpy series keyed by observable, plus ``"time"``."""
+        diagnostics.check_observables_args(capture, energy, capture_kw)
+        if capture is None:
+            capture = diagnostics.observables_capture(
+                self.mass_len, energy=energy, **capture_kw)
+        series = self._capture(dt, frames, steps_per_frame, extra_force,
+                               capture, host=False)
+        return diagnostics.observables_series_out(series, frames,
+                                                  steps_per_frame, dt)
+
+    def _capture(self, dt, frames, steps_per_frame, extra_force, capture,
+                 host=True):
+        dev0 = self.mesh[0]
+        out = []
+        for _ in range(frames):
+            self.update(dt, steps_per_frame, extra_force=extra_force)
+            out.append(capture(self.state, torch.cat(
+                [g.to(dev0) for g in self._gm_src])))
+        stacked = stack_frames(out)
+        return stacked.cpu().numpy() if host else stacked
+
+    @property
+    def state(self) -> Particles:
+        """The padded state (``n_pad`` rows, shard order) gathered onto the
+        first shard's device: the same view as ``World.state``, for
+        diagnostics and checks."""
+        dev0 = self.mesh[0]
+
+        def cat(xs):
+            return torch.cat([x.to(dev0) for x in xs])
+
+        return Particles(pos=cat(self.pos), vel=cat(self.vel),
+                         acc=cat(self.acc), mass=cat(self.mass),
+                         radius=cat(self.radius))
 
     def _substep(self, dts: list, extra_force=None) -> None:
         """One substep of the integrator with each shard's dt in ``dts``

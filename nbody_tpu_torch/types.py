@@ -132,6 +132,11 @@ class SimConfig:
     sharded world (``parallel/sharding.shard_layout``): per-shard target
     and source counts round up to them once they exceed them. The port's
     kernels choose their own block sizes.
+
+    ``merge_collisions`` merges overlapping massive bodies
+    (|d| < ``merge_factor`` · (r_i + r_j)) lighter into heavier after
+    every substep, with exact mass and momentum transfer; the absorbed row
+    becomes a massless tracer (``ops/collisions.py``).
     """
 
     g: float = G
@@ -147,8 +152,13 @@ class SimConfig:
     p3m_pp_compact: int = 0
     tile_targets: int = 512
     tile_sources: int = 2048
+    merge_collisions: bool = False
+    merge_factor: float = 1.0
 
     def __post_init__(self):
+        if self.merge_factor <= 0:
+            raise ValueError(
+                f"merge_factor must be > 0, got {self.merge_factor}")
         if self.integrator not in INTEGRATORS:
             raise ValueError(
                 "integrator must be 'euler', 'leapfrog', or 'yoshida4', "

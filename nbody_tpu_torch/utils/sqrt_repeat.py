@@ -2,7 +2,7 @@
 processes: every call in every process must give the same bits.
 
     python -m nbody_tpu_torch.utils.sqrt_repeat [--processes 48]
-        [--threads 8] [--torch-sqrt] [--first direct|pp|op_probe]
+        [--threads 8] [--torch-sqrt] [--first direct|pp|op_probe|block|merge]
 
 Starts ``--processes`` fresh Python processes, one after another, each with
 ``--threads`` intra-op threads. Each calls three times, and hashes, the
@@ -14,6 +14,12 @@ plain versions whose results depend on a square root:
     of the N=2048 two-galaxy scene at grid 256, cap 8;
   * ``op_probe.op_probe`` of the ``sqrt`` expression, 3 loops, on
     ``tune_r2f``'s (256, 2048) inputs;
+  * ``collisions.merge_pass_plain`` (the merge pass: the contact search in
+    (c, M) chunks, the row-order scatter, the cube root ``r3 ** (1/3)``) on
+    a dense cluster of 6000 bodies with equal-mass ties, all five outputs;
+  * ``forces.add_at`` of 2**20 entries into 64 rows and the cube root of
+    2**20 elements (the merge pass's scatter and pow past PyTorch's
+    one-thread grain);
 
 and ``forces.sqrt`` of 8e6 fp32 elements; and counts the elements of a
 1e6-element fp32 array on which ``forces.sqrt`` differs from
@@ -44,7 +50,8 @@ CALLS = 3
 FIRST = {"direct": "direct_sum_acc precise N=4096",
          "pp": "pp_cells precise=False N=2048 cap 8",
          "op_probe": "op_probe sqrt 3 loops",
-         "block": "sqrt of 8e6 elements"}
+         "block": "sqrt of 8e6 elements",
+         "merge": "merge_pass_plain cluster M=6000"}
 BLOCK = "first 8e6-element sqrt against a later one"
 
 
@@ -62,7 +69,7 @@ def _jobs() -> dict:
     import nbody_tpu_torch as nt
     from nbody_tpu_torch import forces
     from nbody_tpu_torch.ablations import tune_r2f
-    from nbody_tpu_torch.ops import op_probe, p3m_forces, p3m_pp
+    from nbody_tpu_torch.ops import collisions, op_probe, p3m_forces, p3m_pp
 
     w = nt.create_world(nt.make_galaxies(4096, 2, seed=11037), device="cpu")
     st = w.state
@@ -77,6 +84,22 @@ def _jobs() -> dict:
     srows = p3m_forces._cell_rows(src, gm, bins["order_s"])
     x, y = tune_r2f.inputs("sqrt", "cpu")
     big = torch.from_numpy(_big_input())
+    rng = np.random.default_rng(2)
+    m = 6000
+    cl = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.uniform(-60, 60, (m, 2)), rng.normal(0, 0.2, (m, 2)),
+        np.full(m, 0.6), np.round(rng.uniform(0.5, 2.0, m) * 8) / 8)]
+    idx = torch.from_numpy(rng.integers(0, 64, 1 << 20))
+    val = torch.from_numpy(rng.uniform(0.5, 2e3, 1 << 20).astype(np.float32))
+
+    def merge():
+        return torch.cat([x.reshape(-1) for x in collisions.merge_pass_plain(
+            *cl, 10.0 * cl[3], factor=1.0, g=10.0)])
+
+    def scatter():
+        acc = torch.zeros(64)
+        forces.add_at(acc, idx, val)
+        return torch.cat([acc, val ** (1.0 / 3.0)])
 
     def pp(precise):
         return lambda: p3m_pp.pp_cells(
@@ -92,6 +115,8 @@ def _jobs() -> dict:
         "op_probe sqrt 3 loops": lambda: op_probe.op_probe(
             x, y, expr="sqrt", loops=3),
         "sqrt of 8e6 elements": lambda: forces.sqrt(big),
+        FIRST["merge"]: merge,
+        "add_at and cube root of 2**20 elements": scatter,
     }
 
 

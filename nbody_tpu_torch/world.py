@@ -28,6 +28,12 @@ paths.
     substep count stay on the device as 0-dim tensors; substeps are
     enqueued in batches of ``ADAPTIVE_BATCH``, and a substep past the end
     keeps the state as it was. The host reads one flag a batch.
+  * ``SimConfig.merge_collisions``: every substep is followed by a merge
+    pass (``ops/collisions.merge_pass``; on the card its contact search is
+    the kernel ``csrc/merge_contacts.cu``), and ``gm``, ``radius`` and
+    ``mass`` become carried state (:func:`merging_substep`): the force of
+    each substep reads the current ones, and "p3m" chooses its exact-core
+    rows again at every substep.
   * Jacobi substeps: every launch reads (pos, vel) and writes new buffers,
     and the World swaps them in, as the reference double-buffers its
     storage (sim_gpu.c:19). PyTorch's caching allocator hands the freed
@@ -42,6 +48,7 @@ import torch
 from torch.profiler import record_function
 
 from . import diagnostics, forces, integrators
+from .ops.collisions import merge_pass
 from .ops.direct_forces import force_acc, fused_substep
 from .ops.p3m_forces import exact_core_rows, p3m_acc_from_bins, p3m_bins
 from .ops.pm_forces import pm_acc
@@ -64,15 +71,18 @@ ADAPTIVE_BATCH = 8
 
 
 def resolve_backend(backend: Backend, total_len: int, mass_len: int, *,
-                    direct: Backend = "torch") -> Backend:
+                    direct: Backend = "torch", merging: bool = False,
+                    rebin_interval: int = 1) -> Backend:
     """Resolve ``"auto"`` by nbody_tpu's rule: ``direct`` (the device's
     direct-sum backend, where nbody_tpu answers "jnp") at or below
-    AUTO_P3M_MIN_PAIRS, "p3m" above. The port has no collision merging, so
-    the rule's merging branch ("pm") never applies. Every other backend
-    passes through unchanged."""
+    AUTO_P3M_MIN_PAIRS, "p3m" above; under ``merging`` with
+    ``rebin_interval > 1`` (frozen cell sorts cannot carry mid-loop mass
+    changes) "pm" above. Every other backend passes through unchanged."""
     if backend != "auto":
         return backend
-    return direct if total_len * mass_len <= AUTO_P3M_MIN_PAIRS else "p3m"
+    if total_len * mass_len <= AUTO_P3M_MIN_PAIRS:
+        return direct
+    return "pm" if (merging and rebin_interval > 1) else "p3m"
 
 
 def partition_massive_first(mass) -> tuple[torch.Tensor, int]:
@@ -204,7 +214,8 @@ def update_state(state: Particles, gm: torch.Tensor, dt: float, n: int, *,
                  extra_force=None) -> Particles:
     """``n`` substeps of size ``dt`` from ``state`` (massive rows first,
     their ``gm`` = g·mass) on ``backend`` (a concrete one); returns the new
-    state. The functional form of :meth:`World.update`: "p3m" builds its
+    state. The functional form of :meth:`World.update` without merging
+    (:func:`update_state_merging` is the form with it): "p3m" builds its
     cell bins at the first substep and again at every substep index that
     is a multiple of ``p3m_rebin_interval``, as nbody_tpu does."""
     _check_backend(backend, state.pos.device)
@@ -218,19 +229,90 @@ def update_state(state: Particles, gm: torch.Tensor, dt: float, n: int, *,
         for _ in range(n):
             state = _step(state, gravity, dt, config, extra_force)
         return state
-    mesh_gm = _mesh_sources(gm)
-    # radius is constant: the exact-core rows are chosen once per call
-    big = exact_core_rows(state.radius, config.p3m_exact_targets)
-    softening = _scalar(config.pm_softening, state.pos.device)
-    for i in range(n):
-        if i % config.p3m_rebin_interval == 0:
-            # every stage of a substep shares the substep's bins
-            gravity = _gravity("p3m", state.radius, gm, config,
-                               bins=_p3m_bins(state.pos, state.radius,
-                                              mesh_gm, config, big),
-                               softening=softening)
-        state = _step(state, gravity, dt, config, extra_force)
+    state, _ = p3m_substeps(state, gm, dt, 0, n, None, config=config,
+                            extra_force=extra_force)
     return state
+
+
+def p3m_substeps(state: Particles, gm, dt, start: int, n: int, bins, *,
+                 config: SimConfig, extra_force=None, big=None,
+                 softening=None):
+    """``n`` "p3m" substeps at global substep indices start, ..., start +
+    n − 1, with the frozen-bins rule: the bins are built afresh where
+    ``bins`` is None and at every global index that is a multiple of
+    ``p3m_rebin_interval``, and every stage of a substep shares its
+    substep's bins. Returns (state, bins), so that a capture loop carries
+    the bins and the global index across frames (nbody_tpu's
+    ``p3m_substep_loop``). ``big``: the exact-core rows, which depend only
+    on the constant radius (chosen here unless given)."""
+    mesh_gm = _mesh_sources(gm)
+    if big is None:
+        big = exact_core_rows(state.radius, config.p3m_exact_targets)
+    if softening is None:
+        softening = _scalar(config.pm_softening, state.pos.device)
+    for i in range(start, start + n):
+        if bins is None or i % config.p3m_rebin_interval == 0:
+            bins = _p3m_bins(state.pos, state.radius, mesh_gm, config, big)
+        gravity = _gravity("p3m", state.radius, gm, config, bins=bins,
+                           softening=softening)
+        state = _step(state, gravity, dt, config, extra_force)
+    return state, bins
+
+
+def check_merging(backend: str, config: SimConfig) -> None:
+    """nbody_tpu's refusal: merging on "p3m" needs bins rebuilt at every
+    substep (frozen cell sorts cannot carry mid-loop mass changes)."""
+    if backend == "p3m" and config.p3m_rebin_interval > 1:
+        raise ValueError(
+            "merge_collisions with backend='p3m' requires "
+            "p3m_rebin_interval == 1 (frozen cell blocks cannot carry "
+            f"mid-loop mass changes); got {config.p3m_rebin_interval} — "
+            "use rebin interval 1, or the 'pm' backend")
+
+
+def merging_substep(state: Particles, gm: torch.Tensor, dt, *,
+                    config: SimConfig, backend: str, extra_force=None,
+                    softening=None) -> tuple[Particles, torch.Tensor]:
+    """One substep, then one merge pass (``ops/collisions.merge_pass``):
+    the body that :func:`update_state_merging`,
+    :func:`update_state_adaptive` and trajectory capture share
+    (nbody_tpu's ``merging_substep_fn``), so that those paths cannot
+    drift apart. Returns (state, gm). "cuda" without a hook and with a
+    float ``dt`` is one fused launch per DKD stage; every other backend,
+    hooked run or tensor ``dt`` takes the stage loop with the force of the
+    current radius and gm ("p3m": fresh bins at every evaluation and the
+    exact-core rows chosen again, as nbody_tpu's ``p3m_acc``)."""
+    if backend == "cuda" and extra_force is None and isinstance(dt, float):
+        st = _fused_step(state, gm, dt, config)
+    else:
+        st = _step(state, _gravity(backend, state.radius, gm, config,
+                                   softening=softening),
+                   dt, config, extra_force)
+    with record_function("merge_pass"):
+        pos, vel, radius, mass, gm = merge_pass(
+            st.pos, st.vel, st.radius, st.mass, gm,
+            factor=config.merge_factor, g=config.g)
+    return Particles(pos=pos, vel=vel, acc=st.acc, mass=mass,
+                     radius=radius), gm
+
+
+def update_state_merging(state: Particles, gm: torch.Tensor, dt: float,
+                         n: int, *, config: SimConfig = DEFAULT_SIM_CONFIG,
+                         backend: Backend, extra_force=None
+                         ) -> tuple[Particles, torch.Tensor]:
+    """:func:`update_state` under ``SimConfig.merge_collisions``: each
+    substep is followed by a merge pass (:func:`merging_substep`), and
+    ``gm`` is carried state. Returns (state, gm). "p3m" needs
+    ``p3m_rebin_interval == 1`` and raises otherwise."""
+    _check_backend(backend, state.pos.device)
+    check_merging(backend, config)
+    dt = float(dt)
+    softening = _scalar(config.pm_softening, state.pos.device)
+    for _ in range(n):
+        state, gm = merging_substep(state, gm, dt, config=config,
+                                    backend=backend, extra_force=extra_force,
+                                    softening=softening)
+    return state, gm
 
 
 def _host(x: torch.Tensor):
@@ -244,28 +326,44 @@ def update_state_adaptive(state: Particles, gm: torch.Tensor, t_span: float,
                           dt_max: float = 1.0,
                           config: SimConfig = DEFAULT_SIM_CONFIG,
                           backend: Backend, extra_force=None
-                          ) -> tuple[Particles, int]:
+                          ) -> tuple[Particles, torch.Tensor, int]:
     """Integrate ``t_span`` physical time units with a global dt chosen
     every substep (nbody_tpu's ``update_state_adaptive``); returns (new
-    state, substeps taken).
+    state, gm, substeps taken). ``gm`` changes only under
+    ``merge_collisions``.
 
-    One priming substep with dt = 0 stores the accelerations. Then, while
-    t < t_span: dt = min(clip(criterion, max(dt_min, 1e-9), dt_max),
-    t_span − t) (``diagnostics.next_adaptive_dt``), one substep, t += dt in
-    fp32. dt, t and the count are 0-dim tensors on the device: the loop
-    enqueues ``ADAPTIVE_BATCH`` substeps, then reads one flag (t < t_span)
-    on the host. A substep past the end takes dt = 0, keeps the old state and
-    leaves the count as it was. Every backend integrates in PyTorch with
-    the tensor dt; "cuda" takes its force from the direct kernel
-    (``force_acc``), and "p3m" builds fresh bins at every evaluation,
-    whatever ``p3m_rebin_interval`` says, as nbody_tpu does."""
+    One priming substep with dt = 0 stores the accelerations (under
+    merging it also merges, as nbody_tpu's does). Then, while t < t_span:
+    dt = min(clip(criterion, max(dt_min, 1e-9), dt_max), t_span − t)
+    (``diagnostics.next_adaptive_dt``), one substep, t += dt in fp32. dt,
+    t and the count are 0-dim tensors on the device: the loop enqueues
+    ``ADAPTIVE_BATCH`` substeps, then reads one flag (t < t_span) on the
+    host. A substep past the end takes dt = 0, keeps the old state (mass,
+    radius and gm too, so no merge happens there) and leaves the count as
+    it was. Every backend integrates in PyTorch with the tensor dt; "cuda"
+    takes its force from the direct kernel (``force_acc``), and "p3m"
+    builds fresh bins at every evaluation, whatever ``p3m_rebin_interval``
+    says, as nbody_tpu does."""
     device = state.pos.device
     _check_backend(backend, device)
-    gravity = _gravity(backend, state.radius, gm, config)
+    merging = config.merge_collisions
+    if merging:
+        check_merging(backend, config)
+        softening = _scalar(config.pm_softening, device)
+
+        def sub(st, gm, dt):
+            return merging_substep(st, gm, dt, config=config,
+                                   backend=backend, extra_force=extra_force,
+                                   softening=softening)
+    else:
+        gravity = _gravity(backend, state.radius, gm, config)
+
+        def sub(st, gm, dt):
+            return _step(st, gravity, dt, config, extra_force), gm
     knobs = {key: _scalar(v, device) for key, v in (
         ("eta", eta), ("dt_min", dt_min), ("dt_max", dt_max),
         ("t_span", t_span))}
-    state = _step(state, gravity, _scalar(0.0, device), config, extra_force)
+    state, gm = sub(state, gm, _scalar(0.0, device))
     t = _scalar(0.0, device)
     k = torch.zeros((), dtype=torch.int32, device=device)
     while True:
@@ -273,21 +371,31 @@ def update_state_adaptive(state: Particles, gm: torch.Tensor, t_span: float,
             live = t < knobs["t_span"]
             dt = torch.where(live, diagnostics.next_adaptive_dt(
                 state.acc, state.radius, t=t, **knobs), 0.0)
-            new = _step(state, gravity, dt, config, extra_force)
+            new, new_gm = sub(state, gm, dt)
+
+            def keep(a, b):
+                return torch.where(live, a, b)
             state = Particles(
-                *(torch.where(live, a, b) for a, b in
-                  zip((new.pos, new.vel, new.acc),
-                      (state.pos, state.vel, state.acc))),
-                mass=state.mass, radius=state.radius)
+                pos=keep(new.pos, state.pos), vel=keep(new.vel, state.vel),
+                acc=keep(new.acc, state.acc),
+                mass=keep(new.mass, state.mass) if merging else state.mass,
+                radius=(keep(new.radius, state.radius) if merging
+                        else state.radius))
+            if merging:
+                gm = keep(new_gm, gm)
             t = t + dt
             k = k + live.to(torch.int32)
         if not _host(t < knobs["t_span"]):
-            return state, _host(k)
+            return state, gm, _host(k)
 
 
 class World:
     """Stateful wrapper mirroring the reference World ergonomics
-    (nbody.h:61-73): create, update, read back."""
+    (nbody.h:61-73): create, update, read back. Under
+    ``config.merge_collisions`` every update carries ``gm`` (and the
+    state's mass and radius) through the merges: absorbed rows keep their
+    place with mass 0, so ``mass_len`` is an upper bound on the rows that
+    exert force, as in nbody_tpu."""
 
     def __init__(self, particles: Particles, *, config: SimConfig = DEFAULT_SIM_CONFIG,
                  default_backend: Backend | None = None,
@@ -315,8 +423,10 @@ class World:
 
     # -- update ---------------------------------------------------------
     def _resolve(self, backend: Backend | None) -> Backend:
-        backend = resolve_backend(backend or self._direct, self.total_len,
-                                  self.mass_len, direct=self._direct)
+        backend = resolve_backend(
+            backend or self._direct, self.total_len, self.mass_len,
+            direct=self._direct, merging=self.config.merge_collisions,
+            rebin_interval=self.config.p3m_rebin_interval)
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS} or 'auto', "
                              f"got {backend!r}")
@@ -328,14 +438,20 @@ class World:
         ``default_backend``; "auto" resolves as :func:`resolve_backend`
         says), see :func:`update_state`. ``extra_force(pos, vel) -> acc``
         optionally adds a user acceleration field (external potential,
-        drag, thrust) on top of self-gravity; it must return (N, 2)."""
+        drag, thrust) on top of self-gravity; it must return (N, 2). Under
+        merging, see :func:`update_state_merging`."""
         backend = self._resolve(backend or self.default_backend)
         _check_backend(backend, self.device)
         if n <= 0:
             return self
-        self.state = update_state(self.state, self.gm, dt, n,
-                                  config=self.config, backend=backend,
-                                  extra_force=extra_force)
+        if self.config.merge_collisions:
+            self.state, self.gm = update_state_merging(
+                self.state, self.gm, dt, n, config=self.config,
+                backend=backend, extra_force=extra_force)
+        else:
+            self.state = update_state(self.state, self.gm, dt, n,
+                                      config=self.config, backend=backend,
+                                      extra_force=extra_force)
         self._host_cache = None
         return self
 
@@ -347,7 +463,7 @@ class World:
         adaptive dt (see :func:`update_state_adaptive`); returns the number
         of substeps taken."""
         backend = self._resolve(backend or self.default_backend)
-        self.state, k = update_state_adaptive(
+        self.state, self.gm, k = update_state_adaptive(
             self.state, self.gm, t_span, eta=eta, dt_min=dt_min,
             dt_max=dt_max, config=self.config, backend=backend,
             extra_force=extra_force)

@@ -340,7 +340,7 @@ def test_batch_size_changes_nothing(batch, monkeypatch):
     k_ref = ref.update_adaptive(0.03, dt_max=0.01)
     w = nt.create_world(scene, device="cpu")
     monkeypatch.setattr(nt.world, "ADAPTIVE_BATCH", batch)
-    st, k = nt.world.update_state_adaptive(
+    st, _, k = nt.world.update_state_adaptive(
         w.state, w.gm, 0.03, dt_max=0.01, config=w.config, backend="torch")
     assert k == k_ref
     for name in ("pos", "vel", "acc"):

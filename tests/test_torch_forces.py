@@ -211,10 +211,11 @@ def test_cpu_sqrt_keeps_shape_and_strides_of_views():
 
 
 def test_precise_plain_versions_repeat_in_fresh_processes():
-    """direct_sum_acc(precise=True) at N=4096 (first), pp_cells and K5f's
-    sqrt chain, three calls each in three fresh processes at 8 threads:
-    one hash each. With torch.sqrt the first call of a process sometimes
-    computed one thread's share of the elements to ~12 bits."""
+    """direct_sum_acc(precise=True) at N=4096 (first), pp_cells, K5f's
+    sqrt chain, the merge pass and its scatter, three calls each in three
+    fresh processes at 8 threads: one hash each. With torch.sqrt the first
+    call of a process sometimes computed one thread's share of the
+    elements to ~12 bits."""
     import json
     import subprocess
     import sys
@@ -228,7 +229,7 @@ def test_precise_plain_versions_repeat_in_fresh_processes():
     assert out.returncode == 0, out.stdout + out.stderr
     summary = json.loads(out.stdout.splitlines()[-1])
     assert summary["sqrt"] == "forces.sqrt"
-    assert len(summary["results"]) == 6
+    assert len(summary["results"]) == 8
     for key, res in summary["results"].items():
         assert res == {"distinct": 1, "processes_moved": 0}, key
     assert summary["block"]["processes_moved"] == 0

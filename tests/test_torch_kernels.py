@@ -22,6 +22,7 @@ from torch_helpers import cuda, random_arrays, rel_err  # noqa: F401 (fixture)
 
 import nbody_tpu_torch as nt
 from nbody_tpu_torch.ops import bcast_probe as bp
+from nbody_tpu_torch.ops import collisions as col
 from nbody_tpu_torch.ops import direct_forces as df
 from nbody_tpu_torch.ops import flavor_forces as ff
 from nbody_tpu_torch.ops import op_probe as op
@@ -821,3 +822,100 @@ def test_diagnostics_on_the_card_match_the_cpu(cuda):
     u_pm = float(diagnostics.potential_energy_pm(w_k.state, w_k.mass_len,
                                                  grid=256))
     assert abs(u_pm - u) / abs(u) < 0.02
+
+
+# --- the contact kernel of the merge pass (csrc/merge_contacts.cu) ----------
+
+def _contact_scene(kind, device):
+    """(pos, radius, mass, live) of the merge pass's edge cases: ties of
+    equal masses, a chain, pairs exactly on the boundary, dead rows, and a
+    row count that is no multiple of the kernel's 256-row tile."""
+    rng = np.random.default_rng(5)
+    if kind == "chain":
+        n = 700
+        pos = np.stack([np.arange(n) * 1.0, np.zeros(n)], 1)
+        mass = np.arange(1, n + 1) % 37 + 1.0          # ties along the line
+        radius = np.full(n, 0.6)
+    elif kind == "boundary":
+        n = 513
+        pos = np.stack([np.arange(n) * 1.0, np.zeros(n)], 1)  # d = r_i + r_j
+        mass = np.full(n, 2.0)
+        radius = np.full(n, 0.5)
+        pos[7] = (7.0, 0.75)                                  # and two overlaps
+        pos[300] = (300.25, 0.0)
+    else:
+        n = {"cluster": 1100, "ties": 4097}[kind]
+        pos = rng.uniform(-14, 14, (n, 2)) * (n / 1100) ** 0.5
+        mass = rng.uniform(0.5, 2.0, n)
+        if kind == "ties":
+            mass = np.round(mass * 4) / 4                    # many equal masses
+        radius = np.full(n, 0.4)
+    live = rng.uniform(size=n) > 0.05
+    t = [torch.from_numpy(np.asarray(a, np.float32)).to(device)
+         for a in (pos, radius, mass)]
+    return (*t, torch.from_numpy(live).to(device))
+
+
+@pytest.mark.parametrize("kind", ["cluster", "ties", "chain", "boundary"])
+@pytest.mark.parametrize("factor", [1.0, 1.5])
+def test_contacts_kernel_is_bit_equal_to_plain(cuda, kind, factor):
+    pos, radius, mass, live = _contact_scene(kind, cuda)
+    col.LAUNCHES = 0
+    got = col.contacts(pos, radius, mass, live, factor)
+    want = col.contacts_plain(pos, radius, mass, live, factor)
+    torch.cuda.synchronize()
+    assert col.LAUNCHES == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0].sum()) > 0
+
+
+@pytest.mark.parametrize("plan", [(1, 5), (2, 3), (5, 1)])
+def test_contacts_kernel_any_split_is_the_same(cuda, plan):
+    pos, radius, mass, live = _contact_scene("cluster", cuda)  # 5 tiles
+    want = col.contacts(pos, radius, mass, live, 1.0, plan=(1, 5))
+    got = col.contacts(pos, radius, mass, live, 1.0, plan=plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_contacts_kernel_refuses_a_bad_plan(cuda):
+    pos, radius, mass, live = _contact_scene("cluster", cuda)
+    with pytest.raises(ValueError, match="plan"):
+        col.contacts(pos, radius, mass, live, 1.0, plan=(3, 1))
+
+
+def test_merge_pass_on_the_card_is_bit_equal_to_plain_and_repeats(cuda):
+    pos, radius, mass, live = _contact_scene("ties", cuda)
+    vel = torch.randn(pos.shape, generator=torch.Generator().manual_seed(0)).to(cuda)
+    gm = torch.where(live, 10.0 * mass, 0.0)
+    a = col.merge_pass(pos, vel, radius, mass, gm, factor=1.0, g=10.0)
+    b = col.merge_pass(pos, vel, radius, mass, gm, factor=1.0, g=10.0)
+    c = col.merge_pass_plain(pos, vel, radius, mass, gm, factor=1.0, g=10.0)
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_merging_world_on_the_card_matches_torch_and_makes_no_sync(cuda):
+    rng = np.random.default_rng(2)
+    n = 2000
+    p = nt.make_particles(rng.uniform(-20, 20, (n, 2)).astype(np.float32),
+                          vel=rng.normal(0, 0.2, (n, 2)).astype(np.float32),
+                          mass=rng.uniform(0.5, 2.0, n).astype(np.float32),
+                          radius=np.full(n, 0.4, np.float32))
+    cfg = nt.SimConfig(merge_collisions=True)
+    w = nt.create_world(p, config=cfg, device=cuda)
+    ref = nt.create_world(p, config=cfg, device=cuda)
+    col.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w.update(1e-3, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref.update(1e-3, 10, backend="torch")
+    assert col.LAUNCHES == 20   # the "torch" backend's pass launches too
+    a, b = w.particles, ref.particles
+    assert torch.equal(a.mass, b.mass) and int((a.mass == 0).sum()) > 0
+    assert rel_err(a.pos, b.pos) < 1e-5
+    np.testing.assert_allclose(w.gm.cpu().numpy(),
+                               10.0 * a.mass[:w.mass_len].numpy(), rtol=1e-6)

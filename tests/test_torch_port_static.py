@@ -43,7 +43,13 @@ def _module_level(tree):
 def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for want in ("nbody_tpu_torch/world.py", "nbody_tpu_torch/ops/direct_forces.py",
-                 "nbody_tpu_torch/diagnostics.py", "chip_smoke.py"):
+                 "nbody_tpu_torch/diagnostics.py", "chip_smoke.py",
+                 "nbody_tpu_torch/ops/collisions.py",
+                 "nbody_tpu_torch/trajectory.py", "nbody_tpu_torch/render.py",
+                 "nbody_tpu_torch/viewer.py", "nbody_tpu_torch/app.py",
+                 "nbody_tpu_torch/__main__.py",
+                 "nbody_tpu_torch/utils/checkpoint.py",
+                 "nbody_tpu_torch/utils/checks.py"):
         assert want in names
 
 
