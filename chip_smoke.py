@@ -111,6 +111,29 @@ Phases, each of which raises on failure:
      user runs it (python -m nbody_tpu_torch run --merge --traj --save,
      render, a resume that keeps merge_collisions, gif to .npz), with the
      files and shapes checked.
+ 17. differentiable rollouts (nbody_tpu_torch.autodiff): the VJP kernels
+     against their plain versions, each cotangent within 2e-5 of max|ref|
+     and twice bit-equal, rsqrt and precise: K1's (csrc/direct_vjp.cu) at
+     N=1000 (S=333, S=0, zero-radius tracers on gm = 0 sources), the
+     N=65536 scene and the N=1M exact-core shape (64 x 524704); K4's
+     (csrc/p3m_pp_vjp.cu) on random 8x8 cells, the N=65536 default cells
+     and the N=1M slice's cells (on the 8x8 cells around the fullest);
+     each kernel's time and bound. Then the "cuda" rollout at N=65536,
+     precise, 10 steps, remat: the value and gradient of trajectory_loss
+     with respect to pos0, vel0, mass, radius and dt (equal to
+     World.update with a zero hook, bit-equal twice, exactly 20 force_acc
+     and 20 VJP kernel launches, no host sync; ms a step and peak memory);
+     "cuda" against "torch" gradients at N=8192 (euler, leapfrog,
+     yoshida4; 1e-4; pos0 and vel0 over one leapfrog step also without
+     the tracer's row); the
+     "p3m" rollout at the N=1M slice and at N=65536 with the default
+     config, 2 steps (against World.update, the gradient bit-equal twice,
+     exact K4, K4-VJP, force_acc and K1-VJP counts, no host sync);
+     rollout_sharded "cuda" with D=4 shards on one card against the
+     single-device rollout (1e-5 value, 3e-5 gradient): the tracer's loss
+     at N=65536, 3 steps, and over one step without the tracer's row (the
+     ring's backward alone), and sum(pos²) on one galaxy of 500
+     (nbody_tpu's own case). Two more kernels-line rows.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -2188,6 +2211,511 @@ def phase_merge(nt, sh, df, rf, pp, world_mod, diagnostics, scene_bench,
     return out
 
 
+# [17] differentiable rollouts. The VJP kernels against their plain versions:
+# max|d|/max|ref| of each cotangent below BOUND_VJP (the same fp32 formulas
+# summed in another order, with FMA contraction; a cotangent sums terms of
+# both signs, as a force does, so its error is relative to the largest;
+# 2e-5 is the bound of the force at S = 524704). The "cuda" rollout against
+# World.update within AD_VALUE of max|pos| (the same launches; tensor and
+# float dt round alike); against the "torch" rollout within AD_GRAD (JAX's
+# bound between "pallas" and "jnp", tests/test_autodiff.py:87-103); the D=4
+# sharded rollout against the single-device one within JAX's bounds
+# (tests/test_autodiff.py:133-167).
+VJP_SRC = "nbody_tpu_torch/csrc/direct_vjp.cu"
+PP_VJP_SRC = "nbody_tpu_torch/csrc/p3m_pp_vjp.cu"
+BOUND_VJP = 2e-5
+AD_DT = 0.01
+AD_STEPS = 10
+AD_SMALL_N = 8192
+AD_SMALL_STEPS = 3
+AD_P3M_STEPS = 2
+AD_SHARDED_STEPS = 3
+AD_VALUE = 1e-6
+AD_LOSS = 1e-5                  # tests/test_autodiff.py:98, forward parity
+AD_GRAD = 1e-4
+AD_SHARD_VALUE, AD_SHARD_GRAD = 1e-5, 3e-5
+# What the VJPs must do, counted once a pair (each kernel computes a pair
+# once in each of its two passes), an FMA as two operations, as
+# FLOPS_DIRECT counts them. The direct VJP, 29 a pair: d (2), r2 (4), k =
+# inv³ (2), f (1), s = g·d (3), e = −1.5·f·s/r2 (3), 2e (1), f·g + 2e·d
+# (6), the target's three sums (3), the source's three (4). MUFU: rsqrt
+# alone gives k and 1/r2 = inv²; precise needs a sqrt and a reciprocal.
+# K4's VJP, 5 a candidate pair (d and d², as K4) and 55 a pair inside rc:
+# r2 and q2 (2), exact3 and smooth3 from inv and invq (4), su and 0.5/su
+# from one rsqrt of d²+1e-12 (3), u (2), the taper (7), its derivative
+# (6), h (2), s = g·d (3), s·gm (1), te (3), ts and tt (4), k2 = 2(te − tt
+# − taper·ts) (4), w (1), c = w·g + k2·d (6), the target's three sums
+# (3), the source's three (4); with 3 MUFU (the three rsqrt: 1/r2 and 1/q2
+# are their squares). Timed as the rollouts run it: rsqrt.
+FLOPS_DIRECT_VJP = 29
+MUFU_DIRECT_VJP = {False: 1, True: 2}
+FLOPS_PP_VJP = 55
+MUFU_PP_VJP = 3
+VJP_NAMES = ("d_tgt_pos", "d_tgt_radius", "d_src_pos", "d_src_gm")
+
+
+def cotangent(n: int, device, seed: int = 0) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(n, 2)).astype(np.float32)).to(device)
+
+
+def check_vjp(label: str, got, again, want, names) -> float:
+    """The kernel's cotangents twice bit-equal, finite, and each within
+    BOUND_VJP of the plain version's (an all-zero reference must be met by
+    zeros); returns the largest max|d|."""
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"chip_smoke: {label}: two runs not bit-equal")
+    worst = 0.0
+    for name, a, w in zip(names, got, want):
+        if not torch.isfinite(a).all():
+            raise SystemExit(f"chip_smoke: {label} {name}: not finite")
+        if not w.abs().sum():
+            if a.abs().sum():
+                raise SystemExit(f"chip_smoke: {label} {name}: not zero")
+            continue
+        check(f"{label} {name}", rel(a, w), BOUND_VJP)
+        worst = max(worst, float((a - w).abs().max()))
+    return worst
+
+
+def direct_vjp_case(df, label, args) -> float:
+    """force_acc_vjp against force_acc_vjp_plain, rsqrt and precise."""
+    worst = 0.0
+    for precise in (False, True):
+        got = df.force_acc_vjp(*args, precise=precise)
+        again = df.force_acc_vjp(*args, precise=precise)
+        want = df.force_acc_vjp_plain(*args, precise=precise)
+        worst = max(worst, check_vjp(
+            f"{label} {'precise' if precise else 'rsqrt'}", got, again, want,
+            VJP_NAMES))
+    return worst
+
+
+def summed_pos_cotangent(d, rows) -> torch.Tensor:
+    """The cotangent of the source positions when target i is the row
+    rows[i] of the array the sources are the first rows of (as autograd
+    sums them for p and p[:m]): d_src_pos plus d_tgt_pos of the targets
+    that are sources, in float64."""
+    out = d[2].double().clone()
+    mine = rows < out.shape[0]
+    out[rows[mine]] += d[0].double()[mine]
+    return out
+
+
+def vjp_vs_float64(df, label, args, rows) -> None:
+    """The summed position cotangent (summed_pos_cotangent) of the kernel
+    and of the fp32 plain version against the plain version in float64,
+    precise. Where a target is its own source, its cotangent is the
+    difference of two large terms (f·g of the pair with itself, once
+    as a target and once as a source), which fp32 resolves only to the
+    last bits of those terms: the kernel is held to no worse than three
+    times the fp32 plain version (or BOUND_VJP, the larger)."""
+    ref = summed_pos_cotangent(df.force_acc_vjp_plain(
+        *(a.double() for a in args), precise=True), rows)
+    plain = rel(summed_pos_cotangent(df.force_acc_vjp_plain(
+        *args, precise=True), rows), ref)
+    got = rel(summed_pos_cotangent(df.force_acc_vjp(*args, precise=True),
+                                   rows), ref)
+    log(f"  {label}: the summed position cotangent against float64: fp32 "
+        f"plain {plain:.3e}")
+    check(f"{label} summed position cotangent against float64", got,
+          max(BOUND_VJP, 3 * plain))
+
+
+def direct_vjp_bound(t: int, s: int, precise: bool) -> tuple[float, str]:
+    """The direct VJP's bound: each pair once; inputs (pos, radius, g of the
+    targets, pos and gm of the sources) read and the four cotangents
+    written once."""
+    return bound(FLOPS_DIRECT_VJP * t * s, 32 * t + 24 * s,
+                 MUFU_DIRECT_VJP[precise] * t * s)
+
+
+def pp_vjp_bound(c: dict, n_s: int) -> tuple[float, str]:
+    """K4's VJP's bound on the cells route (pair_counts; n_s source rows):
+    5 operations a candidate pair, FLOPS_PP_VJP and MUFU_PP_VJP a pair
+    inside rc (rsqrt, as it is timed); the live rows (16 bytes), the targets' cotangents (8), the
+    run arrays read once, the (n, 4) row cotangents of both sides written
+    once."""
+    nbytes = (16 * (c["live_t"] + c["live_s"]) + 8 * c["live_t"]
+              + 16 * c["cells"] + 16 * (c["n_t"] + n_s))
+    return bound(5 * c["candidates"] + FLOPS_PP_VJP * c["inside"], nbytes,
+                 MUFU_PP_VJP * c["inside"])
+
+
+def pp_vjp_case(pp, label, cells, rc, cap: int, cells_sub=None) -> float:
+    """pp_cells_vjp against pp_cells_vjp_plain, rsqrt and precise; with
+    ``cells_sub`` on those cells' rows only."""
+    g = cotangent(cells[0].shape[0], cells[0].device, seed=3)
+    kw = {"cap_t": cap, "cap_s": cap}
+    worst = 0.0
+    for precise in (False, True):
+        got = pp.pp_cells_vjp(*cells, rc, 4.0, g, precise=precise, **kw)
+        again = pp.pp_cells_vjp(*cells, rc, 4.0, g, precise=precise, **kw)
+        want = pp.pp_cells_vjp_plain(*cells, rc, 4.0, g, precise=precise,
+                                     cells=cells_sub, **kw)
+        if cells_sub is not None:
+            keep = [torch.zeros(x.shape[0], dtype=torch.bool,
+                                device=x.device) for x in cells[:2]]
+            for k, (start, counts) in enumerate(((cells[2], cells[3]),
+                                                 (cells[4], cells[5]))):
+                idx, live = pp.run_slots(start, counts, cap, keep[k].shape[0])
+                mine = live & torch.isin(
+                    torch.arange(counts.numel(), device=counts.device),
+                    cells_sub)[:, None]
+                keep[k][idx[mine]] = True
+            got = [x[m] for x, m in zip(got, keep)]
+            again = [x[m] for x, m in zip(again, keep)]
+            want = [x[m] for x, m in zip(want, keep)]
+        worst = max(worst, check_vjp(
+            f"{label} {'precise' if precise else 'rsqrt'}",
+            [x[:, :3] for x in got], [x[:, :3] for x in again],
+            [x[:, :3] for x in want], ("d_trows", "d_srows")))
+    return worst
+
+
+def densest_block(counts: torch.Tensor, side: int = 8) -> torch.Tensor:
+    """The cells of a side × side window of the grid around its fullest
+    cell (clipped to the grid)."""
+    gc = math.isqrt(counts.numel())
+    c = int(torch.argmax(counts))
+    i0 = min(max(c // gc - side // 2, 0), gc - side)
+    j0 = min(max(c % gc - side // 2, 0), gc - side)
+    ii = torch.arange(i0, i0 + side, device=counts.device)
+    jj = torch.arange(j0, j0 + side, device=counts.device)
+    return (ii[:, None] * gc + jj[None, :]).reshape(-1)
+
+
+def rel_off(got: torch.Tensor, want: torch.Tensor, row: int) -> float:
+    """rel over every row but ``row``. A loss on one tracer has its largest
+    gradient in the tracer's own row, about 2(p − target), which hides the
+    other rows: theirs comes through the sources' cotangents alone."""
+    keep = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    keep[row] = False
+    return rel(got[keep], want[keep])
+
+
+def rollout_grads(loss, state, dt, **kw):
+    """(loss, d loss / d (pos0, vel0, mass, radius, dt)) of one rollout
+    from the state's tensors."""
+    xs = [x.detach().clone().requires_grad_()
+          for x in (state.pos, state.vel, state.mass, state.radius)]
+    d = dt.detach().clone().requires_grad_()
+    val = loss(*xs, d, **kw)
+    return val, torch.autograd.grad(val, [*xs, d])
+
+
+def peak_mib(fn) -> tuple[float, object]:
+    """(MiB allocated above the start at the peak of fn, fn's result)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20, out
+
+
+def phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big, slice_w,
+                   device) -> dict:
+    """[17]: the VJP kernels and the differentiable rollouts on the card."""
+    from nbody_tpu_torch import autodiff
+    from nbody_tpu_torch.parallel import make_mesh
+
+    log(f"[17] differentiable rollouts: the VJP kernels, the 'cuda' rollout "
+        f"at N={BENCH_N}, 'cuda' against 'torch' at N={AD_SMALL_N}, the "
+        f"'p3m' rollout at the N={BIG_N} slice, D=4 shards on one card")
+    t0 = time.perf_counter()
+    out = {}
+    # a. the direct VJP against its plain version. The random sources lie
+    # apart from the targets; the trap case puts zero-radius targets on
+    # gm = 0 sources at their own positions.
+    pos, _, radius, gm = random_state(1000, 333, device)
+    src = pos[:333] + 7.0
+    g = cotangent(1000, device)
+    worst = direct_vjp_case(df, "K1 VJP N=1000 S=333",
+                            (pos, radius, src, gm, g))
+    direct_vjp_case(df, "K1 VJP N=1000 S=0",
+                    (pos, radius, src[:0], gm[:0], g))
+    trap_r = radius.clone()
+    trap_r[:500] = 0.0
+    direct_vjp_case(df, "K1 VJP zero-radius tracers on gm = 0 sources",
+                    (pos, trap_r, pos[:500], torch.zeros(500, device=device),
+                     g))
+    bench = nt.create_world(scene_bench, device=device)
+    st, m = bench.state, bench.mass_len
+    g = cotangent(BENCH_N, device, seed=1)
+    args = (st.pos, st.radius, st.pos[:m], bench.gm, g)
+    worst = max(worst, direct_vjp_case(df, f"K1 VJP N={BENCH_N} S={m}", args))
+    vjp_vs_float64(df, f"K1 VJP N={BENCH_N} S={m}", args,
+                   torch.arange(BENCH_N, device=device))
+    ms = {p: cuda_ms(lambda p=p: df.force_acc_vjp(*args, precise=p), reps=5)
+          for p in (False, True)}
+    plain_ms = cuda_ms(lambda: df.force_acc_vjp_plain(*args, precise=True))
+    b_ms, b_by = direct_vjp_bound(BENCH_N, m, True)
+    rb_ms, rb_by = direct_vjp_bound(BENCH_N, m, False)
+    splits = df.vjp_splits(BENCH_N, m, df.device_sms(device))
+    log(f"  K1 VJP N={BENCH_N} S={m}: precise {ms[True]:.4f} ms (bound "
+        f"{b_ms:.4f} ms by {b_by}, {b_ms / ms[True]:.1%} of it), rsqrt "
+        f"{ms[False]:.4f} ms (bound {rb_ms:.4f} ms by {rb_by}, "
+        f"{rb_ms / ms[False]:.1%} of it); plain {plain_ms:.2f} ms; ranges "
+        f"(target pass, source pass) {splits}")
+    out["k1"] = {"n": BENCH_N, "s": m, "ms": ms[True], "rsqrt_ms": ms[False],
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    sst, sm = slice_w.state, slice_w.mass_len
+    rows = p3m_forces.exact_core_rows(sst.radius,
+                                      slice_w.config.p3m_exact_targets)
+    tp, tr = sst.pos[rows].contiguous(), sst.radius[rows].contiguous()
+    core = (tp, tr, sst.pos[:sm], slice_w.gm, cotangent(tp.shape[0], device))
+    worst = max(worst, direct_vjp_case(
+        df, f"K1 VJP exact-core rows T={tp.shape[0]} S={sm}", core))
+    vjp_vs_float64(df, f"K1 VJP exact-core rows T={tp.shape[0]} S={sm}",
+                   core, rows)
+    core_ms = cuda_ms(lambda: df.force_acc_vjp(*core), reps=5)
+    core_b = direct_vjp_bound(tp.shape[0], sm, False)
+    log(f"  K1 VJP T={tp.shape[0]} S={sm}: {core_ms:.4f} ms (bound "
+        f"{core_b[0]:.4f} ms by {core_b[1]}); ranges "
+        f"{df.vjp_splits(tp.shape[0], sm, df.device_sms(device))}")
+    out["k1"]["max_abs_err"] = worst
+    out["k1"]["core_ms"] = core_ms
+
+    # b. K4's VJP against its plain version
+    cells, _, rc = random_cells(pp, device)
+    pp_worst = pp_vjp_case(pp, "K4 VJP random 8x8 cells cap 32", cells, rc, 32)
+    default_w = nt.create_world(scene_bench, config=nt.SimConfig(**P3M_DEFAULT),
+                                device=device)
+    cap = P3M_DEFAULT["p3m_cell_capacity"]
+    cells, _, rc = world_cells(pp, p3m_forces, default_w)
+    label = f"K4 VJP N={BENCH_N} grid {P3M_DEFAULT['pm_grid']} cap={cap}"
+    pp_worst = max(pp_worst, pp_vjp_case(pp, label, cells, rc, cap))
+    g = cotangent(cells[0].shape[0], device, seed=3)
+    kw = {"cap_t": cap, "cap_s": cap}
+    k4 = {"ms": cuda_ms(lambda: pp.pp_cells_vjp(*cells, rc, 4.0, g, **kw),
+                        reps=10),
+          "plain_ms": cuda_ms(lambda: pp.pp_cells_vjp_plain(*cells, rc, 4.0,
+                                                            g, **kw))}
+    c = pair_counts(cells, rc, cap)
+    k4["bound_ms"], k4["bound_by"] = pp_vjp_bound(c, cells[1].shape[0])
+    log(f"  {label}: {k4['ms']:.4f} ms (bound {k4['bound_ms']:.4f} ms by "
+        f"{k4['bound_by']}, {k4['bound_ms'] / k4['ms']:.1%} of it; "
+        f"{c['inside']:.4e} pairs inside rc), plain {k4['plain_ms']:.2f} ms")
+    del default_w
+    cap = P3M_SIZED["p3m_cell_capacity"]
+    cells, _, rc = world_cells(pp, p3m_forces, slice_w)
+    block = densest_block(cells[3])
+    label = f"K4 VJP N={BIG_N} grid {P3M_SIZED['pm_grid']} cap={cap}"
+    pp_worst = max(pp_worst, pp_vjp_case(
+        pp, f"{label} (the 8x8 cells around the fullest)", cells, rc, cap,
+        cells_sub=block))
+    g = cotangent(cells[0].shape[0], device, seed=3)
+    kw = {"cap_t": cap, "cap_s": cap}
+    big_ms = cuda_ms(lambda: pp.pp_cells_vjp(*cells, rc, 4.0, g, **kw), reps=3)
+    c = pair_counts(cells, rc, cap)
+    big_b = pp_vjp_bound(c, cells[1].shape[0])
+    log(f"  {label}: {big_ms:.4f} ms (bound {big_b[0]:.4f} ms by "
+        f"{big_b[1]}, {big_b[0] / big_ms:.1%} of it; {c['inside']:.4e} pairs "
+        f"inside rc)")
+    k4.update(max_abs_err=pp_worst, big_ms=big_ms, big_bound_ms=big_b[0])
+    out["k4"] = k4
+    del cells, g
+
+    # c. the "cuda" rollout at full width
+    cfg = nt.SimConfig(precise=True)
+    world = nt.create_world(scene_bench, config=cfg, device=device)
+    st, ml = world.state, world.mass_len
+    tracer = ml
+    target = st.pos[tracer] + 5.0
+    loss = autodiff.trajectory_loss(target, tracer)
+    dt = torch.full((), AD_DT, device=device)
+    kw = dict(n_steps=AD_STEPS, mass_len=ml, backend="cuda", precise=True)
+    df.LAUNCHES = df.VJP_LAUNCHES = 0
+    with no_sync():
+        val, grads = rollout_grads(loss, st, dt, **kw)
+    torch.cuda.synchronize()
+    launches = (df.LAUNCHES, df.VJP_LAUNCHES)
+    expect_launches("'cuda' rollout, force_acc (forward and recomputed)",
+                    launches[0], 2 * AD_STEPS)
+    expect_launches("'cuda' rollout, K1 VJP kernels", launches[1],
+                    2 * AD_STEPS)
+    val2, grads2 = rollout_grads(loss, st, dt, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(grads, grads2)) \
+            or not torch.equal(val, val2):
+        raise SystemExit("chip_smoke: 'cuda' rollout gradients not bit-equal")
+    if not all(torch.isfinite(x).all() for x in grads):
+        raise SystemExit("chip_smoke: 'cuda' rollout gradients not finite")
+    with torch.no_grad():
+        p_roll, _ = autodiff.rollout(st.pos, st.vel, st.mass, st.radius, dt,
+                                     **kw)
+    world.update(AD_DT, AD_STEPS, extra_force=zero_hook)
+    p_w = world.state.pos
+    check(f"'cuda' rollout N={BENCH_N} vs World.update, pos", rel(p_roll, p_w),
+          AD_VALUE)
+    if not torch.equal(val.detach(), torch.sum((p_roll[tracer] - target) ** 2)):
+        raise SystemExit("chip_smoke: the 'cuda' rollout's loss under autograd "
+                         "differs from the same rollout's without it")
+    fwd_ms = timed(lambda: autodiff.rollout(
+        *(x.detach().clone().requires_grad_() for x in (st.pos, st.vel)),
+        st.mass, st.radius, dt, **kw))[0] / AD_STEPS
+    mib, (both_ms, _, _) = peak_mib(lambda: timed(
+        lambda: rollout_grads(loss, st, dt, **kw)))
+    both_ms /= AD_STEPS
+    log(f"  'cuda' rollout N={BENCH_N} precise euler, {AD_STEPS} steps of "
+        f"{AD_DT}, remat: launches {launches[0]} force_acc ({AD_STEPS} "
+        f"forward, {AD_STEPS} recomputed), {launches[1]} K1 VJP kernels; no "
+        f"host sync; gradients finite and bit-equal twice; forward "
+        f"{fwd_ms:.4f} ms/step, forward and backward {both_ms:.4f} ms/step, "
+        f"peak {mib:.1f} MiB above the state")
+    out["cuda"] = {"launches": launches[1], "fwd_ms": fwd_ms,
+                   "both_ms": both_ms, "peak_mib": mib}
+    del world
+
+    # d. "cuda" against "torch" gradients at N=8192
+    small = nt.create_world(nt.make_galaxies(AD_SMALL_N, 2, seed=SEED),
+                            device=device)
+    sst, sml = small.state, small.mass_len
+    loss = autodiff.trajectory_loss(sst.pos[sml] + 5.0, sml)
+    for integrator, steps in (("euler", AD_STEPS), ("leapfrog", AD_SMALL_STEPS),
+                              ("yoshida4", AD_SMALL_STEPS)):
+        kw = dict(n_steps=steps, mass_len=sml, precise=True,
+                  integrator=integrator)
+        v_c, g_c = rollout_grads(loss, sst, dt, backend="cuda", **kw)
+        v_t, g_t = rollout_grads(loss, sst, dt, backend="torch", **kw)
+        check(f"N={AD_SMALL_N} {integrator} {steps} steps: 'cuda' vs 'torch' "
+              f"rollout loss", float((v_c - v_t).abs() / v_t.abs()), AD_LOSS)
+        for name, a, b in zip(("pos0", "vel0", "mass", "radius", "dt"),
+                              g_c, g_t):
+            check(f"N={AD_SMALL_N} {integrator}: d loss / d {name}",
+                  rel(a, b), AD_GRAD)
+        off = [rel_off(a, b, sml) for a, b in zip(g_c[:2], g_t[:2])]
+        log(f"  N={AD_SMALL_N} {integrator}: not gated, d loss / d pos0 "
+            f"and vel0 without the tracer's row {off[0]:.3e} and "
+            f"{off[1]:.3e} of their max (see f.)")
+    # over one leapfrog step the other rows of d loss / d (pos0, vel0) are
+    # each one pair's term of the tracer's force (see f.)
+    kw = dict(n_steps=1, mass_len=sml, precise=True, integrator="leapfrog")
+    _, g_c = rollout_grads(loss, sst, dt, backend="cuda", **kw)
+    _, g_t = rollout_grads(loss, sst, dt, backend="torch", **kw)
+    for name, a, b in zip(("pos0", "vel0"), g_c, g_t):
+        check(f"N={AD_SMALL_N} leapfrog one step: d loss / d {name} but the "
+              f"tracer's row", rel_off(a, b, sml), AD_GRAD)
+    del small
+
+    # e. the "p3m" rollout at the N=1M slice (and at N=65536 for K4's row)
+    for key, scene, cfg_kw, n in (("p3m", scene_big, P3M_SIZED, BIG_N),
+                                  ("p3m_default", scene_bench, P3M_DEFAULT,
+                                   BENCH_N)):
+        cfg = nt.SimConfig(**cfg_kw)
+        w = nt.create_world(scene, config=cfg, device=device)
+        st, ml = w.state, w.mass_len
+        kw = dict(n_steps=AD_P3M_STEPS, mass_len=ml, backend="p3m",
+                  precise=cfg.precise, g=cfg.g, pm_grid=cfg.pm_grid,
+                  pm_softening=cfg.pm_softening,
+                  p3m_rc_cells=cfg.p3m_rc_cells,
+                  p3m_cell_capacity=cfg.p3m_cell_capacity,
+                  p3m_exact_targets=cfg.p3m_exact_targets,
+                  p3m_rebin_interval=cfg.p3m_rebin_interval,
+                  integrator=cfg.integrator)
+
+        def run(st=st, kw=kw):
+            p = st.pos.detach().clone().requires_grad_()
+            fin, _ = autodiff.rollout(p, st.vel, st.mass, st.radius, dt, **kw)
+            return fin.detach(), torch.autograd.grad(torch.sum(fin ** 2), p)[0]
+
+        df.LAUNCHES = df.VJP_LAUNCHES = pp.LAUNCHES = pp.VJP_LAUNCHES = 0
+        with no_sync():
+            fin, g1 = run()
+        torch.cuda.synchronize()
+        counts = {"K4": pp.LAUNCHES, "K4 VJP": pp.VJP_LAUNCHES,
+                  "force_acc": df.LAUNCHES, "K1 VJP": df.VJP_LAUNCHES}
+        for what, got in counts.items():
+            expect_launches(f"'p3m' rollout N={n}, {what}", got,
+                            2 * AD_P3M_STEPS)
+        _, g2 = run()
+        if not torch.equal(g1, g2) or not torch.isfinite(g1).all():
+            raise SystemExit(f"chip_smoke: 'p3m' rollout N={n}: gradient not "
+                             "finite or not bit-equal twice")
+        w.update(AD_DT, AD_P3M_STEPS, backend="p3m")
+        check(f"'p3m' rollout N={n} vs World.update, pos",
+              rel(fin, w.state.pos), AD_VALUE)
+        fwd_ms = timed(lambda: autodiff.rollout(
+            st.pos.detach().clone().requires_grad_(), st.vel, st.mass,
+            st.radius, dt, **kw))[0] / AD_P3M_STEPS
+        mib, (both_ms, _, _) = peak_mib(lambda: timed(run))
+        both_ms /= AD_P3M_STEPS
+        log(f"  'p3m' rollout N={n} grid {cfg.pm_grid} cap "
+            f"{cfg.p3m_cell_capacity}, {AD_P3M_STEPS} steps: launches "
+            f"{counts}; no host sync; the gradient finite and bit-equal "
+            f"twice; forward {fwd_ms:.4f} ms/step, forward and backward "
+            f"{both_ms:.4f} ms/step, peak {mib:.1f} MiB above the state")
+        out[key] = {"launches": counts, "fwd_ms": fwd_ms, "both_ms": both_ms,
+                    "peak_mib": mib}
+        del w, fin, g1, g2
+
+    # f. rollout_sharded "cuda", D=4 shards on one card, against the
+    # single-device rollout, within nbody_tpu's bounds. Three gates:
+    # - the loss of c. over AD_SHARDED_STEPS steps, value and gradient;
+    # - the same loss over one step, the gradient without the tracer's own
+    #   row (about 2(p − target), which hides the rest). Each other row's
+    #   is then one pair's term of the tracer's force, reached only through
+    #   the ring's backward (the copies between shards, the other shards'
+    #   source-side VJP, the masks), so the two rollouts must agree on it
+    #   to its last bits;
+    # - nbody_tpu's own case (tests/test_autodiff.py:133-167): sum(pos²)
+    #   on one galaxy of 500, AD_SHARDED_STEPS steps.
+    # Printed, not gated: over several steps the other rows of the tracer's
+    # gradient, and sum(pos²)'s on two galaxies, are small remainders of
+    # large terms that cancel at a galaxy core (the central mass's row), so
+    # two summation orders give them different low bits (nbody_tpu's own
+    # ring and single-device rollouts differ by more than 3e-5 of max on
+    # sum(pos²): tests/test_torch_autodiff.py::
+    # test_sharded_gradient_conditioning).
+    mesh = make_mesh(devices=[device] * 4)
+
+    def sharded_run(st, ml, losses, sharded, steps=AD_SHARDED_STEPS):
+        p = st.pos.detach().clone().requires_grad_()
+        kw = dict(n_steps=steps, mass_len=ml, backend="cuda")
+        if sharded:
+            fin, _ = autodiff.rollout_sharded(p, st.vel, st.mass, st.radius,
+                                              dt, mesh=mesh, **kw)
+        else:
+            fin, _ = autodiff.rollout(p, st.vel, st.mass, st.radius, dt, **kw)
+        vals = [f(fin) for f in losses]
+        return [(v, torch.autograd.grad(v, p, retain_graph=True)[0])
+                for v in vals]
+
+    st, ml = bench.state, bench.mass_len
+    tracer = ml
+    target = st.pos[tracer] + 5.0
+    losses = (lambda a: torch.sum((a[tracer] - target) ** 2),
+              lambda a: torch.sum(a ** 2))
+    d_ms, _, (shd, sq_s) = timed(lambda: sharded_run(st, ml, losses, True))
+    one, sq_1 = sharded_run(st, ml, losses, False)
+    check(f"rollout_sharded D=4 N={BENCH_N} loss vs single device",
+          float((shd[0] - one[0]).abs() / one[0].abs()), AD_SHARD_VALUE)
+    check(f"rollout_sharded D=4 N={BENCH_N} gradient vs single device",
+          rel(shd[1], one[1]), AD_SHARD_GRAD)
+    (_, g1_s), = sharded_run(st, ml, losses[:1], True, steps=1)
+    (_, g1_1), = sharded_run(st, ml, losses[:1], False, steps=1)
+    check(f"rollout_sharded D=4 N={BENCH_N} one step, gradient vs single "
+          f"device but the tracer's row", rel_off(g1_s, g1_1, tracer),
+          AD_SHARD_GRAD)
+    jw = nt.create_world(nt.make_galaxies(500, 1, seed=4), device=device)
+    (jv_s, jg_s), = sharded_run(jw.state, jw.mass_len, losses[1:], True)
+    (jv_1, jg_1), = sharded_run(jw.state, jw.mass_len, losses[1:], False)
+    check("rollout_sharded D=4 one galaxy N=500 sum(pos²) vs single device",
+          float((jv_s - jv_1).abs() / jv_1.abs()), AD_SHARD_VALUE)
+    check("rollout_sharded D=4 one galaxy N=500 d sum(pos²) / d pos0 vs "
+          "single device", rel(jg_s, jg_1), AD_SHARD_GRAD)
+    log(f"  rollout_sharded 'cuda' D=4 on one card, {AD_SHARDED_STEPS} "
+        f"steps: forward and backward {d_ms / AD_SHARDED_STEPS:.4f} ms/step "
+        f"(two losses); not gated: the tracer's gradient without its row "
+        f"{rel_off(shd[1], one[1], tracer):.3e} of their max, sum(pos²) at "
+        f"N={BENCH_N}: value gap "
+        f"{float((sq_s[0] - sq_1[0]).abs() / sq_1[0].abs()):.3e}, gradient "
+        f"gap {rel(sq_s[1], sq_1[1]):.3e} of its max")
+    out["sharded_ms"] = d_ms / AD_SHARDED_STEPS
+    log(f"  [17] took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2322,6 +2850,8 @@ def main() -> int:
                         scene_bench, scene_big, device)
     merge = phase_merge(nt, sh, df, rf, pp, world_mod, diagnostics,
                         scene_bench, scene_big, device)
+    rollouts = phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big,
+                              slice_w, device)
 
     mk = merge["kernel"]
     log(f"card: {smi}")
@@ -2357,6 +2887,15 @@ def main() -> int:
         f"{mk['bound_ms']:.4f}), N={BIG_N} {mk['big_ms']:.4f}; p3m slice "
         f"merging {merge['p3m']['ms']:.4f}; CLI run/render/resume/gif "
         + ", ".join(f"{x:.1f}" for x in merge["cli"]) + " s")
+    ad_c, ad_p = rollouts["cuda"], rollouts["p3m"]
+    vjp1, vjp4 = rollouts["k1"], rollouts["k4"]
+    log(f"rollouts ms/step on the card, device: N={BENCH_N} 'cuda' precise "
+        f"forward {ad_c['fwd_ms']:.4f}, forward and backward "
+        f"{ad_c['both_ms']:.4f} (peak {ad_c['peak_mib']:.1f} MiB); N={BIG_N} "
+        f"'p3m' slice forward {ad_p['fwd_ms']:.4f}, forward and backward "
+        f"{ad_p['both_ms']:.4f} (peak {ad_p['peak_mib']:.1f} MiB); K1 VJP "
+        f"{vjp1['ms']:.4f} (precise; bound {vjp1['bound_ms']:.4f}), K4 VJP "
+        f"N={BIG_N} {vjp4['big_ms']:.4f} (bound {vjp4['big_bound_ms']:.4f})")
     log("ablation path, best ms of each sweep: " + ", ".join(
         f"{key} {ablation[key]['best']['ms']:.4f} ({ablation[key]['best']['name']})"
         for key in ABLATION_KERNELS) + f" (K1 force_acc {ablation['k1_ms']:.4f})")
@@ -2448,6 +2987,23 @@ def main() -> int:
          "launches": merge["world"]["launches"], "max_abs_err": 0.0,
          "ms": mk["ms"], "plain_ms": mk["plain_ms"], "bound_ms": mk["bound_ms"],
          "bound_by": mk["bound_by"], "library_ms": None},
+        {"name": f"direct_vjp force_acc VJP (target and source passes), "
+                 f"'cuda' rollout N={vjp1['n']} S={vjp1['s']} precise",
+         "route": "cuda", "source": VJP_SRC,
+         "replaces": "nbody_tpu/ops/pallas_forces.py:577",
+         "launches": ad_c["launches"], "max_abs_err": vjp1["max_abs_err"],
+         "ms": vjp1["ms"], "plain_ms": vjp1["plain_ms"],
+         "bound_ms": vjp1["bound_ms"], "bound_by": vjp1["bound_by"],
+         "library_ms": None},
+        {"name": f"p3m_pp_vjp pair-correction VJP (target and source passes), "
+                 f"'p3m' rollout N={BENCH_N} grid {P3M_DEFAULT['pm_grid']} "
+                 f"cap={P3M_DEFAULT['p3m_cell_capacity']}",
+         "route": "cuda", "source": PP_VJP_SRC,
+         "replaces": "nbody_tpu/ops/p3m_pallas.py:197",
+         "launches": rollouts["p3m_default"]["launches"]["K4 VJP"],
+         "max_abs_err": vjp4["max_abs_err"], "ms": vjp4["ms"],
+         "plain_ms": vjp4["plain_ms"], "bound_ms": vjp4["bound_ms"],
+         "bound_by": vjp4["bound_by"], "library_ms": None},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

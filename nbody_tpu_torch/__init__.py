@@ -10,8 +10,9 @@ dt, collision merging (``SimConfig.merge_collisions``), and readback; in
 ``nbody_tpu_torch.parallel``, the world sharded over a list of devices with
 the ring of source tiles; trajectory capture (``trajectory``), headless
 rendering (``render``, ``viewer.export_animation``), npz checkpoints and
-debug checks (``utils``), and the command line, ``python -m
-nbody_tpu_torch run|render|gif``. Imports neither JAX nor ``nbody_tpu``.
+debug checks (``utils``), differentiable rollouts (``autodiff``), and the
+command line, ``python -m nbody_tpu_torch run|render|gif``. Imports
+neither JAX nor ``nbody_tpu``.
 """
 
 from .types import (

@@ -28,20 +28,37 @@ from .types import DTYPE, G, SOFTENING_FLOOR
 CHUNK_ELEMS = 1 << 25
 
 
-def sqrt(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded square root (``jnp.sqrt``'s), on any device.
+class _CpuSqrt(torch.autograd.Function):
+    """numpy's IEEE square root of a CPU tensor, with JAX's rule for its
+    gradient: ``g * (0.5 / ans)`` (the ``defjvp2`` of ``lax.sqrt_p``)."""
 
-    On CUDA tensors this is ``torch.sqrt``. On the CPU, PyTorch's float
-    sqrt calls MKL's vector sqrt (VML, high-accuracy mode) on each worker
-    thread's share of the elements: within 1 ulp, not correctly rounded,
-    and on the first call of a process it sometimes computes one thread's
-    share to about 12 bits (3.3e-4 relative). numpy's sqrt is the IEEE
-    instruction, elementwise and single-threaded, so the CPU takes it."""
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        np.sqrt(x.detach().numpy(), out=out.numpy())
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (ans,) = ctx.saved_tensors
+        return g * (0.5 / ans)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root (``jnp.sqrt``'s), on any device,
+    differentiable.
+
+    On CUDA tensors this is ``torch.sqrt``, with its own gradient. On the
+    CPU, PyTorch's float sqrt calls MKL's vector sqrt (VML, high-accuracy
+    mode) on each worker thread's share of the elements: within 1 ulp, not
+    correctly rounded, and on the first call of a process it sometimes
+    computes one thread's share to about 12 bits (3.3e-4 relative). numpy's
+    sqrt is the IEEE instruction, elementwise and single-threaded, so the
+    CPU takes it, through a Function whose gradient is JAX's."""
     if x.device.type != "cpu":
         return torch.sqrt(x)
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    np.sqrt(x.numpy(), out=out.numpy())
-    return out
+    return _CpuSqrt.apply(x)
 
 
 def add_at(dst: torch.Tensor, index: torch.Tensor, src: torch.Tensor) -> None:

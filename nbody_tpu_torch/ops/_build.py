@@ -46,6 +46,18 @@ SIGNATURES = {
             _vp, _vp, _vp, _vp],       # acc/pos/vel out, stream
         "nbody_sm_count": [_vp],       # int* out
     },
+    "direct_vjp": {
+        "nbody_direct_vjp_targets": [
+            _vp, _vp, _vp, _vp, _vp,   # tgt pos/radius, src pos/gm, g
+            _i32, _i32, _i32,          # n_tgt, n_src, precise
+            _i32, _vp,                 # source ranges, partials or NULL
+            _vp, _vp, _vp],            # d_tgt_pos, d_tgt_radius, stream
+        "nbody_direct_vjp_sources": [
+            _vp, _vp, _vp, _vp, _vp,   # tgt pos/radius, src pos/gm, g
+            _i32, _i32, _i32,          # n_tgt, n_src, precise
+            _i32, _vp,                 # target ranges, partials or NULL
+            _vp, _vp, _vp],            # d_src_pos, d_src_gm, stream
+    },
     "ring_forces": {
         "nbody_ring_hop": [
             _vp, _vp, _vp, _vp,        # tgt pos/radius, src pos/gm
@@ -111,6 +123,17 @@ SIGNATURES = {
             _i32, _i32, _i32, _i32,    # gc, cap_t, cap_s, max_tasks
             _vp,                       # (rc, eps2, 1/rc) fp32 on the device
             _i32, _vp, _vp],           # precise, out (n_t, 2), stream
+    },
+    "p3m_pp_vjp": {
+        name: [
+            _vp, _i32, _vp, _i32,      # trows (n_t, 4), n_t, srows (n_s, 4), n_s
+            _vp, _vp, _vp, _vp,        # start_t, counts_t, start_s, counts_s
+            _i32, _i32, _i32,          # gc, cap_t, cap_s
+            _vp, _i32,                 # (rc, eps2, 1/rc) fp32, precise
+            _vp,                       # g (n_t, 2) cotangent
+            _vp, _i32,                 # the pass's tile_end (gc*gc,), max_tasks
+            _vp, _vp]                  # out (n, 4) of its side, stream
+        for name in ("nbody_p3m_pp_vjp_targets", "nbody_p3m_pp_vjp_sources")
     },
     "merge_contacts": {
         "nbody_merge_contacts": [

@@ -16,6 +16,14 @@ source sum, as one thread-block cluster of at most 8 blocks. Only
 a cluster holds; it then writes partials to a scratch that a second kernel
 sums in range order. Either way a call counts as one launch.
 
+``force_acc`` is differentiable: a ``torch.autograd.Function`` whose
+forward is the launch above and whose backward is :func:`force_acc_vjp`,
+the VJP of the direct sum with respect to all four inputs, recomputed from
+the saved inputs (O(N) residuals, no O(T·S) ones), as
+``make_differentiable_acc`` in ``nbody_tpu/ops/pallas_forces.py`` does. On
+the card that VJP is the two kernels of ``csrc/direct_vjp.cu``; on the CPU
+its plain version, :func:`force_acc_vjp_plain`.
+
 Dispatch is by the device of the tensors: CPU tensors take the plain
 version; CUDA tensors launch the kernel, and anything wrong there raises.
 Nothing falls back from the kernel to the plain version.
@@ -57,6 +65,10 @@ LIVE_WARPS = 8
 LAUNCHES = 0
 # The plan of each of those launches, counted ({Plan: launches}).
 PLANS: Counter = Counter()
+# Kernel launches of the VJP (csrc/direct_vjp.cu): each call of
+# ``force_acc_vjp`` on the card launches its target pass and its source
+# pass and adds 2 (a pass's in-order reduce of split ranges is part of it).
+VJP_LAUNCHES = 0
 
 
 class Plan(NamedTuple):
@@ -250,16 +262,26 @@ def force_acc(
     the launch follows :func:`cluster_plan` (``t_real``: the real targets
     among the T, all of them by default), or ``plan`` (p, n_split) where
     given; more than ``MAX_CLUSTER`` ranges go through a scratch and a
-    second kernel. Either way it counts as one launch."""
+    second kernel. Either way it counts as one launch. Differentiable with
+    respect to the four tensors: the backward is :func:`force_acc_vjp`."""
     device = _device_of(tgt_pos)
     t, s = tgt_pos.shape[0], src_pos.shape[0]
     _check("tgt_pos", tgt_pos, (t, 2), device)
     _check("tgt_radius", tgt_radius, (t,), device)
     _check("src_pos", src_pos, (s, 2), device)
     _check("src_gm", src_gm, (s,), device)
+    return _ForceAcc.apply(tgt_pos, tgt_radius, src_pos, src_gm, precise,
+                           t_real, plan)
+
+
+def _force_acc(tgt_pos, tgt_radius, src_pos, src_gm, precise, t_real,
+               plan) -> torch.Tensor:
+    """:func:`force_acc`'s forward on checked inputs."""
+    device = tgt_pos.device
     if device.type == "cpu":
         return force_acc_plain(tgt_pos, tgt_radius, src_pos, src_gm,
                                precise=precise)
+    t, s = tgt_pos.shape[0], src_pos.shape[0]
     plan = (cluster_plan(t, s, device_sms(device), t_real=t_real)
             if plan is None else _checked_plan(plan))
     acc = torch.empty((t, 2), dtype=torch.float32, device=device)
@@ -270,6 +292,143 @@ def force_acc(
     _launch(tgt_pos, None, tgt_radius, src_pos, src_gm, 0.0, 1.0, precise,
             acc, None, None, plan=plan, partial=partial)
     return acc
+
+
+class _ForceAcc(torch.autograd.Function):
+    """:func:`force_acc` with its VJP: only the four inputs are saved, and
+    the backward recomputes the pair terms (:func:`force_acc_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, tgt_pos, tgt_radius, src_pos, src_gm, precise, t_real,
+                plan):
+        ctx.save_for_backward(tgt_pos, tgt_radius, src_pos, src_gm)
+        ctx.precise = precise
+        return _force_acc(tgt_pos, tgt_radius, src_pos, src_gm, precise,
+                          t_real, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = force_acc_vjp(*ctx.saved_tensors, g.contiguous(),
+                              precise=ctx.precise)
+        return (*grads, None, None, None)
+
+
+def force_acc_vjp_plain(tgt_pos, tgt_radius, src_pos, src_gm, g, *,
+                        precise: bool = False, chunk: int | None = None):
+    """Plain version of :func:`force_acc_vjp`: the explicit VJP, a chunk of
+    ``chunk`` targets at a time (by default the chunk of
+    ``forces.direct_sum_acc``), so memory is O(chunk · S). The source
+    cotangents are summed chunk by chunk in target order. The results
+    take the inputs' dtype (float64 inputs give a float64 reference)."""
+    t, s = tgt_pos.shape[0], src_pos.shape[0]
+    like = dict(dtype=tgt_pos.dtype, device=tgt_pos.device)
+    d_tp, d_sp = torch.zeros((t, 2), **like), torch.zeros((s, 2), **like)
+    d_tr, d_sg = torch.zeros((t,), **like), torch.zeros((s,), **like)
+    if t == 0 or s == 0:
+        return d_tp, d_tr, d_sp, d_sg
+    if chunk is None:
+        chunk = max(1, forces.CHUNK_ELEMS // s)
+    with torch.no_grad():
+        for i in range(0, t, chunk):
+            tp, gg = tgt_pos[i:i + chunk], g[i:i + chunk]
+            dx = src_pos[None, :, 0] - tp[:, None, 0]
+            dy = src_pos[None, :, 1] - tp[:, None, 1]
+            r2 = dx * dx + dy * dy + (tgt_radius[i:i + chunk]
+                                      + forces.SOFTENING_FLOOR)[:, None]
+            if precise:
+                k = 1.0 / (forces.sqrt(r2) * r2)
+            else:
+                inv = torch.rsqrt(r2)
+                k = inv * inv * inv
+            f = src_gm[None, :] * k
+            gx, gy = gg[:, 0:1], gg[:, 1:2]
+            sdot = gx * dx + gy * dy
+            e = -1.5 * f * sdot / r2
+            e2 = 2.0 * e
+            cx = f * gx + e2 * dx
+            cy = f * gy + e2 * dy
+            d_tp[i:i + chunk] = -torch.stack([cx.sum(1), cy.sum(1)], -1)
+            d_tr[i:i + chunk] = e.sum(1)
+            d_sp += torch.stack([cx.sum(0), cy.sum(0)], -1)
+            d_sg += (k * sdot).sum(0)
+    return d_tp, d_tr, d_sp, d_sg
+
+
+def vjp_splits(t: int, s: int, sms: int) -> tuple[int, int]:
+    """Source ranges of the VJP's target pass and target ranges of its
+    source pass for T targets and S sources on a card of ``sms`` SMs
+    (:func:`split_ranges` over blocks of 256 rows and runs of 256): shapes
+    alone fix them, so a recomputed backward repeats its bits."""
+    return (split_ranges(-(-t // BLOCK), -(-s // RUN), sms),
+            split_ranges(-(-s // BLOCK), -(-t // RUN), sms))
+
+
+def force_acc_vjp(
+    tgt_pos: torch.Tensor,     # (T, 2)
+    tgt_radius: torch.Tensor,  # (T,)
+    src_pos: torch.Tensor,     # (S, 2)
+    src_gm: torch.Tensor,      # (S,)
+    g: torch.Tensor,           # (T, 2) cotangent of force_acc's result
+    *,
+    precise: bool = False,
+):
+    """The VJP of :func:`force_acc` at its inputs with cotangent ``g``:
+    (d_tgt_pos (T, 2), d_tgt_radius (T,), d_src_pos (S, 2), d_src_gm (S,)).
+
+    With d = p_j − p_i, r2 = |d|² + r_i + SOFTENING_FLOOR, k = r2^(−3/2)
+    (precise: 1 / (sqrt(r2)·r2); else rsqrt cubed), f = gm_j·k,
+    s = g_i·d and e = −1.5·f·s / r2:
+    d_tgt_pos_i = −Σ_j (f·g_i + 2e·d), d_src_pos_j = Σ_i (f·g_i + 2e·d),
+    d_tgt_radius_i = Σ_j e, d_src_gm_j = Σ_i k·s.
+
+    On the card: the target pass and the source pass of
+    ``csrc/direct_vjp.cu``, split as :func:`vjp_splits` says, fixed order,
+    no atomics. On the CPU: :func:`force_acc_vjp_plain`."""
+    device = _device_of(tgt_pos)
+    t, s = tgt_pos.shape[0], src_pos.shape[0]
+    _check("tgt_pos", tgt_pos, (t, 2), device)
+    _check("tgt_radius", tgt_radius, (t,), device)
+    _check("src_pos", src_pos, (s, 2), device)
+    _check("src_gm", src_gm, (s,), device)
+    _check("g", g, (t, 2), device)
+    if device.type == "cpu":
+        return force_acc_vjp_plain(tgt_pos, tgt_radius, src_pos, src_gm, g,
+                                   precise=precise)
+    global VJP_LAUNCHES
+    split_t, split_s = vjp_splits(t, s, device_sms(device))
+    f32 = dict(dtype=torch.float32, device=device)
+    d_tp, d_sp = torch.zeros((t, 2), **f32), torch.zeros((s, 2), **f32)
+    d_tr, d_sg = torch.zeros((t,), **f32), torch.zeros((s,), **f32)
+    if t == 0 or s == 0:
+        return d_tp, d_tr, d_sp, d_sg
+
+    # (ranges, rows, 3) partials of a split pass, summed in range order
+    part_t = torch.empty((split_t, t, 3), **f32) if split_t > 1 else None
+    part_s = torch.empty((split_s, s, 3), **f32) if split_s > 1 else None
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    lib = _vjp_lib()
+    args = (tgt_pos.data_ptr(), tgt_radius.data_ptr(), src_pos.data_ptr(),
+            src_gm.data_ptr(), g.data_ptr(), t, s, int(precise))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on(lib.nbody_direct_vjp_targets(
+            *args, split_t, ptr(part_t), d_tp.data_ptr(), d_tr.data_ptr(),
+            stream), "direct_vjp target pass")
+        VJP_LAUNCHES += 1
+        _raise_on(lib.nbody_direct_vjp_sources(
+            *args, split_s, ptr(part_s), d_sp.data_ptr(), d_sg.data_ptr(),
+            stream), "direct_vjp source pass")
+        VJP_LAUNCHES += 1
+    return d_tp, d_tr, d_sp, d_sg
+
+
+def _vjp_lib():
+    from . import _build
+
+    return _build.load("direct_vjp")
 
 
 def _pos_dt_times_dt(pos_dt: float, dt: float) -> float:

@@ -27,6 +27,14 @@ Counterpart of the single-device path of ``nbody_tpu/ops/p3m_forces.py``:
 ``p3m_bins`` freezes the box, both cell orders and runs and the exact-core
 rows so a caller can reuse them for several substeps
 (``p3m_rebin_interval``); positions are always read fresh through them.
+
+Gradients flow as in JAX: through the CIC weights, the FFT solve, the
+row gathers into cell order and back, the pair correction
+(``p3m_pp.pp_cells``, whose backward is its VJP kernel on the card) and
+the exact-core rows (``direct_forces.force_acc``), with respect to
+positions, radii and gm. The box is formed from detached inputs (JAX's
+``stop_gradient``), so rc and the cells carry no gradient.
+
 The stages run inside ``torch.profiler.record_function`` ranges named
 ``p3m.*``, so a profile splits a substep by stage. Nothing here waits for
 the host: sizes are static and every data-dependent quantity stays on the
@@ -114,14 +122,35 @@ def _pack_source_blocks(src_pos, src_gm, order_s, counts_s, gc, cap):
         counts_s, gc, cap)
 
 
+class _RowGather(torch.autograd.Function):
+    """rows[order] for (n, 4) fp32 rows and a permutation ``order``, each
+    row moved as one complex128 element (a copy of its 16 bytes). The
+    backward writes the cotangent rows back through the inverse of the
+    permutation, 16 bytes a row too: out[order] = g, which is deterministic
+    because ``order`` is a permutation."""
+
+    @staticmethod
+    def forward(ctx, rows, order):
+        ctx.save_for_backward(order)
+        return rows.view(torch.complex128)[order].view(DTYPE)
+
+    @staticmethod
+    def backward(ctx, g):
+        (order,) = ctx.saved_tensors
+        out = torch.empty((g.shape[0], 4), dtype=DTYPE, device=g.device)
+        out.view(torch.complex128)[order] = g.contiguous().view(
+            torch.complex128)
+        return out, None
+
+
 def _cell_rows(xy, w, order):
     """(n, 4) fp32 rows x, y, w, 0 in cell order: ``p3m_pp.pp_cells``'s
     layout (16 bytes a row). The gather moves each row as one complex128
     element, a copy of its bytes: on the card PyTorch gathers 16-byte
     elements many times faster than rows of four fp32 (``chip_smoke.py``
-    [8] times both)."""
+    [8] times both). Differentiable with respect to ``xy`` and ``w``."""
     rows = torch.cat([xy, w[:, None], torch.zeros_like(w)[:, None]], 1)
-    return rows.view(torch.complex128)[order].view(DTYPE)
+    return _RowGather.apply(rows, order)
 
 
 def _run_starts(counts):

@@ -27,6 +27,17 @@ Two entry points, one kernel:
   (gc, gc, cap) blocks in, (gc², cap_t, 2) out. On the card it runs the
   same kernel on the blocks written as rows, cell c's run at c · cap.
 
+``pp_cells`` is differentiable with respect to columns 0-2 of its rows
+(x, y, r + floor of the targets; x, y, gm of the sources): a
+``torch.autograd.Function`` whose backward is :func:`pp_cells_vjp`, the
+VJP of ``_pp_blocks_jnp`` (the adjoint that ``nbody_tpu``'s ``pp_blocks``
+recomputes at backward time) on the same slots, taper and ``d² < rc²``
+mask included. On the card it is the two kernels of
+``csrc/p3m_pp_vjp.cu``; on the CPU, :func:`pp_cells_vjp_plain`. The runs,
+``rc`` and ``eps2`` get no gradient: the p3m path forms rc from a box that
+is detached, as JAX's is under ``stop_gradient``, and the softening is a
+constant.
+
 Dispatch is by the device of the tensors: CPU tensors take the plain
 version; CUDA tensors launch the kernel, and anything wrong there raises.
 """
@@ -44,6 +55,11 @@ from ..types import DTYPE, SOFTENING_FLOOR
 # (plain-version calls are not counted). A run resets it to 0 and reads it
 # back.
 LAUNCHES = 0
+
+# Kernel launches of the VJP (csrc/p3m_pp_vjp.cu): each call of
+# ``pp_cells_vjp`` on the card launches its target pass and its source pass
+# and adds 2.
+VJP_LAUNCHES = 0
 
 # Targets a kernel task: one warp, one target a lane (csrc/p3m_pp.cu).
 TILE = 32
@@ -228,6 +244,24 @@ def _check_cells(trows, srows, runs, cap_t, cap_s, device) -> int:
     return gc
 
 
+def _tasks(counts, cap: int, n_rows: int, gc: int):
+    """A pass's task list on the device: (tile_end, max_tasks). tile_end is
+    the inclusive prefix sum of ceil(min(counts, cap) / TILE) over the
+    cells; max_tasks bounds its last entry from the host-known sizes, one
+    task a tile of TILE rows: at most ceil(n_rows / TILE) full tiles plus
+    one partial tile a cell that holds rows."""
+    max_tasks = -(-n_rows // TILE) + min(gc * gc, n_rows)
+    tiles = (counts.clamp(max=cap) + (TILE - 1)) // TILE
+    return torch.cumsum(tiles, 0, dtype=torch.int32), max_tasks
+
+
+def _check_kernel_rows(trows, srows, max_tasks) -> None:
+    if max(trows.shape[0], srows.shape[0], max_tasks) >= 2 ** 31:
+        raise ValueError("p3m_pp: the kernel indexes rows and tasks in int32")
+    if trows.data_ptr() % 16 or srows.data_ptr() % 16:
+        raise ValueError("p3m_pp: the row arrays must be 16-byte aligned")
+
+
 def _launch(trows, srows, start_t, counts_t, start_s, counts_s, gc, cap_t,
             cap_s, rc, eps2, precise) -> torch.Tensor:
     """The kernel on runs of rows: (n_t, 2), zeros outside the live rows."""
@@ -236,18 +270,11 @@ def _launch(trows, srows, start_t, counts_t, start_s, counts_s, gc, cap_t,
 
     device = trows.device
     n_t, n_s = trows.shape[0], srows.shape[0]
-    # one task a tile of TILE targets of a cell: at most ceil(n_t / TILE)
-    # full tiles plus one partial tile a cell that holds targets
-    max_tasks = -(-n_t // TILE) + min(gc * gc, n_t)
-    if max(n_t, n_s, max_tasks) >= 2 ** 31:
-        raise ValueError("p3m_pp: the kernel indexes rows and tasks in int32")
-    if trows.data_ptr() % 16 or srows.data_ptr() % 16:
-        raise ValueError("p3m_pp: the row arrays must be 16-byte aligned")
+    tile_end, max_tasks = _tasks(counts_t, cap_t, n_t, gc)
+    _check_kernel_rows(trows, srows, max_tasks)
     out = torch.zeros((n_t, 2), dtype=DTYPE, device=device)
     if max_tasks == 0:
         return out
-    tiles = (counts_t.clamp(max=cap_t) + (TILE - 1)) // TILE
-    tile_end = torch.cumsum(tiles, 0, dtype=torch.int32)
     scal = _scalars(rc, eps2, device)
     with torch.cuda.device(device):
         err = _build.load("p3m_pp").nbody_p3m_pp(
@@ -260,6 +287,37 @@ def _launch(trows, srows, start_t, counts_t, start_s, counts_s, gc, cap_t,
         raise RuntimeError(f"p3m_pp kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+def _no_grad_scalar(x):
+    """rc or eps2 as the pair correction takes it: a float, or a 0-dim
+    tensor detached from any graph (the runs' box carries no gradient)."""
+    return x.detach() if isinstance(x, torch.Tensor) else x
+
+
+class _PPCells(torch.autograd.Function):
+    """:func:`pp_cells` with its VJP: only the rows and runs are saved,
+    and the backward recomputes the pair terms (:func:`pp_cells_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, trows, srows, start_t, counts_t, start_s, counts_s, rc,
+                eps2, gc, cap_t, cap_s, precise):
+        ctx.save_for_backward(trows, srows, start_t, counts_t, start_s,
+                              counts_s)
+        ctx.cfg = (rc, eps2, cap_t, cap_s, precise)
+        if trows.device.type == "cpu":
+            return pp_cells_plain(trows, srows, start_t, counts_t, start_s,
+                                  counts_s, rc, eps2, cap_t=cap_t,
+                                  cap_s=cap_s, precise=precise)
+        return _launch(trows, srows, start_t, counts_t, start_s, counts_s, gc,
+                       cap_t, cap_s, rc, eps2, precise)
+
+    @staticmethod
+    def backward(ctx, g):
+        rc, eps2, cap_t, cap_s, precise = ctx.cfg
+        d_t, d_s = pp_cells_vjp(*ctx.saved_tensors, rc, eps2, g.contiguous(),
+                                cap_t=cap_t, cap_s=cap_s, precise=precise)
+        return (d_t, d_s) + (None,) * 10
 
 
 def pp_cells(
@@ -278,18 +336,209 @@ def pp_cells(
     n, the slots that ``nbody_tpu``'s (gc, gc, cap) blocks hold; every
     other row is 0 (a target past its cell's cap keeps the mesh force
     only). The runs must lie inside the rows. The call makes no host
-    sync."""
+    sync. Differentiable with respect to ``trows`` and ``srows``; the
+    backward is :func:`pp_cells_vjp`."""
     device = trows.device
     _check_device(device)
     runs = {"start_t": start_t, "counts_t": counts_t, "start_s": start_s,
             "counts_s": counts_s}
     gc = _check_cells(trows, srows, runs, cap_t, cap_s, device)
+    return _PPCells.apply(trows, srows, start_t, counts_t, start_s, counts_s,
+                          _no_grad_scalar(rc), _no_grad_scalar(eps2), gc,
+                          cap_t, cap_s, precise)
+
+
+def _pair_vjp_terms(dx, dy, tr, gm, gx, gy, rc2, eps2, inv_rc, precise):
+    """The VJP terms of the pairs (d = source − target, target softening
+    ``tr``, source ``gm``, target cotangent (gx, gy)), broadcast together:
+    (cx, cy, e_tr, e_gm), zero outside d² < rc². With
+    h = exact³ − taper·smooth³, w = gm·h, s = g·d and ps = s·gm:
+    c = w·g + 2·(te − tt − taper·ts)·d, e_tr = te, e_gm = s·h, where
+    te = −1.5·exact³·ps / r2, ts = −1.5·smooth³·ps / q2 and
+    tt = taper'(u)·(0.5 / sqrt(d² + 1e-12))·(1/rc)·smooth³·ps
+    (taper'(u) = 30u²(1 − u)² below the clamp, 0 at it)."""
+    d2 = dx * dx + dy * dy
+    r2 = d2 + tr
+    q2 = d2 + eps2
+    if precise:
+        exact3 = 1.0 / (forces.sqrt(r2) * r2)
+        smooth3 = 1.0 / (forces.sqrt(q2) * q2)
+    else:
+        inv = torch.rsqrt(r2)
+        exact3 = inv * inv * inv
+        invq = torch.rsqrt(q2)
+        smooth3 = invq * invq * invq
+    su = forces.sqrt(d2 + 1e-12)
+    u = torch.clamp(su * inv_rc, max=1.0)
+    taper = u * u * u * (10.0 + u * (6.0 * u - 15.0))
+    one_u = 1.0 - u
+    dtaper = torch.where(u < 1.0, 30.0 * u * u * one_u * one_u
+                         * (0.5 / su) * inv_rc, 0.0)
+    h = exact3 - taper * smooth3
+    s = gx * dx + gy * dy
+    ps = s * gm
+    te = -1.5 * exact3 * ps / r2
+    ts = -1.5 * smooth3 * ps / q2
+    tt = dtaper * smooth3 * ps
+    k2 = 2.0 * (te - tt - taper * ts)
+    w = gm * h
+    inside = d2 < rc2
+    return (torch.where(inside, w * gx + k2 * dx, 0.0),
+            torch.where(inside, w * gy + k2 * dy, 0.0),
+            torch.where(inside, te, 0.0),
+            torch.where(inside, s * h, 0.0))
+
+
+def _pp_vjp_blocks(tb, gb, sb, rc, eps2, precise, cells_t, cells_s):
+    """The block form of :func:`pp_cells_vjp_plain`: target blocks ``tb``
+    (gc², cap_t, 3: x, y, r + floor), their cotangents ``gb`` (gc², cap_t,
+    2, zero in empty slots) and source blocks ``sb`` (gc², cap_s, 3: x, y,
+    gm, gm = 0 in empty slots). Returns the target slots' (gc², cap_t, 3)
+    and the source slots' (gc², cap_s, 3) cotangents, computed for the
+    target cells ``cells_t`` and the source cells ``cells_s`` only (zero
+    elsewhere), a chunk of cells at a time: each target against its 3×3
+    neighbour cells' sources, then each source against its neighbour
+    cells' targets (the neighbourhood is symmetric, so each pair is seen
+    once on each side)."""
+    n_cells, cap_t, _ = tb.shape
+    cap_s = sb.shape[1]
+    gc = math.isqrt(n_cells)
+    rc, eps2, inv_rc = _scalars(rc, eps2, tb.device)
+    rc2 = rc * rc
+
+    def ring(a, fill):
+        """(gc + 2)² cells of the slots' values, a ring of ``fill``."""
+        grid = a.reshape(gc, gc, -1)
+        return torch.nn.functional.pad(grid, (0, 0, 1, 1, 1, 1),
+                                       value=fill).reshape((gc + 2) ** 2, -1)
+
+    def neighbours(padded, chunk):
+        nb = _neighbour_cells(chunk, gc)
+        return padded[nb].reshape(len(chunk), -1)
+
+    out_t = torch.zeros((n_cells, cap_t, 3), dtype=DTYPE, device=tb.device)
+    out_s = torch.zeros((n_cells, cap_s, 3), dtype=DTYPE, device=tb.device)
+    per = max(1, PLAIN_CHUNK_ELEMS // (max(cap_t, cap_s) * 9
+                                       * max(cap_t, cap_s)))
+    src_ring = [ring(sb[..., k], 0.0) for k in range(3)]
+    tgt_ring = [ring(tb[..., 0], 0.0), ring(tb[..., 1], 0.0),
+                ring(tb[..., 2], 1.0), ring(gb[..., 0], 0.0),
+                ring(gb[..., 1], 0.0)]
+    for c0 in range(0, cells_t.shape[0], per):
+        # targets of the chunk's cells against their neighbours' sources
+        chunk = cells_t[c0:c0 + per]
+        nsx, nsy, nsg = (neighbours(p, chunk)[:, None, :] for p in src_ring)
+        tx, ty, tr = (tb[chunk, :, k][:, :, None] for k in range(3))
+        gx, gy = (gb[chunk, :, k][:, :, None] for k in range(2))
+        cx, cy, e_tr, _ = _pair_vjp_terms(nsx - tx, nsy - ty, tr, nsg, gx, gy,
+                                          rc2, eps2, inv_rc, precise)
+        out_t[chunk] = torch.stack([-cx.sum(-1), -cy.sum(-1), e_tr.sum(-1)],
+                                   -1)
+    for c0 in range(0, cells_s.shape[0], per):
+        # sources of the chunk's cells against their neighbours' targets
+        chunk = cells_s[c0:c0 + per]
+        ntx, nty, ntr, ngx, ngy = (neighbours(p, chunk)[:, None, :]
+                                   for p in tgt_ring)
+        sx, sy, sg = (sb[chunk, :, k][:, :, None] for k in range(3))
+        cx, cy, _, e_gm = _pair_vjp_terms(sx - ntx, sy - nty, ntr, sg, ngx,
+                                          ngy, rc2, eps2, inv_rc, precise)
+        out_s[chunk] = torch.stack([cx.sum(-1), cy.sum(-1), e_gm.sum(-1)], -1)
+    return out_t, out_s
+
+
+def pp_cells_vjp_plain(trows, srows, start_t, counts_t, start_s, counts_s, rc,
+                       eps2, g, *, cap_t: int, cap_s: int,
+                       precise: bool = False, cells=None):
+    """Plain version of :func:`pp_cells_vjp`: the runs packed into blocks as
+    :func:`pp_cells_plain` packs them (the cotangent ``g`` with them, zero
+    in empty slots), the explicit VJP of the block correction on them, and
+    the live slots' cotangents taken back to their rows. Only cells that
+    hold rows are computed, and the blocks are cut to the fullest cell's
+    slots (an empty slot adds exactly 0), which reads the counts on the
+    host. With ``cells`` (cell indices) only the rows of those cells,
+    targets and sources, are computed; the others stay 0 (a judge for a
+    part of a large grid)."""
+    n_t, n_s = trows.shape[0], srows.shape[0]
+    with torch.no_grad():
+        cap_t = max(1, min(cap_t, int(counts_t.max())))
+        cap_s = max(1, min(cap_s, int(counts_s.max())))
+        tb, idx_t, live_t = _runs_to_blocks(trows, start_t, counts_t, cap_t,
+                                            (0.0, 0.0, 1.0, 0.0))
+        g4 = torch.cat([g, torch.zeros_like(g)], 1)
+        gb, _, _ = _runs_to_blocks(g4, start_t, counts_t, cap_t,
+                                   (0.0, 0.0, 0.0, 0.0))
+        sb, idx_s, live_s = _runs_to_blocks(srows, start_s, counts_s, cap_s,
+                                            (0.0, 0.0, 0.0, 0.0))
+        keep = torch.ones_like(counts_t, dtype=torch.bool)
+        if cells is not None:
+            keep = torch.zeros_like(keep)
+            keep[cells] = True
+        cells_t = torch.nonzero(keep & (counts_t > 0)).reshape(-1)
+        cells_s = torch.nonzero(keep & (counts_s > 0)).reshape(-1)
+        out_t, out_s = _pp_vjp_blocks(tb[..., :3], gb[..., :2], sb[..., :3],
+                                      rc, eps2, precise, cells_t, cells_s)
+        d_t = torch.zeros((n_t, 4), dtype=DTYPE, device=trows.device)
+        d_s = torch.zeros((n_s, 4), dtype=DTYPE, device=trows.device)
+        d_t[idx_t[live_t], :3] = out_t[live_t]
+        d_s[idx_s[live_s], :3] = out_s[live_s]
+    return d_t, d_s
+
+
+def pp_cells_vjp(
+    trows: torch.Tensor, srows: torch.Tensor,
+    start_t: torch.Tensor, counts_t: torch.Tensor,
+    start_s: torch.Tensor, counts_s: torch.Tensor,
+    rc: float | torch.Tensor, eps2: float | torch.Tensor,
+    g: torch.Tensor,         # (n_t, 2) cotangent of pp_cells' result
+    *, cap_t: int, cap_s: int, precise: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The VJP of :func:`pp_cells` at its rows with cotangent ``g``:
+    (d_trows (n_t, 4), d_srows (n_s, 4)), columns x, y and r + floor (gm
+    for the sources), column 3 zero. Rows past a cell's cap (either side)
+    get exactly 0, as the slots that ``nbody_tpu``'s packed blocks drop.
+
+    On the card: the target pass and the source pass of
+    ``csrc/p3m_pp_vjp.cu`` (one warp a tile of 32 rows of a cell, task
+    lists built on the device, fixed order, no atomics, no host sync). On
+    the CPU: :func:`pp_cells_vjp_plain`."""
+    device = trows.device
+    _check_device(device)
+    runs = {"start_t": start_t, "counts_t": counts_t, "start_s": start_s,
+            "counts_s": counts_s}
+    gc = _check_cells(trows, srows, runs, cap_t, cap_s, device)
+    _check_float("g", g, (trows.shape[0], 2), device)
+    rc, eps2 = _no_grad_scalar(rc), _no_grad_scalar(eps2)
     if device.type == "cpu":
-        return pp_cells_plain(trows, srows, start_t, counts_t, start_s,
-                              counts_s, rc, eps2, cap_t=cap_t, cap_s=cap_s,
-                              precise=precise)
-    return _launch(trows, srows, start_t, counts_t, start_s, counts_s, gc,
-                   cap_t, cap_s, rc, eps2, precise)
+        return pp_cells_vjp_plain(trows, srows, start_t, counts_t, start_s,
+                                  counts_s, rc, eps2, g, cap_t=cap_t,
+                                  cap_s=cap_s, precise=precise)
+    global VJP_LAUNCHES
+    from . import _build
+
+    n_t, n_s = trows.shape[0], srows.shape[0]
+    end_t, tasks_t = _tasks(counts_t, cap_t, n_t, gc)
+    end_s, tasks_s = _tasks(counts_s, cap_s, n_s, gc)
+    _check_kernel_rows(trows, srows, max(tasks_t, tasks_s))
+    d_t = torch.zeros((n_t, 4), dtype=DTYPE, device=device)
+    d_s = torch.zeros((n_s, 4), dtype=DTYPE, device=device)
+    if tasks_t == 0 or tasks_s == 0:
+        return d_t, d_s
+    scal = _scalars(rc, eps2, device)
+    lib = _build.load("p3m_pp_vjp")
+    args = (trows.data_ptr(), n_t, srows.data_ptr(), n_s, start_t.data_ptr(),
+            counts_t.data_ptr(), start_s.data_ptr(), counts_s.data_ptr(), gc,
+            cap_t, cap_s, scal.data_ptr(), int(precise), g.data_ptr())
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for fn, end, tasks, out, what in (
+                (lib.nbody_p3m_pp_vjp_targets, end_t, tasks_t, d_t, "target"),
+                (lib.nbody_p3m_pp_vjp_sources, end_s, tasks_s, d_s, "source")):
+            err = fn(*args, end.data_ptr(), tasks, out.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"p3m_pp_vjp {what} pass launch failed: "
+                                   f"cudaError {err}")
+            VJP_LAUNCHES += 1
+    return d_t, d_s
 
 
 def pp_blocks(

@@ -21,7 +21,10 @@ same order (``index_put_`` there adds by float atomics across threads from
 32768 entries on).
 
 The sizes and shapes stay on the device: the box is a pair of 0-dim
-tensors, so nothing here waits for the host.
+tensors, so nothing here waits for the host. Gradients flow as in JAX,
+with respect to positions (through the CIC weights) and gm; the box is
+computed from detached inputs, as JAX computes it under
+``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -58,7 +61,10 @@ def _cic_weights(pos, lo, inv_h, grid):
 
 def _bounds(tgt_pos, src_pos, src_gm, tgt_mask=None):
     """Bounding box (min, max), each (2,), over targets and real (gm != 0)
-    sources; with ``tgt_mask`` only the rows it marks non-zero count."""
+    sources; with ``tgt_mask`` only the rows it marks non-zero count. The
+    inputs are read detached (JAX's ``stop_gradient``): the box is a
+    discretization choice and carries no gradient."""
+    tgt_pos, src_pos, src_gm = (x.detach() for x in (tgt_pos, src_pos, src_gm))
     inf = float("inf")
     src_real = (src_gm != 0.0)[:, None]
     s_min = torch.where(src_real, src_pos, inf).amin(dim=0)

@@ -919,3 +919,226 @@ def test_merging_world_on_the_card_matches_torch_and_makes_no_sync(cuda):
     assert rel_err(a.pos, b.pos) < 1e-5
     np.testing.assert_allclose(w.gm.cpu().numpy(),
                                10.0 * a.mass[:w.mass_len].numpy(), rtol=1e-6)
+
+
+# --- the VJP kernels and the differentiable rollouts ---
+# Bound 2e-5 of max|ref| for each cotangent: the kernels and the plain VJPs
+# run the same fp32 formulas, summed in another order (the plain version
+# sums a whole row of pairs at once) and with FMA contraction; a cotangent
+# is a sum of terms of both signs, so its error is relative to the largest
+# term, as a force's is.
+
+VJP_TOL = 2e-5
+
+
+def _vjp_case(device, t, s, seed=0, prefix=False):
+    """force_acc_vjp inputs: t targets, half of them of radius 0, and s
+    sources apart from them, a third with gm = 0; with ``prefix`` the
+    sources are the first s targets (as a rollout passes p[:m]), radii
+    positive. Where a target is its own source, the pair adds f·g to its
+    target and source cotangents, which then dominate max|ref|: the
+    sources apart are the stricter test of the other pairs."""
+    pos, _, radius, gm = _inputs(device, t + s, s, seed=seed,
+                                 zero_radius_tracers=False)
+    gm[::3] = 0.0
+    g = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(t, 2)).astype(np.float32)).to(device)
+    if prefix:
+        return pos[:t].contiguous(), radius[:t].contiguous(), pos[:s], gm, g
+    radius[:t:2] = 0.0
+    return (pos[:t].contiguous(), radius[:t].contiguous(),
+            pos[t:t + s].contiguous(), gm, g)
+
+
+def _rel_each(got, want):
+    return [0.0 if not w.abs().sum() else rel_err(a.cpu(), w.cpu())
+            for a, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("t,s,prefix", [(1000, 333, False), (1000, 0, False),
+                                        (257, 1, False), (64, 20000, False),
+                                        (300, 2000, False), (1000, 333, True)])
+def test_force_acc_vjp_matches_plain_and_repeats(cuda, precise, t, s, prefix):
+    args = _vjp_case(cuda, t, s, seed=t + s, prefix=prefix)
+    before = df.VJP_LAUNCHES
+    got = df.force_acc_vjp(*args, precise=precise)
+    again = df.force_acc_vjp(*args, precise=precise)
+    assert df.VJP_LAUNCHES == before + (4 if s else 0)
+    want = df.force_acc_vjp_plain(*args, precise=precise)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.isfinite(a).all() for a in got)
+    assert max(_rel_each(got, want)) < VJP_TOL
+
+
+@pytest.mark.parametrize("t,s,split", [(200, 250, (False, False)),
+                                       (700, 900, (True, True)),
+                                       (70000, 900, (False, True)),
+                                       (900, 70000, (True, False))])
+def test_force_acc_vjp_any_split_matches_plain(cuda, t, s, split):
+    """Shapes that split neither pass, both, or one (the source ranges of
+    the target pass, the target ranges of the source pass)."""
+    ranges = df.vjp_splits(t, s, df.device_sms(cuda))
+    assert tuple(r > 1 for r in ranges) == split, ranges
+    args = _vjp_case(cuda, t, s, seed=2)
+    got = df.force_acc_vjp(*args)
+    want = df.force_acc_vjp_plain(*args)
+    assert max(_rel_each(got, want)) < VJP_TOL
+
+
+def test_force_acc_backward_is_the_vjp_kernel(cuda):
+    tp, tr, sp, sg, g = _vjp_case(cuda, 500, 200, seed=4)
+    ts = [x.clone().requires_grad_() for x in (tp, tr, sp, sg)]
+    before = df.VJP_LAUNCHES
+    df.force_acc(*ts).backward(g)
+    assert df.VJP_LAUNCHES == before + 2
+    want = df.force_acc_vjp(tp, tr, sp, sg, g)
+    assert all(torch.equal(x.grad, w) for x, w in zip(ts, want))
+
+
+@pytest.mark.parametrize("precise", [True, False])
+@pytest.mark.parametrize("scene", ["random", "galaxies"])
+def test_pp_cells_vjp_matches_plain_and_repeats(cuda, scene, precise):
+    cells, rc, _ = _cells_scene(scene, cuda, 32)
+    g = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(cells[0].shape[0], 2)).astype(np.float32)).to(cuda)
+    kw = dict(cap_t=32, cap_s=32, precise=precise)
+    before = p3m_pp.VJP_LAUNCHES
+    got = p3m_pp.pp_cells_vjp(*cells, rc, 4.0, g, **kw)
+    again = p3m_pp.pp_cells_vjp(*cells, rc, 4.0, g, **kw)
+    assert p3m_pp.VJP_LAUNCHES == before + 4
+    want = p3m_pp.pp_cells_vjp_plain(*cells, rc, 4.0, g, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.isfinite(a).all() for a in got)
+    assert max(_rel_each(got, want)) < VJP_TOL
+    # rows past a cell's cap, on both sides, get exactly 0
+    for rows, out, start, counts in ((cells[0], got[0], cells[2], cells[3]),
+                                     (cells[1], got[1], cells[4], cells[5])):
+        idx, live = p3m_pp.run_slots(start, counts, 32, rows.shape[0])
+        dropped = torch.ones(rows.shape[0], dtype=torch.bool, device=cuda)
+        dropped[idx[live]] = False
+        assert not out[dropped].abs().sum()
+
+
+def _rollout_scene(n, seed=11037):
+    w = nt.create_world(nt.make_galaxies(n, 2, seed=seed), device="cpu")
+    return [getattr(w.state, k) for k in ("pos", "vel", "mass", "radius")], \
+        w.mass_len
+
+
+@pytest.mark.parametrize("integrator", ["euler", "yoshida4"])
+def test_cuda_rollout_grads_match_torch_rollout(cuda, integrator):
+    """The "cuda" rollout (K1 forward, the VJP kernels backward) against the
+    "torch" one on the card: value, and the gradients with respect to
+    pos0, vel0, mass, radius and dt within 1e-4 of max|ref| (JAX's bound
+    between "pallas" and "jnp"); one VJP call a force evaluation."""
+    from nbody_tpu_torch import autodiff
+
+    (pos, vel, mass, radius), ml = _rollout_scene(1200)
+    stages = 3 if integrator == "yoshida4" else 1
+    loss = autodiff.trajectory_loss(torch.zeros(2, device=cuda), index=ml + 5)
+
+    def run(backend):
+        xs = [x.to(cuda).requires_grad_() for x in (pos, vel, mass, radius)]
+        dt = torch.tensor(0.01, device=cuda, requires_grad=True)
+        val = loss(*xs, dt, n_steps=3, mass_len=ml, backend=backend,
+                   integrator=integrator)
+        return val, torch.autograd.grad(val, [*xs, dt])
+
+    before = df.VJP_LAUNCHES
+    v_c, g_c = run("cuda")
+    assert df.VJP_LAUNCHES == before + 2 * 3 * stages
+    v_t, g_t = run("torch")
+    assert float(v_c) == pytest.approx(float(v_t), rel=1e-5)
+    for a, b in zip(g_c, g_t):
+        assert torch.isfinite(a).all()
+        assert rel_err(a.cpu().reshape(-1), b.cpu().reshape(-1)) < 1e-4
+
+
+def test_p3m_rollout_on_the_card_matches_the_cpu_and_repeats(cuda):
+    """The "p3m" rollout on the card (K4 and its VJP kernels, force_acc and
+    its VJP kernels for the exact-core rows): two steps twice bit-equal,
+    with one VJP call of each a step; one step against the same rollout on
+    the CPU (plain versions), value and gradient. One step only: after it
+    the two devices' positions differ in the last bits (cuFFT and the CPU's
+    FFT round differently), which can move a particle across a CIC cell
+    boundary, where the mesh force's gradient jumps."""
+    from nbody_tpu_torch import autodiff
+
+    (pos, vel, mass, radius), ml = _rollout_scene(3000)
+    kw = dict(mass_len=ml, backend="p3m", pm_grid=128, p3m_cell_capacity=32,
+              p3m_exact_targets=16, precise=False)
+
+    def run(device, n_steps):
+        p = pos.to(device).requires_grad_()
+        out, _ = autodiff.rollout(p, vel.to(device), mass.to(device),
+                                  radius.to(device), 0.01, n_steps=n_steps,
+                                  **kw)
+        val = torch.sum(out ** 2) * 1e-6
+        return val, torch.autograd.grad(val, p)[0]
+
+    before = (p3m_pp.VJP_LAUNCHES, df.VJP_LAUNCHES)
+    v1, g1 = run(cuda, 2)
+    assert (p3m_pp.VJP_LAUNCHES, df.VJP_LAUNCHES) == (before[0] + 4,
+                                                      before[1] + 4)
+    v2, g2 = run(cuda, 2)
+    assert torch.equal(g1, g2) and torch.equal(v1, v2)
+    assert torch.isfinite(g1).all()
+    v_card, g_card = run(cuda, 1)
+    v_cpu, g_cpu = run("cpu", 1)
+    assert float(v_card) == pytest.approx(float(v_cpu), rel=1e-5)
+    assert rel_err(g_card.cpu(), g_cpu) < 1e-4
+
+
+def test_sharded_cuda_rollout_matches_single_device(cuda):
+    """rollout_sharded "cuda" with four shards on one card against the
+    single-device "cuda" rollout, within nbody_tpu's bounds (value 1e-5
+    relative, gradient 3e-5): a loss of one tracer over three steps; the
+    same loss over one step without the tracer's own row, where each other
+    row is one pair's term reached through the ring's backward alone; and
+    nbody_tpu's own case, sum(pos²) on one galaxy of 500. (On two galaxies
+    the gradient of sum(pos²) is a small remainder of terms that cancel at
+    the cores, which two summation orders resolve differently:
+    tests/test_torch_autodiff.py::test_sharded_gradient_conditioning.)"""
+    from nbody_tpu_torch import autodiff
+
+    def run(state, ml, loss, sharded, n_steps=3):
+        pos, vel, mass, radius = state
+        p = pos.to(cuda).requires_grad_()
+        args = [x.to(cuda) for x in (vel, mass, radius)]
+        kw = dict(n_steps=n_steps, mass_len=ml, backend="cuda")
+        if sharded:
+            out, _ = autodiff.rollout_sharded(p, *args, 0.01,
+                                              mesh=[cuda] * 4, **kw)
+        else:
+            out, _ = autodiff.rollout(p, *args, 0.01, **kw)
+        val = loss(out)
+        return float(val), torch.autograd.grad(val, p)[0].cpu()
+
+    state, ml = _rollout_scene(2000)
+    target = state[0][ml].to(cuda) + 5.0
+
+    def tracer(out):
+        return torch.sum((out[ml] - target) ** 2)
+
+    v_s, g_s = run(state, ml, tracer, True)
+    v_1, g_1 = run(state, ml, tracer, False)
+    assert v_s == pytest.approx(v_1, rel=1e-5)
+    assert rel_err(g_s, g_1) < 3e-5
+    _, g_s = run(state, ml, tracer, True, n_steps=1)
+    _, g_1 = run(state, ml, tracer, False, n_steps=1)
+    off = torch.arange(g_1.shape[0]) != ml
+    assert g_1[off].abs().max() > 0
+    assert rel_err(g_s[off], g_1[off]) < 3e-5
+    w = nt.create_world(nt.make_galaxies(500, 1, seed=4), device="cpu")
+    one = [getattr(w.state, k) for k in ("pos", "vel", "mass", "radius")]
+
+    def squares(out):
+        return torch.sum(out ** 2)
+
+    v_s, g_s = run(one, w.mass_len, squares, True)
+    v_1, g_1 = run(one, w.mass_len, squares, False)
+    assert v_s == pytest.approx(v_1, rel=1e-5)
+    assert rel_err(g_s, g_1) < 3e-5

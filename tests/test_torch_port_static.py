@@ -49,8 +49,11 @@ def test_port_files_found():
                  "nbody_tpu_torch/viewer.py", "nbody_tpu_torch/app.py",
                  "nbody_tpu_torch/__main__.py",
                  "nbody_tpu_torch/utils/checkpoint.py",
-                 "nbody_tpu_torch/utils/checks.py"):
+                 "nbody_tpu_torch/utils/checks.py",
+                 "nbody_tpu_torch/autodiff.py"):
         assert want in names
+    for source in ("direct_vjp.cu", "p3m_pp_vjp.cu"):
+        assert (ROOT / "nbody_tpu_torch" / "csrc" / source).is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
