@@ -1881,10 +1881,13 @@ def phase_hooks(nt, sh, df, rf, pp, world_mod, diagnostics, scene_bench,
 
 # [16] collision merging and the CLI: the N=65536 scene merges in 10
 # substeps of MERGE_DT (102 contacts at the start); the contact kernel's
-# bound counts MERGE_FLOPS fp32 operations a pair
+# bound counts MERGE_FLOPS fp32 operations a candidate pair of its grid
+# (collisions.grid_candidates) and MERGE_BYTES a row (pos 8, radius 4,
+# mass 4, live 1 read; winner 8 written)
 MERGE_DT = 0.01
 MERGE_SUBSTEPS = 10
 MERGE_FLOPS = 12
+MERGE_BYTES = 25
 MERGE_SRC = "nbody_tpu_torch/csrc/merge_contacts.cu"
 MASS_BOUND = 1e-5
 GM_RTOL = 1e-6
@@ -1941,6 +1944,43 @@ def merge_bits(col, label, pos, vel, radius, mass, gm) -> int:
     return losers
 
 
+def contact_bits(col, label, args) -> float:
+    """The contact kernel against contacts_plain on ``args`` (contact
+    inputs): bit-equal, or fail. Returns the plain version's ms."""
+    got = col.contacts(*args)
+    t0 = time.perf_counter()
+    want = col.contacts_plain(*args)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    log(f"  {label}: M={args[2].shape[0]}, {int(want[0].sum())} losers; "
+        f"kernel vs contacts_plain {'bit-equal' if same else 'DIFFER'} "
+        f"(plain {plain_s:.2f} s)")
+    if not same:
+        raise SystemExit(f"chip_smoke: contact kernel differs from its plain "
+                         f"version, {label}")
+    return plain_s * 1e3
+
+
+def contact_timing(col, args, reps: int) -> dict:
+    """The contact kernel's ms (its grid's set-up included) and its bound
+    on these inputs: the candidate pairs its grid examines. Its set-up's
+    grid must be contact_grid's, bit for bit."""
+    col.contacts(*args)
+    ms = cuda_ms(lambda: col.contacts(*args), reps=reps)
+    m = args[2].shape[0]
+    grid = col.contact_grid(args[0], args[1], args[3], args[4])
+    mine = col.contact_grid_kernel(args[0], args[1], args[3], args[4])
+    if not all(torch.equal(a, b) for a, b in zip(grid, mine)):
+        raise SystemExit(f"chip_smoke: the contact kernel's grid differs "
+                         f"from contact_grid's, M={m}")
+    cand = int(col.grid_candidates(grid))
+    b_ms, b_by = bound(MERGE_FLOPS * cand, MERGE_BYTES * m)
+    return {"m": m, "ms": ms, "candidates": cand, "bound_ms": b_ms,
+            "bound_by": b_by, "width": float(grid.width),
+            "n_big": int(grid.big.sum())}
+
+
 def check_merged(label, mass0, mass, gm, mass_len) -> int:
     """Gates of a merging run: merges happened, mass conserved, gm = g·mass
     below mass_len. Returns the merges."""
@@ -1958,11 +1998,14 @@ def check_merged(label, mass0, mass, gm, mass_len) -> int:
     return merged
 
 
+CONTACT_KERNELS = ("pack_kernel", "search_kernel", "big_kernel")
+
+
 def profile_merging(world) -> dict:
     """A profiler window over MERGE_SUBSTEPS merging substeps, in device ms
-    a substep: the kernels of the contact search (contacts_kernel and
-    winner_kernel), the fused direct kernel, every other kernel and copy
-    (the scatter's PyTorch ops); the merge pass's own range (its
+    a substep: the kernels of the contact search (CONTACT_KERNELS), the
+    fused direct kernel, every other kernel and copy (the grid's set-up
+    and the scatter's PyTorch ops); the merge pass's own range (its
     record_function, first kernel to last, the gaps between them
     included); the card's busy time (the union of the kernels' and
     copies' intervals) and its idle share."""
@@ -1989,7 +2032,7 @@ def profile_merging(world) -> dict:
         raise SystemExit("chip_smoke: the profiler saw no device time")
     by = {"contacts": 0.0, "direct": 0.0, "other": 0.0}
     for a, b, name in work:
-        key = ("contacts" if "contacts_kernel" in name or "winner_kernel" in name
+        key = ("contacts" if any(k in name for k in CONTACT_KERNELS)
                else "direct" if "direct_forces_kernel" in name else "other")
         by[key] += (b - a) / 1e3 / MERGE_SUBSTEPS
     busy = union_ms([(a, b) for a, b, _ in work])
@@ -2019,6 +2062,7 @@ def phase_merge(nt, sh, df, rf, pp, world_mod, diagnostics, scene_bench,
     """[16]: collision merging (the contact kernel, World, ShardedWorld,
     p3m, adaptive) and the CLI."""
     from nbody_tpu_torch.ops import collisions as col
+    from nbody_tpu_torch.utils import contact_scenes
 
     log(f"[16] collision merging: the contact kernel, N={BENCH_N} World and "
         f"D=4 shards, the N={BIG_N} p3m slice, adaptive; the CLI")
@@ -2031,28 +2075,27 @@ def phase_merge(nt, sh, df, rf, pp, world_mod, diagnostics, scene_bench,
                f"{MERGE_DT}", st.pos, st.vel, st.radius, st.mass, ref.gm)
     merge_bits(col, "synthetic cluster (ties, a chain, dead rows)",
                *synthetic_cluster(device))
+    for kind in contact_scenes.KINDS:
+        for factor in (1.0, 1.5):
+            contact_bits(col, f"scene {kind}, factor {factor}",
+                         (*contact_scenes.contact_scene(kind, device), factor))
     args = contact_inputs(st.pos, st.radius, st.mass, ref.gm)
-    m = ref.mass_len
-    col.contacts(*args)
-    ms = cuda_ms(lambda: col.contacts(*args), reps=20)
+    kt = contact_timing(col, args, reps=20)
     plain_ms = cuda_ms(lambda: col.contacts_plain(*args))
-    b_ms, b_by = bound(MERGE_FLOPS * m * m, 26 * m)
     big = nt.create_world(scene_big, device=device)
     big_args = contact_inputs(big.state.pos, big.state.radius,
                               big.state.mass, big.gm)
-    col.contacts(*big_args)
-    big_ms = cuda_ms(lambda: col.contacts(*big_args))
-    big_bound = bound(MERGE_FLOPS * big.mass_len ** 2, 26 * big.mass_len)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"  contact kernel: N={BENCH_N} M={m} {ms:.4f} ms (bound {b_ms:.4f} "
-        f"ms by {b_by}, {b_ms / ms:.1%} of it), plain {plain_ms:.4f} ms; "
-        f"N={BIG_N} M={big.mass_len} {big_ms:.4f} ms (bound "
-        f"{big_bound[0]:.4f}); plans (n_split, tiles a range) "
-        f"{col.contact_plan(m, sms)} and {col.contact_plan(big.mass_len, sms)}")
+    bt = contact_timing(col, big_args, reps=5)
+    for label, t in ((f"N={BENCH_N}", kt), (f"N={BIG_N}", bt)):
+        log(f"  contact kernel {label} M={t['m']}: {t['ms']:.4f} ms; its grid "
+            f"(bit-equal to contact_grid's; cells {t['width']:.6g} wide, "
+            f"{t['n_big']} big rows) examines "
+            f"{t['candidates']} candidate pairs against M² = "
+            f"{t['m'] ** 2:.4e}; bound {t['bound_ms']:.6f} ms by "
+            f"{t['bound_by']}, {t['bound_ms'] / t['ms']:.2%} of it")
+    log(f"  contact plain N={BENCH_N}: {plain_ms:.4f} ms")
     del ref, big, big_args
-    out["kernel"] = {"m": m, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "big_ms": big_ms,
-                     "big_bound_ms": big_bound[0]}
+    out["kernel"] = {**kt, "plain_ms": plain_ms, "big": bt}
 
     # b. the merging World, twice from one state
     cfg = nt.SimConfig(merge_collisions=True)
@@ -2149,7 +2192,14 @@ def phase_merge(nt, sh, df, rf, pp, world_mod, diagnostics, scene_bench,
                             pw.particles.mass, pw.gm, pw.mass_len)
     log(f"  p3m merging N={BIG_N}: {dev / 2:.4f} ms/substep device, "
         f"{host / 2:.4f} host, {p_merged} merged rows in 2 substeps")
-    out["p3m"] = {"ms": dev / 2, "host_ms": host / 2, "merged": p_merged}
+    # the merged state, every row of its prefix, against the O(M²) plain
+    # version (~16 s on the card)
+    pst = pw.state
+    big_plain = contact_bits(
+        col, f"N={BIG_N} slice after 2 merging p3m substeps, every row",
+        contact_inputs(pst.pos, pst.radius, pst.mass, pw.gm))
+    out["p3m"] = {"ms": dev / 2, "host_ms": host / 2, "merged": p_merged,
+                  "contacts_plain_ms": big_plain}
     del pw
 
     # e. adaptive with merging, "cuda" and "torch"
@@ -2452,12 +2502,12 @@ def phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big, slice_w,
     plain_ms = cuda_ms(lambda: df.force_acc_vjp_plain(*args, precise=True))
     b_ms, b_by = direct_vjp_bound(BENCH_N, m, True)
     rb_ms, rb_by = direct_vjp_bound(BENCH_N, m, False)
-    splits = df.vjp_splits(BENCH_N, m, df.device_sms(device))
+    plan = df.vjp_plan(BENCH_N, m, df.device_sms(device)).describe()
     log(f"  K1 VJP N={BENCH_N} S={m}: precise {ms[True]:.4f} ms (bound "
         f"{b_ms:.4f} ms by {b_by}, {b_ms / ms[True]:.1%} of it), rsqrt "
         f"{ms[False]:.4f} ms (bound {rb_ms:.4f} ms by {rb_by}, "
-        f"{rb_ms / ms[False]:.1%} of it); plain {plain_ms:.2f} ms; ranges "
-        f"(target pass, source pass) {splits}")
+        f"{rb_ms / ms[False]:.1%} of it); plain {plain_ms:.2f} ms; plan "
+        f"{plan}")
     out["k1"] = {"n": BENCH_N, "s": m, "ms": ms[True], "rsqrt_ms": ms[False],
                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
     sst, sm = slice_w.state, slice_w.mass_len
@@ -2472,8 +2522,8 @@ def phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big, slice_w,
     core_ms = cuda_ms(lambda: df.force_acc_vjp(*core), reps=5)
     core_b = direct_vjp_bound(tp.shape[0], sm, False)
     log(f"  K1 VJP T={tp.shape[0]} S={sm}: {core_ms:.4f} ms (bound "
-        f"{core_b[0]:.4f} ms by {core_b[1]}); ranges "
-        f"{df.vjp_splits(tp.shape[0], sm, df.device_sms(device))}")
+        f"{core_b[0]:.4f} ms by {core_b[1]}); plan "
+        f"{df.vjp_plan(tp.shape[0], sm, df.device_sms(device)).describe()}")
     out["k1"]["max_abs_err"] = worst
     out["k1"]["core_ms"] = core_ms
 
@@ -2533,8 +2583,7 @@ def phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big, slice_w,
     launches = (df.LAUNCHES, df.VJP_LAUNCHES)
     expect_launches("'cuda' rollout, force_acc (forward and recomputed)",
                     launches[0], 2 * AD_STEPS)
-    expect_launches("'cuda' rollout, K1 VJP kernels", launches[1],
-                    2 * AD_STEPS)
+    expect_launches("'cuda' rollout, K1 VJP kernel", launches[1], AD_STEPS)
     val2, grads2 = rollout_grads(loss, st, dt, **kw)
     if not all(torch.equal(a, b) for a, b in zip(grads, grads2)) \
             or not torch.equal(val, val2):
@@ -2559,7 +2608,7 @@ def phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big, slice_w,
     both_ms /= AD_STEPS
     log(f"  'cuda' rollout N={BENCH_N} precise euler, {AD_STEPS} steps of "
         f"{AD_DT}, remat: launches {launches[0]} force_acc ({AD_STEPS} "
-        f"forward, {AD_STEPS} recomputed), {launches[1]} K1 VJP kernels; no "
+        f"forward, {AD_STEPS} recomputed), {launches[1]} K1 VJP passes; no "
         f"host sync; gradients finite and bit-equal twice; forward "
         f"{fwd_ms:.4f} ms/step, forward and backward {both_ms:.4f} ms/step, "
         f"peak {mib:.1f} MiB above the state")
@@ -2626,8 +2675,10 @@ def phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big, slice_w,
         counts = {"K4": pp.LAUNCHES, "K4 VJP": pp.VJP_LAUNCHES,
                   "force_acc": df.LAUNCHES, "K1 VJP": df.VJP_LAUNCHES}
         for what, got in counts.items():
+            # one pass a VJP call of K1's, two of K4's
             expect_launches(f"'p3m' rollout N={n}, {what}", got,
-                            2 * AD_P3M_STEPS)
+                            AD_P3M_STEPS if what == "K1 VJP"
+                            else 2 * AD_P3M_STEPS)
         _, g2 = run()
         if not torch.equal(g1, g2) or not torch.isfinite(g1).all():
             raise SystemExit(f"chip_smoke: 'p3m' rollout N={n}: gradient not "
@@ -2884,7 +2935,9 @@ def main() -> int:
         f"{merge['world']['times']['merging'][0]:.4f} (unmerged "
         f"{merge['world']['times']['unmerged'][0]:.4f}); contact kernel "
         f"{mk['ms']:.4f} (plain {mk['plain_ms']:.4f}, bound "
-        f"{mk['bound_ms']:.4f}), N={BIG_N} {mk['big_ms']:.4f}; p3m slice "
+        f"{mk['bound_ms']:.6f}), N={BIG_N} {mk['big']['ms']:.4f} (bound "
+        f"{mk['big']['bound_ms']:.6f}, {mk['big']['candidates']} candidate "
+        f"pairs); p3m slice "
         f"merging {merge['p3m']['ms']:.4f}; CLI run/render/resume/gif "
         + ", ".join(f"{x:.1f}" for x in merge["cli"]) + " s")
     ad_c, ad_p = rollouts["cuda"], rollouts["p3m"]
@@ -2980,14 +3033,15 @@ def main() -> int:
                    "epilogue, hooked sharded substep D=4 on one card, one "
                    "pass of the ring", RING_SRC,
                    "nbody_tpu/ops/ring_forces.py:58"),
-        {"name": f"merge_contacts contact search, merging World N={BENCH_N} "
-                 f"after {MERGE_SUBSTEPS} substeps, M={mk['m']}",
+        {"name": f"merge_contacts contact search on a cell grid, merging "
+                 f"World N={BENCH_N} after {MERGE_SUBSTEPS} substeps, "
+                 f"M={mk['m']}, {mk['candidates']} candidate pairs",
          "route": "cuda", "source": MERGE_SRC,
          "replaces": "nbody_tpu/ops/collisions.py:75",
          "launches": merge["world"]["launches"], "max_abs_err": 0.0,
          "ms": mk["ms"], "plain_ms": mk["plain_ms"], "bound_ms": mk["bound_ms"],
          "bound_by": mk["bound_by"], "library_ms": None},
-        {"name": f"direct_vjp force_acc VJP (target and source passes), "
+        {"name": f"direct_vjp force_acc VJP (one pass over the pairs), "
                  f"'cuda' rollout N={vjp1['n']} S={vjp1['s']} precise",
          "route": "cuda", "source": VJP_SRC,
          "replaces": "nbody_tpu/ops/pallas_forces.py:577",

@@ -10,14 +10,25 @@ gives one.
     PYTHONPATH=ROOT python nbody_tpu_torch/ablations/_side.py JOBS.json OUT_DIR
 
 JOBS.json is a list of jobs, each {"what": "fused" | "hop" | "ring" |
-"pp" | "p3m", "n", ...}: "fused" is one fused substep of the N-particle
+"pp" | "p3m" | "contacts" | "vjp" | "merging" | "rollout", "n", ...}
+(the last four are tune_merge_vjp's, below): "fused" is one fused substep
+of the N-particle
 two-galaxy world (seed 11037); "hop" that world's state as the only hop of
 a one-shard ring, with its epilogue; "ring" a profiler window over a
 "cuda_ring" ShardedWorld of ``d`` shards on the card; "pp" the P3M pair
 correction (K4) of that world's initial state with ``grid`` and ``cap``,
 the call that world.update(backend="p3m") makes (its output one (x, y) a
 target in cell order, 0 past a cell's cap); "p3m" ``substeps`` p3m
-substeps of that world. A job's outputs go to OUT_DIR/<index>.pt, and one
+substeps of that world. "contacts" is the merge pass's contact search
+(``collisions.contacts``, factor 1) on that world's massive prefix after
+``substeps`` unmerged substeps of 0.01 (its output the winners); "vjp" is
+``direct_forces.force_acc_vjp`` on that world's state (all rows against
+the prefix, or with "core" the P3M exact-core rows of the slice config
+against it) with a cotangent from seed 1 (its output the four
+cotangents); "merging" is ``substeps`` merging substeps of 0.01 of that
+world, timed from the state after 10; "rollout" is the "cuda" rollout's
+forward and backward, precise, ``steps`` steps of 0.01, the loss on the
+first tracer. A job's outputs go to OUT_DIR/<index>.pt, and one
 JSON line a job gives its times (ms; "reps" calls between CUDA events, the
 best of "repeats"; a "p3m" job's ms are a substep's).
 """
@@ -161,8 +172,73 @@ def p3m_substep_ms(world, substeps: int, repeats: int) -> float:
                    repeats) / substeps
 
 
+def backward_job(job: dict, device) -> tuple:
+    """(times, outputs) of a "contacts", "vjp", "merging" or "rollout"
+    job."""
+    import numpy as np
+
+    import nbody_tpu_torch as nt
+    from nbody_tpu_torch.ops import collisions as col
+    from nbody_tpu_torch.ops import direct_forces as df
+
+    n, what = job["n"], job["what"]
+    scene = nt.make_galaxies(n, 2, seed=SEED)
+    reps, repeats = job.get("reps", 10), job.get("repeats", 3)
+    if what == "merging":
+        w = nt.create_world(scene, device=device,
+                            config=nt.SimConfig(merge_collisions=True))
+        w.update(0.01, 10)
+        k = job["substeps"]
+        return {"ms": best_ms(lambda: w.update(0.01, k), 1, repeats) / k}, None
+    if what == "rollout":
+        from nbody_tpu_torch import autodiff
+
+        w = nt.create_world(scene, device=device,
+                            config=nt.SimConfig(precise=True))
+        st, ml = w.state, w.mass_len
+        loss = autodiff.trajectory_loss(st.pos[ml] + 5.0, ml)
+        dt = torch.full((), 0.01, device=device)
+
+        def fn():
+            xs = [x.detach().clone().requires_grad_()
+                  for x in (st.pos, st.vel)]
+            val = loss(*xs, st.mass, st.radius, dt, n_steps=job["steps"],
+                       mass_len=ml, backend="cuda", precise=True)
+            return torch.autograd.grad(val, xs)
+        return {"ms": best_ms(fn, 1, repeats) / job["steps"]}, None
+    if what == "contacts":
+        w = nt.create_world(scene, device=device)
+        if job.get("substeps"):
+            w.update(0.01, job["substeps"])
+        m, st = w.mass_len, w.state
+        args = (st.pos[:m].contiguous(), st.radius[:m].contiguous(),
+                st.mass[:m].contiguous(), w.gm > 0, 1.0)
+        out = [t.cpu() for t in col.contacts(*args)]
+        return {"ms": best_ms(lambda: col.contacts(*args), reps,
+                              repeats)}, out
+    cfg = nt.SimConfig(pm_grid=2048, p3m_cell_capacity=768)
+    w = nt.create_world(scene, device=device, config=cfg)
+    st, m = w.state, w.mass_len
+    tp, tr = st.pos, st.radius
+    if job.get("core"):
+        from nbody_tpu_torch.ops import p3m_forces
+
+        rows = p3m_forces.exact_core_rows(st.radius, cfg.p3m_exact_targets)
+        tp, tr = tp[rows].contiguous(), tr[rows].contiguous()
+    g = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(tp.shape[0], 2)).astype(np.float32)).to(device)
+    args = (tp, tr, st.pos[:m], w.gm, g)
+    kw = {"precise": job.get("precise", False)}
+    out = [t.cpu() for t in df.force_acc_vjp(*args, **kw)]
+    return {"ms": best_ms(lambda: df.force_acc_vjp(*args, **kw), reps,
+                          repeats)}, out
+
+
 def run_job(job: dict, device, worlds: dict) -> tuple:
     """(times, output tensors or None) of one job."""
+    if job["what"] in ("contacts", "vjp", "merging", "rollout"):
+        worlds.clear()
+        return backward_job(job, device)
     if job["what"] == "ring":
         union, total, wall = ring_window(device, job["n"], job["d"])
         return {"union_ms": union, "sum_ms": total, "wall_ms": wall}, None

@@ -8,43 +8,51 @@
 //
 // Math, for the pair (target i, source j) with the cotangent g_i of a_i:
 //   d = (dx, dy) = p_j - p_i;  r2 = dx*dx + dy*dy + (r_i + 1e-18)
-//   k = 1 / (sqrt(r2) * r2)  (precise: IEEE sqrt, divide)
-//   k = inv*inv*inv, inv = rsqrt(r2)  (default)
-//   f = gm_j * k;  s = g_i . d;  e = -1.5 * f * s / r2
+//   k = 1 / (sqrt(r2) * r2), 1/r2 = k * sqrt(r2)  (precise: IEEE sqrt and
+//       one IEEE reciprocal)
+//   k = inv*inv*inv, 1/r2 = inv*inv, inv = rsqrt(r2)  (default)
+//   f = gm_j * k;  s = g_i . d;  e = -1.5 * (f * s) / r2
 //   c = f * g_i + 2e * d
 //   d_tgt_pos_i = -sum_j c;  d_tgt_radius_i = sum_j e
 //   d_src_pos_j = +sum_i c;  d_src_gm_j = sum_i k * s
-// The products with s come before the division by r2, so a zero-radius
-// target on a gm = 0 source at its own position (r2 = 1e-18, k = 1e27,
-// s = 0) gives 0 and not 0 * inf: the softening floor keeps r2 > 0 here
-// as in the forward.
+// The product f * s comes before the factor 1/r2, so a zero-radius target
+// on a gm = 0 source at its own position (r2 = 1e-18, k = 1e27, s = 0)
+// gives 0 and not 0 * inf: the softening floor keeps r2 > 0 as in the
+// forward.
 //
-// Two kernels, each one thread a row of its own side with the other side
-// staged through shared memory, kStage rows at a time:
-//   * the target pass: one thread a target, over the sources; writes
-//     d_tgt_pos and d_tgt_radius;
-//   * the source pass: one thread a source, over the targets; writes
-//     d_src_pos and d_src_gm.
-// Each thread sums its pairs in the other side's row order, a run of kRun
-// (256) rows into fresh registers, then run by run into its total, as K1
-// does. Few rows of one side (the P3M exact-core rows: 64 targets against
-// 524,704 sources) cannot fill the card, so the wrapper's plan
-// (ops/direct_forces.vjp_splits, shapes only) splits the other side into
-// n_split contiguous ranges of whole runs; each block then writes its
-// partial sums to a scratch, and a second kernel adds them in range order.
-// No atomics: the same bits on every run.
+// What bounds it on an H100: the issue rate. The function needs 29 fp32
+// operations a pair (an FMA as two) and one MUFU (rsqrt) or two (precise);
+// its bytes are O(T + S). Two passes (one thread a target, then one
+// thread a source) would compute each pair's terms twice. This design
+// computes each pair once:
+//   * one "own" side sits in registers, P rows a thread (P = 4 past one
+//     tile of 512 rows, strided by the block), and the other side is
+//     staged through shared memory one run of kRun = 256 rows at a time;
+//     the own side is the larger one (the targets at N=65536, the sources
+//     for the P3M exact-core rows: 64 targets against 524,704 sources);
+//   * each own row sums its three terms run by run in the other side's
+//     order, as K1 does;
+//   * each other row's three terms are summed over the block's own rows in
+//     a fixed order: a thread's P rows, then over the warp by a
+//     reduce-scatter of __shfl_xor_sync for a batch of 8 rows (27
+//     shuffles; an all-reduce of each row's sums took 120, and on sm_90 a
+//     shuffle issues at a quarter of the fp32 rate: that form bound the
+//     kernel at 5.77 ms precise, 3.76 rsqrt), then the warps in warp order
+//     through shared memory. Each block writes one partial a row of the
+//     other side for its tile of own rows;
+//   * a second kernel adds the tiles' partials in a fixed tree (32 groups
+//     of consecutive tiles, each in tile order, then the groups in order),
+//     and likewise the own side's partials when its other side is split
+//     into n_split ranges (ops/direct_forces.vjp_plan, from shapes alone,
+//     so a recomputed backward under remat repeats its bits).
+// No atomics: the same bits on every run. Scratch: (tiles, 3, other rows)
+// fp32, 25 MB at T=65536, S=32833 (64 tiles). On an H100 the pair loop is
+// 29.8 SASS instructions a pair in rsqrt mode and 55.7 precise (the IEEE
+// sqrt and reciprocal, in their .ftz forms, which give the same bits
+// here), P = 4: 2.52 ms and 4.70 ms at N=65536 (PERF.md §6).
 //
-// What bounds it on an H100: per pair 29 fp32 operations (an FMA as two)
-// and one MUFU operation, the rsqrt (1/r2 is its square), or two when
-// precise (a sqrt and a reciprocal); the bytes are O(T + S). So the bound
-// is the operations (chip_smoke.py counts them). This kernel computes
-// every pair twice (once a pass) and divides by r2 with an IEEE division,
-// one more MUFU and its refinement. Merging the passes, more rows a
-// thread, and taking 1/r2 from the rsqrt are left for later work: this is
-// the simple kernel that is right.
-//
-// The C entry points launch on the stream they are handed, do not
-// synchronise, allocate nothing, and return cudaGetLastError().
+// The C entry point launches on the stream it is handed, does not
+// synchronise, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -55,8 +63,49 @@
 
 namespace {
 
-constexpr int kStage = 1024;  // rows of the other side staged at a time
-static_assert(kStage % kRun == 0, "a stage holds whole runs");
+constexpr int kWarps = kBlock / 32;
+constexpr int kBatch = 8;     // other rows whose sums are reduced together
+constexpr int kStage = kRun;  // other rows staged at a time: one run
+static_assert(kStage == kBlock, "a thread stages one row");
+static_assert(kStage % kBatch == 0, "a stage holds whole batches");
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGroups = 32;   // tile groups of the partials' reduction
+
+// The warp's sums of a batch's 8 other rows, v[3u + c] for row u and term
+// c, reduced over the 32 lanes and scattered: lane l ends with the three
+// sums of row 4 b4 + 2 b3 + b2 (b_k bit k of l), the same bits in the
+// four lanes that hold it. Three halving rounds (xor 16, 8, 4: a lane
+// keeps half its values and adds its partner's copy of them), then an
+// all-reduce over xor 2 and 1: 27 shuffles and 42 selects, against 120
+// shuffles for an all-reduce of every value (on sm_90 a shuffle issues at a
+// quarter of the fp32 rate, so that form bounded the kernel).
+__device__ __forceinline__ void reduce_scatter(const float (&v)[24], int lane,
+                                               float (&out)[3]) {
+  float w[12], x[6];
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    const float send = h16 ? v[k] : v[k + 12];
+    const float keep = h16 ? v[k + 12] : v[k];
+    w[k] = keep + __shfl_xor_sync(kFull, send, 16);
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float send = h8 ? w[k] : w[k + 6];
+    const float keep = h8 ? w[k + 6] : w[k];
+    x[k] = keep + __shfl_xor_sync(kFull, send, 8);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float send = h4 ? x[k] : x[k + 3];
+    const float keep = h4 ? x[k + 3] : x[k];
+    out[k] = keep + __shfl_xor_sync(kFull, send, 4);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k] += __shfl_xor_sync(kFull, out[k], 2);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k] += __shfl_xor_sync(kFull, out[k], 1);
+}
 
 // MUFU.RSQ alone (as in direct_tiles.cuh): r2 >= 1e-18 is a normal float.
 __device__ __forceinline__ float rsqrt_ftz(float x) {
@@ -65,11 +114,20 @@ __device__ __forceinline__ float rsqrt_ftz(float x) {
   return y;
 }
 
-template <bool kPrecise>
-__device__ __forceinline__ float inv_cube(float r2) {
-  if (kPrecise) return 1.f / (sqrtf(r2) * r2);
-  const float inv = rsqrt_ftz(r2);
-  return inv * inv * inv;
+// IEEE round-to-nearest sqrt and reciprocal without the subnormal paths:
+// r2 >= 1e-18, sqrt(r2) >= 1e-9, their product >= 1e-27 and its
+// reciprocal <= 1e27 are all normal floats, where these give sqrtf's and
+// 1.f / x's bits (a correctly rounded result is unique).
+__device__ __forceinline__ float sqrt_rn_ftz(float x) {
+  float y;
+  asm("sqrt.rn.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_rn_ftz(float x) {
+  float y;
+  asm("rcp.rn.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // The terms of one pair: c = (cx, cy), e, and k * s (see the header).
@@ -81,11 +139,20 @@ template <bool kPrecise>
 __device__ __forceinline__ PairTerms pair_terms(float dx, float dy, float soft,
                                                 float gm, float gx, float gy) {
   const float r2 = dx * dx + dy * dy + soft;
-  const float k = inv_cube<kPrecise>(r2);
+  float k, inv_r2;
+  if (kPrecise) {
+    const float root = sqrt_rn_ftz(r2);
+    k = rcp_rn_ftz(root * r2);
+    inv_r2 = k * root;
+  } else {
+    const float inv = rsqrt_ftz(r2);
+    inv_r2 = inv * inv;
+    k = inv_r2 * inv;
+  }
   const float f = gm * k;
   const float s = gx * dx + gy * dy;
-  const float e = -1.5f * f * s / r2;
-  const float e2 = 2.f * e;
+  const float e = (f * s) * (-1.5f * inv_r2);
+  const float e2 = e + e;
   PairTerms q;
   q.cx = f * gx + e2 * dx;
   q.cy = f * gy + e2 * dy;
@@ -94,235 +161,282 @@ __device__ __forceinline__ PairTerms pair_terms(float dx, float dy, float soft,
   return q;
 }
 
-// The range [begin, end) of the other side's n_other rows that split
-// `split` of a launch sums: whole runs, runs_per_split of them.
-__device__ __forceinline__ void split_range(int split, int runs_per_split,
-                                            int n_other, int& begin,
-                                            int& end) {
+// One pass over the pairs of a tile of own rows and one range of the
+// other side's rows. kOwnTargets: the own rows are targets (x, y, soft,
+// g) and the staged rows sources (x, y, gm); else the reverse. A block
+// (tile, split) is blockIdx.x = tile * n_split + split.
+template <bool kOwnTargets, int P, bool kPrecise>
+__global__ void __launch_bounds__(kBlock, 2)
+vjp_kernel(const float2* __restrict__ tgt_pos,
+           const float* __restrict__ tgt_radius,
+           const float2* __restrict__ src_pos,
+           const float* __restrict__ src_gm, const float2* __restrict__ g,
+           int n_tgt, int n_src, int n_split, int runs_per_split,
+           float* __restrict__ own_part, float* __restrict__ other_part,
+           float2* __restrict__ own_out2, float* __restrict__ own_out1) {
+  __shared__ float4 st4[kStage];  // other rows: (x, y, gm, 0) or
+  __shared__ float st1[kStage];   // (x, y, soft, gx) and gy
+  __shared__ float wsum[3][kWarps][kStage];
+  const int n_own = kOwnTargets ? n_tgt : n_src;
+  const int n_other = kOwnTargets ? n_src : n_tgt;
+  const int split = blockIdx.x % n_split;
+  const int tile = blockIdx.x / n_split;
+  const int first = tile * (P * kBlock);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // warps with a real row form a prefix of the block (row q of a thread is
+  // first + q * kBlock + threadIdx.x)
+  const int live_warps = min(kWarps, (n_own - first + 31) / 32);
+  const bool warp_live = warp < live_warps;
+
+  // own rows; past the end a stand-in whose terms are all zero (a target
+  // with g = 0 and soft 1, a source with gm = 0)
+  float ox[P], oy[P], oa[P], ogx[P], ogy[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int i = first + q * kBlock + threadIdx.x;
+    const bool in = i < n_own;
+    if (kOwnTargets) {
+      const float2 p = in ? tgt_pos[i] : make_float2(0.f, 0.f);
+      const float2 gi = in ? g[i] : make_float2(0.f, 0.f);
+      ox[q] = p.x;
+      oy[q] = p.y;
+      oa[q] = in ? tgt_radius[i] + kSofteningFloor : 1.f;
+      ogx[q] = gi.x;
+      ogy[q] = gi.y;
+    } else {
+      const float2 p = in ? src_pos[i] : make_float2(0.f, 0.f);
+      ox[q] = p.x;
+      oy[q] = p.y;
+      oa[q] = in ? src_gm[i] : 0.f;
+      ogx[q] = ogy[q] = 0.f;
+    }
+  }
+
   const int span = runs_per_split * kRun;
-  begin = min(split * span, n_other);
-  end = min(begin + span, n_other);
-}
+  const int begin = min(split * span, n_other);
+  const int end = min(begin + span, n_other);
+  float tot[P][3];
+#pragma unroll
+  for (int q = 0; q < P; ++q) tot[q][0] = tot[q][1] = tot[q][2] = 0.f;
 
-// Writes one row's three sums: (sign * a, sign * b) and c straight to the
-// outputs when the launch has one range, else to its range's partials.
-__device__ __forceinline__ void write_row(int i, int n, int split, int n_split,
-                                          float sign, float a, float b,
-                                          float c, float2* __restrict__ out2,
-                                          float* __restrict__ out1,
-                                          float* __restrict__ part) {
-  if (n_split == 1) {
-    out2[i] = make_float2(sign * a, sign * b);
-    out1[i] = c;
-    return;
-  }
-  float* o = part + (static_cast<size_t>(split) * n + i) * 3;
-  o[0] = a;
-  o[1] = b;
-  o[2] = c;
-}
-
-template <bool kPrecise>
-__global__ void __launch_bounds__(kBlock)
-vjp_targets_kernel(const float2* __restrict__ tgt_pos,
-                   const float* __restrict__ tgt_radius,
-                   const float2* __restrict__ src_pos,
-                   const float* __restrict__ src_gm,
-                   const float2* __restrict__ g, int n_tgt, int n_src,
-                   int n_split, int runs_per_split,
-                   float2* __restrict__ d_pos, float* __restrict__ d_radius,
-                   float* __restrict__ part) {
-  __shared__ float2 spos[kStage];
-  __shared__ float sgm[kStage];
-  const int split = blockIdx.x % n_split;
-  const int first = (blockIdx.x / n_split) * kBlock;
-  const int i = first + threadIdx.x;
-  const bool live = i < n_tgt;
-  // a warp with no real target stages sources but skips the pairs
-  const bool warp_live = first + static_cast<int>(threadIdx.x & ~31u) < n_tgt;
-  const float2 p = live ? tgt_pos[i] : make_float2(0.f, 0.f);
-  const float soft = live ? tgt_radius[i] + kSofteningFloor : 1.f;
-  const float2 gi = live ? g[i] : make_float2(0.f, 0.f);
-  int begin, end;
-  split_range(split, runs_per_split, n_src, begin, end);
-  float ax = 0.f, ay = 0.f, ar = 0.f;
   for (int base = begin; base < end; base += kStage) {
     const int len = min(kStage, end - base);
-    __syncthreads();  // every thread is done with the last stage
-    for (int k = threadIdx.x; k < len; k += kBlock) {
-      spos[k] = src_pos[base + k];
-      sgm[k] = src_gm[base + k];
+    __syncthreads();  // the last stage and its sums are read
+    {
+      const int j = base + threadIdx.x;
+      const bool in = threadIdx.x < len;
+      if (kOwnTargets) {
+        const float2 p = in ? src_pos[j] : make_float2(0.f, 0.f);
+        st4[threadIdx.x] = make_float4(p.x, p.y, in ? src_gm[j] : 0.f, 0.f);
+      } else {
+        const float2 p = in ? tgt_pos[j] : make_float2(0.f, 0.f);
+        const float2 gj = in ? g[j] : make_float2(0.f, 0.f);
+        st4[threadIdx.x] = make_float4(
+            p.x, p.y, in ? tgt_radius[j] + kSofteningFloor : 1.f, gj.x);
+        st1[threadIdx.x] = gj.y;
+      }
     }
     __syncthreads();
-    if (!warp_live) continue;
-    for (int run = 0; run < len; run += kRun) {
-      const int stop = min(run + kRun, len);
-      float tx = 0.f, ty = 0.f, tr = 0.f;
-      for (int k = run; k < stop; ++k) {
-        const float2 s = spos[k];
-        const PairTerms q = pair_terms<kPrecise>(s.x - p.x, s.y - p.y, soft,
-                                                 sgm[k], gi.x, gi.y);
-        tx += q.cx;
-        ty += q.cy;
-        tr += q.e;
+    if (warp_live) {
+      float run[P][3];
+#pragma unroll
+      for (int q = 0; q < P; ++q) run[q][0] = run[q][1] = run[q][2] = 0.f;
+#pragma unroll 1
+      for (int at = 0; at < len; at += kBatch) {
+        float v[3 * kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const float4 r = st4[at + u];
+          const float ry = kOwnTargets ? 0.f : st1[at + u];
+          v[3 * u] = v[3 * u + 1] = v[3 * u + 2] = 0.f;
+#pragma unroll
+          for (int q = 0; q < P; ++q) {
+            if (kOwnTargets) {
+              const PairTerms t = pair_terms<kPrecise>(
+                  r.x - ox[q], r.y - oy[q], oa[q], r.z, ogx[q], ogy[q]);
+              run[q][0] += t.cx;
+              run[q][1] += t.cy;
+              run[q][2] += t.e;
+              v[3 * u] += t.cx;
+              v[3 * u + 1] += t.cy;
+              v[3 * u + 2] += t.ks;
+            } else {
+              const PairTerms t = pair_terms<kPrecise>(
+                  ox[q] - r.x, oy[q] - r.y, r.z, oa[q], r.w, ry);
+              run[q][0] += t.cx;
+              run[q][1] += t.cy;
+              run[q][2] += t.ks;
+              v[3 * u] += t.cx;
+              v[3 * u + 1] += t.cy;
+              v[3 * u + 2] += t.e;
+            }
+          }
+        }
+        float sums[3];
+        reduce_scatter(v, lane, sums);
+        if ((lane & 3) == 0) {
+          const int u = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 +
+                        ((lane >> 2) & 1);
+          wsum[0][warp][at + u] = sums[0];
+          wsum[1][warp][at + u] = sums[1];
+          wsum[2][warp][at + u] = sums[2];
+        }
       }
-      ax += tx;
-      ay += ty;
-      ar += tr;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        tot[q][0] += run[q][0];
+        tot[q][1] += run[q][1];
+        tot[q][2] += run[q][2];
+      }
+    }
+    __syncthreads();  // every warp's sums of this stage are written
+    if (threadIdx.x < len) {
+      float a = 0.f, b = 0.f, c = 0.f;
+      for (int w = 0; w < live_warps; ++w) {
+        a += wsum[0][w][threadIdx.x];
+        b += wsum[1][w][threadIdx.x];
+        c += wsum[2][w][threadIdx.x];
+      }
+      float* o = other_part + static_cast<size_t>(tile) * 3 * n_other + base +
+                 threadIdx.x;
+      o[0] = a;
+      o[n_other] = b;
+      o[2 * static_cast<size_t>(n_other)] = c;
     }
   }
-  if (live)
-    write_row(i, n_tgt, split, n_split, -1.f, ax, ay, ar, d_pos, d_radius,
-              part);
-}
 
-template <bool kPrecise>
-__global__ void __launch_bounds__(kBlock)
-vjp_sources_kernel(const float2* __restrict__ tgt_pos,
-                   const float* __restrict__ tgt_radius,
-                   const float2* __restrict__ src_pos,
-                   const float* __restrict__ src_gm,
-                   const float2* __restrict__ g, int n_tgt, int n_src,
-                   int n_split, int runs_per_split,
-                   float2* __restrict__ d_pos, float* __restrict__ d_gm,
-                   float* __restrict__ part) {
-  __shared__ float4 stgt[kStage];  // x, y, r + floor, g.x
-  __shared__ float sgy[kStage];    // g.y
-  const int split = blockIdx.x % n_split;
-  const int first = (blockIdx.x / n_split) * kBlock;
-  const int j = first + threadIdx.x;
-  const bool live = j < n_src;
-  const bool warp_live = first + static_cast<int>(threadIdx.x & ~31u) < n_src;
-  const float2 sp = live ? src_pos[j] : make_float2(0.f, 0.f);
-  const float gm = live ? src_gm[j] : 0.f;
-  int begin, end;
-  split_range(split, runs_per_split, n_tgt, begin, end);
-  float ax = 0.f, ay = 0.f, ag = 0.f;
-  for (int base = begin; base < end; base += kStage) {
-    const int len = min(kStage, end - base);
-    __syncthreads();
-    for (int k = threadIdx.x; k < len; k += kBlock) {
-      const int i = base + k;
-      const float2 tp = tgt_pos[i];
-      const float2 gi = g[i];
-      stgt[k] = make_float4(tp.x, tp.y, tgt_radius[i] + kSofteningFloor, gi.x);
-      sgy[k] = gi.y;
-    }
-    __syncthreads();
-    if (!warp_live) continue;
-    for (int run = 0; run < len; run += kRun) {
-      const int stop = min(run + kRun, len);
-      float tx = 0.f, ty = 0.f, tg = 0.f;
-      for (int k = run; k < stop; ++k) {
-        const float4 t = stgt[k];
-        const PairTerms q = pair_terms<kPrecise>(sp.x - t.x, sp.y - t.y, t.z,
-                                                 gm, t.w, sgy[k]);
-        tx += q.cx;
-        ty += q.cy;
-        tg += q.ks;
-      }
-      ax += tx;
-      ay += ty;
-      ag += tg;
+  const float sign = kOwnTargets ? -1.f : 1.f;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    const int i = first + q * kBlock + threadIdx.x;
+    if (i >= n_own) continue;
+    if (n_split == 1) {
+      own_out2[i] = make_float2(sign * tot[q][0], sign * tot[q][1]);
+      own_out1[i] = tot[q][2];
+    } else {
+      float* o = own_part + static_cast<size_t>(split) * 3 * n_own + i;
+      o[0] = tot[q][0];
+      o[n_own] = tot[q][1];
+      o[2 * static_cast<size_t>(n_own)] = tot[q][2];
     }
   }
-  if (live)
-    write_row(j, n_src, split, n_split, 1.f, ax, ay, ag, d_pos, d_gm, part);
 }
 
-// out2[i] = sign * (sum of the partials' a, sum of b), out1[i] = sum of c,
-// the partials of the n_split ranges added in range order.
-__global__ void __launch_bounds__(kBlock)
-sum_vjp_partials(const float* __restrict__ part, int n, int n_split,
-                 float sign, float2* __restrict__ out2,
-                 float* __restrict__ out1) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// out2[r] = sign * (a, b), out1[r] = c, with (a, b, c) the sums of the
+// n_parts partials (n_parts, 3, n_rows) of row r: kGroups groups of
+// consecutive parts, each summed in part order, then the groups in order.
+// A block is 32 rows (threadIdx.x) by kGroups groups (threadIdx.y).
+__global__ void __launch_bounds__(32 * kGroups)
+sum_partials(const float* __restrict__ part, int n_parts, int n_rows,
+             float sign, float2* __restrict__ out2, float* __restrict__ out1) {
+  __shared__ float red[3][kGroups][33];
+  const int r = blockIdx.x * 32 + threadIdx.x;
+  const int grp = threadIdx.y;
+  const int per = (n_parts + kGroups - 1) / kGroups;
+  const int p0 = min(grp * per, n_parts);
+  const int p1 = min(p0 + per, n_parts);
   float a = 0.f, b = 0.f, c = 0.f;
-  for (int k = 0; k < n_split; ++k) {
-    const float* p = part + (static_cast<size_t>(k) * n + i) * 3;
-    a += p[0];
-    b += p[1];
-    c += p[2];
+  if (r < n_rows) {
+    for (int p = p0; p < p1; ++p) {
+      const float* x = part + static_cast<size_t>(p) * 3 * n_rows + r;
+      a += x[0];
+      b += x[n_rows];
+      c += x[2 * static_cast<size_t>(n_rows)];
+    }
   }
-  out2[i] = make_float2(sign * a, sign * b);
-  out1[i] = c;
+  red[0][grp][threadIdx.x] = a;
+  red[1][grp][threadIdx.x] = b;
+  red[2][grp][threadIdx.x] = c;
+  __syncthreads();
+  if (grp != 0 || r >= n_rows) return;
+  a = b = c = 0.f;
+  for (int k = 0; k < kGroups; ++k) {
+    a += red[0][k][threadIdx.x];
+    b += red[1][k][threadIdx.x];
+    c += red[2][k][threadIdx.x];
+  }
+  out2[r] = make_float2(sign * a, sign * b);
+  out1[r] = c;
 }
 
 using PassKernel = void (*)(const float2*, const float*, const float2*,
                             const float*, const float2*, int, int, int, int,
-                            float2*, float*, float*);
+                            float*, float*, float2*, float*);
 
-// One pass over n_own rows of its own side against n_other rows, split into
-// n_split ranges of the other side; then, if split, the in-order sum.
-cudaError_t launch_pass(PassKernel kernel, int n_own, int n_other,
-                        const void* tgt_pos, const void* tgt_radius,
-                        const void* src_pos, const void* src_gm,
-                        const void* g, int n_tgt, int n_src, int n_split,
-                        void* partial, float sign, void* out2, void* out1,
-                        void* stream) {
-  if (n_tgt <= 0 || n_src <= 0) return cudaSuccess;  // outputs stay zero
-  if (n_split < 1 || (n_split > 1 && partial == nullptr))
-    return cudaErrorInvalidValue;
-  const long long blocks =
-      static_cast<long long>((n_own + kBlock - 1) / kBlock) * n_split;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const int runs = (n_other + kRun - 1) / kRun;
-  const int runs_per_split = (runs + n_split - 1) / n_split;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto* o2 = static_cast<float2*>(out2);
-  auto* o1 = static_cast<float*>(out1);
-  auto* part = static_cast<float*>(partial);
-  kernel<<<static_cast<unsigned>(blocks), kBlock, 0, st>>>(
-      static_cast<const float2*>(tgt_pos),
-      static_cast<const float*>(tgt_radius),
-      static_cast<const float2*>(src_pos), static_cast<const float*>(src_gm),
-      static_cast<const float2*>(g), n_tgt, n_src, n_split, runs_per_split,
-      o2, o1, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return err;
-  sum_vjp_partials<<<(n_own + kBlock - 1) / kBlock, kBlock, 0, st>>>(
-      part, n_own, n_split, sign, o2, o1);
+template <bool kOwnTargets>
+PassKernel pick(int p, bool precise) {
+  if (p == 1)
+    return precise ? vjp_kernel<kOwnTargets, 1, true>
+                   : vjp_kernel<kOwnTargets, 1, false>;
+  if (p == 2)
+    return precise ? vjp_kernel<kOwnTargets, 2, true>
+                   : vjp_kernel<kOwnTargets, 2, false>;
+  return precise ? vjp_kernel<kOwnTargets, 4, true>
+                 : vjp_kernel<kOwnTargets, 4, false>;
+}
+
+cudaError_t launch_sum(const float* part, int n_parts, int n_rows, float sign,
+                       void* out2, void* out1, cudaStream_t st) {
+  sum_partials<<<(n_rows + 31) / 32, dim3(32, kGroups), 0, st>>>(
+      part, n_parts, n_rows, sign, static_cast<float2*>(out2),
+      static_cast<float*>(out1));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The target pass: d_tgt_pos (n_tgt, 2) and d_tgt_radius (n_tgt,) of the
-// VJP of the force on n_tgt targets from n_src sources with cotangent g
-// (n_tgt, 2). Device pointers to contiguous fp32 arrays: tgt_pos (n_tgt, 2),
-// tgt_radius (n_tgt,), src_pos (n_src, 2), src_gm (n_src,). n_split source
-// ranges of whole 256-source runs; with n_split > 1, partial holds
-// (n_split, n_tgt, 3) floats of scratch. The outputs must hold zeros when
-// n_tgt or n_src is 0 (nothing is launched then). Returns the launches'
-// cudaError_t (0 on success).
-extern "C" int nbody_direct_vjp_targets(const void* tgt_pos,
-                                        const void* tgt_radius,
-                                        const void* src_pos,
-                                        const void* src_gm, const void* g,
-                                        int n_tgt, int n_src, int precise,
-                                        int n_split, void* partial,
-                                        void* d_tgt_pos, void* d_tgt_radius,
-                                        void* stream) {
-  return static_cast<int>(launch_pass(
-      precise ? vjp_targets_kernel<true> : vjp_targets_kernel<false>, n_tgt,
-      n_src, tgt_pos, tgt_radius, src_pos, src_gm, g, n_tgt, n_src, n_split,
-      partial, -1.f, d_tgt_pos, d_tgt_radius, stream));
-}
-
-// The source pass: d_src_pos (n_src, 2) and d_src_gm (n_src,), with the
-// inputs of the target pass; n_split target ranges, partial (n_split,
-// n_src, 3) floats when n_split > 1.
-extern "C" int nbody_direct_vjp_sources(const void* tgt_pos,
-                                        const void* tgt_radius,
-                                        const void* src_pos,
-                                        const void* src_gm, const void* g,
-                                        int n_tgt, int n_src, int precise,
-                                        int n_split, void* partial,
-                                        void* d_src_pos, void* d_src_gm,
-                                        void* stream) {
-  return static_cast<int>(launch_pass(
-      precise ? vjp_sources_kernel<true> : vjp_sources_kernel<false>, n_src,
-      n_tgt, tgt_pos, tgt_radius, src_pos, src_gm, g, n_tgt, n_src, n_split,
-      partial, 1.f, d_src_pos, d_src_gm, stream));
+// The VJP of the force on n_tgt targets from n_src sources with cotangent
+// g (n_tgt, 2): d_tgt_pos (n_tgt, 2), d_tgt_radius (n_tgt,), d_src_pos
+// (n_src, 2), d_src_gm (n_src,). Device pointers to contiguous fp32
+// arrays: tgt_pos (n_tgt, 2), tgt_radius (n_tgt,), src_pos (n_src, 2),
+// src_gm (n_src,). The plan: own_targets (the own side, in registers, is
+// the targets, else the sources), p (1, 2 or 4) own rows a thread, n_split
+// ranges of whole 256-row runs of the other side. Scratch: other_part
+// (tiles, 3, n_other) floats, tiles = ceil(n_own / (256 p)); own_part
+// (n_split, 3, n_own) floats when n_split > 1, else NULL. The outputs must
+// hold zeros when n_tgt or n_src is 0 (nothing is launched then). Returns
+// the launches' cudaError_t (0 on success).
+extern "C" int nbody_direct_vjp(const void* tgt_pos, const void* tgt_radius,
+                                const void* src_pos, const void* src_gm,
+                                const void* g, int n_tgt, int n_src,
+                                int precise, int own_targets, int p,
+                                int n_split, void* own_part, void* other_part,
+                                void* d_tgt_pos, void* d_tgt_radius,
+                                void* d_src_pos, void* d_src_gm,
+                                void* stream) {
+  if (n_tgt <= 0 || n_src <= 0) return 0;  // outputs stay zero
+  const int n_own = own_targets ? n_tgt : n_src;
+  const int n_other = own_targets ? n_src : n_tgt;
+  if ((p != 1 && p != 2 && p != 4) || n_split < 1 || other_part == nullptr ||
+      (n_split > 1 && own_part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (n_own + p * kBlock - 1) / (p * kBlock);
+  const long long blocks = static_cast<long long>(tiles) * n_split;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int runs = (n_other + kRun - 1) / kRun;
+  const int runs_per_split = (runs + n_split - 1) / n_split;
+  auto st = static_cast<cudaStream_t>(stream);
+  void* own2 = own_targets ? d_tgt_pos : d_src_pos;
+  void* own1 = own_targets ? d_tgt_radius : d_src_gm;
+  void* oth2 = own_targets ? d_src_pos : d_tgt_pos;
+  void* oth1 = own_targets ? d_src_gm : d_tgt_radius;
+  PassKernel kernel = own_targets ? pick<true>(p, precise != 0)
+                                  : pick<false>(p, precise != 0);
+  auto* opart = static_cast<float*>(own_part);
+  auto* xpart = static_cast<float*>(other_part);
+  kernel<<<static_cast<unsigned>(blocks), kBlock, 0, st>>>(
+      static_cast<const float2*>(tgt_pos),
+      static_cast<const float*>(tgt_radius),
+      static_cast<const float2*>(src_pos), static_cast<const float*>(src_gm),
+      static_cast<const float2*>(g), n_tgt, n_src, n_split, runs_per_split,
+      opart, xpart, static_cast<float2*>(own2), static_cast<float*>(own1));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_sum(xpart, tiles, n_other, own_targets ? 1.f : -1.f, oth2,
+                   oth1, st);
+  if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
+  return static_cast<int>(launch_sum(opart, n_split, n_own,
+                                     own_targets ? -1.f : 1.f, own2, own1,
+                                     st));
 }

@@ -47,16 +47,13 @@ SIGNATURES = {
         "nbody_sm_count": [_vp],       # int* out
     },
     "direct_vjp": {
-        "nbody_direct_vjp_targets": [
+        "nbody_direct_vjp": [
             _vp, _vp, _vp, _vp, _vp,   # tgt pos/radius, src pos/gm, g
             _i32, _i32, _i32,          # n_tgt, n_src, precise
-            _i32, _vp,                 # source ranges, partials or NULL
-            _vp, _vp, _vp],            # d_tgt_pos, d_tgt_radius, stream
-        "nbody_direct_vjp_sources": [
-            _vp, _vp, _vp, _vp, _vp,   # tgt pos/radius, src pos/gm, g
-            _i32, _i32, _i32,          # n_tgt, n_src, precise
-            _i32, _vp,                 # target ranges, partials or NULL
-            _vp, _vp, _vp],            # d_src_pos, d_src_gm, stream
+            _i32, _i32, _i32,          # plan: own targets, p, n_split
+            _vp, _vp,                  # own partials or NULL, other partials
+            _vp, _vp, _vp, _vp,        # d_tgt_pos/radius, d_src_pos/gm
+            _vp],                      # stream
     },
     "ring_forces": {
         "nbody_ring_hop": [
@@ -136,11 +133,17 @@ SIGNATURES = {
         for name in ("nbody_p3m_pp_vjp_targets", "nbody_p3m_pp_vjp_sources")
     },
     "merge_contacts": {
+        "nbody_contact_grid": [
+            _vp, _vp, _vp,             # pos (m, 2), radius, live (bytes)
+            _i32, _f32, _i32,          # m, factor, k
+            _vp, _vp, _vp, _vp,        # out: keys, big rows, counts, scalars
+            _vp],                      # stream
         "nbody_merge_contacts": [
             _vp, _vp, _vp, _vp,        # pos (m, 2), radius, mass, live (bytes)
             _i32, _f32,                # m, factor
-            _i32, _i32,                # n_split, tiles_per_split
-            _vp, _vp, _vp],            # keys (n_split, m), winner (m,) int64, stream
+            _vp, _vp, _vp, _vp,        # grid: order, keys, big rows, counts
+            _vp, _vp,                  # scratch: packed (m, 4), big keys
+            _vp, _vp],                 # winner (m,) int64, stream
     },
 }
 

@@ -21,8 +21,8 @@ forward is the launch above and whose backward is :func:`force_acc_vjp`,
 the VJP of the direct sum with respect to all four inputs, recomputed from
 the saved inputs (O(N) residuals, no O(T·S) ones), as
 ``make_differentiable_acc`` in ``nbody_tpu/ops/pallas_forces.py`` does. On
-the card that VJP is the two kernels of ``csrc/direct_vjp.cu``; on the CPU
-its plain version, :func:`force_acc_vjp_plain`.
+the card that VJP is one pass of ``csrc/direct_vjp.cu`` over the pairs;
+on the CPU its plain version, :func:`force_acc_vjp_plain`.
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 version; CUDA tensors launch the kernel, and anything wrong there raises.
@@ -66,9 +66,31 @@ LAUNCHES = 0
 # The plan of each of those launches, counted ({Plan: launches}).
 PLANS: Counter = Counter()
 # Kernel launches of the VJP (csrc/direct_vjp.cu): each call of
-# ``force_acc_vjp`` on the card launches its target pass and its source
-# pass and adds 2 (a pass's in-order reduce of split ranges is part of it).
+# ``force_acc_vjp`` on the card makes one pass over the pairs and adds 1
+# (the fixed-order sums of its partials are part of it).
 VJP_LAUNCHES = 0
+# Blocks of the VJP kernel an SM holds (its __launch_bounds__), and the
+# most own rows a thread holds (each batch's reduction over the warp is
+# shared by P of them).
+VJP_BLOCKS_PER_SM = 2
+VJP_P_MAX = 4
+
+
+class VjpPlan(NamedTuple):
+    """How a launch of the VJP kernel cuts its work: the ``own`` side
+    ("targets" or "sources") sits in registers, ``p`` rows a thread (1, 2
+    or 4), in tiles of ``p`` · 256 rows; the other side is cut into ``n_split``
+    ranges of ``runs_per_split`` whole runs of 256 rows (the last range may
+    be shorter). A block is one (tile, range)."""
+
+    own: str
+    p: int
+    n_split: int
+    runs_per_split: int
+
+    def describe(self) -> str:
+        return (f"own={self.own} P={self.p} n_split={self.n_split} "
+                f"({self.runs_per_split} runs a range)")
 
 
 class Plan(NamedTuple):
@@ -354,13 +376,36 @@ def force_acc_vjp_plain(tgt_pos, tgt_radius, src_pos, src_gm, g, *,
     return d_tp, d_tr, d_sp, d_sg
 
 
-def vjp_splits(t: int, s: int, sms: int) -> tuple[int, int]:
-    """Source ranges of the VJP's target pass and target ranges of its
-    source pass for T targets and S sources on a card of ``sms`` SMs
-    (:func:`split_ranges` over blocks of 256 rows and runs of 256): shapes
-    alone fix them, so a recomputed backward repeats its bits."""
-    return (split_ranges(-(-t // BLOCK), -(-s // RUN), sms),
-            split_ranges(-(-s // BLOCK), -(-t // RUN), sms))
+def vjp_plan(t: int, s: int, sms: int) -> VjpPlan:
+    """The plan of the VJP kernel for T targets and S sources on a card of
+    ``sms`` SMs, from shapes alone, so that a recomputed backward repeats
+    its bits. The own side is the larger (targets on ties); P is the
+    smallest of 1, 2, VJP_P_MAX whose one tile holds the own rows, else
+    VJP_P_MAX; its tiles times the ranges make about one wave of
+    VJP_BLOCKS_PER_SM blocks an SM, and no range is empty."""
+    own_targets = t >= s
+    n_own, n_other = (t, s) if own_targets else (s, t)
+    p = next(p for p in (1, 2, VJP_P_MAX)
+             if n_own <= p * BLOCK or p == VJP_P_MAX)
+    tiles = -(-n_own // (p * BLOCK))
+    runs = -(-n_other // RUN)
+    n = max(1, min(runs, VJP_BLOCKS_PER_SM * sms // max(tiles, 1)))
+    n = -(-runs // -(-runs // n)) if runs else 1   # no empty range
+    # the kernel's own runs a range (csrc/direct_vjp.cu)
+    return VjpPlan("targets" if own_targets else "sources", p, n,
+                   max(1, -(-runs // n)))
+
+
+def vjp_blocks(t: int, s: int, plan: VjpPlan) -> list:
+    """The (own rows, other rows) ranges of each block of a launch with
+    ``plan``, in block order (the kernel's own arithmetic): tile k holds
+    own rows [k·P·256, (k+1)·P·256) ∩ [0, n_own), range r other rows
+    [r·R·256, (r+1)·R·256) ∩ [0, n_other), R = runs_per_split."""
+    n_own, n_other = (t, s) if plan.own == "targets" else (s, t)
+    size, span = plan.p * BLOCK, plan.runs_per_split * RUN
+    return [((k * size, min((k + 1) * size, n_own)),
+             (min(r * span, n_other), min((r + 1) * span, n_other)))
+            for k in range(-(-n_own // size)) for r in range(plan.n_split)]
 
 
 def force_acc_vjp(
@@ -381,9 +426,9 @@ def force_acc_vjp(
     d_tgt_pos_i = −Σ_j (f·g_i + 2e·d), d_src_pos_j = Σ_i (f·g_i + 2e·d),
     d_tgt_radius_i = Σ_j e, d_src_gm_j = Σ_i k·s.
 
-    On the card: the target pass and the source pass of
-    ``csrc/direct_vjp.cu``, split as :func:`vjp_splits` says, fixed order,
-    no atomics. On the CPU: :func:`force_acc_vjp_plain`."""
+    On the card: one pass of ``csrc/direct_vjp.cu`` over the pairs, cut
+    as :func:`vjp_plan` says, and its partials summed in a fixed order, no
+    atomics. On the CPU: :func:`force_acc_vjp_plain`."""
     device = _device_of(tgt_pos)
     t, s = tgt_pos.shape[0], src_pos.shape[0]
     _check("tgt_pos", tgt_pos, (t, 2), device)
@@ -395,33 +440,29 @@ def force_acc_vjp(
         return force_acc_vjp_plain(tgt_pos, tgt_radius, src_pos, src_gm, g,
                                    precise=precise)
     global VJP_LAUNCHES
-    split_t, split_s = vjp_splits(t, s, device_sms(device))
     f32 = dict(dtype=torch.float32, device=device)
     d_tp, d_sp = torch.zeros((t, 2), **f32), torch.zeros((s, 2), **f32)
     d_tr, d_sg = torch.zeros((t,), **f32), torch.zeros((s,), **f32)
     if t == 0 or s == 0:
         return d_tp, d_tr, d_sp, d_sg
-
-    # (ranges, rows, 3) partials of a split pass, summed in range order
-    part_t = torch.empty((split_t, t, 3), **f32) if split_t > 1 else None
-    part_s = torch.empty((split_s, s, 3), **f32) if split_s > 1 else None
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    lib = _vjp_lib()
-    args = (tgt_pos.data_ptr(), tgt_radius.data_ptr(), src_pos.data_ptr(),
-            src_gm.data_ptr(), g.data_ptr(), t, s, int(precise))
+    plan = vjp_plan(t, s, device_sms(device))
+    n_own, n_other = (t, s) if plan.own == "targets" else (s, t)
+    tiles = -(-n_own // (plan.p * BLOCK))
+    # (tiles, 3, other rows) partials of the other side; (ranges, 3, own
+    # rows) of the own side when it is split
+    other_part = torch.empty((tiles, 3, n_other), **f32)
+    own_part = (torch.empty((plan.n_split, 3, n_own), **f32)
+                if plan.n_split > 1 else None)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(lib.nbody_direct_vjp_targets(
-            *args, split_t, ptr(part_t), d_tp.data_ptr(), d_tr.data_ptr(),
-            stream), "direct_vjp target pass")
-        VJP_LAUNCHES += 1
-        _raise_on(lib.nbody_direct_vjp_sources(
-            *args, split_s, ptr(part_s), d_sp.data_ptr(), d_sg.data_ptr(),
-            stream), "direct_vjp source pass")
-        VJP_LAUNCHES += 1
+        _raise_on(_vjp_lib().nbody_direct_vjp(
+            tgt_pos.data_ptr(), tgt_radius.data_ptr(), src_pos.data_ptr(),
+            src_gm.data_ptr(), g.data_ptr(), t, s, int(precise),
+            int(plan.own == "targets"), plan.p, plan.n_split,
+            None if own_part is None else own_part.data_ptr(),
+            other_part.data_ptr(), d_tp.data_ptr(), d_tr.data_ptr(),
+            d_sp.data_ptr(), d_sg.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "direct_vjp")
+    VJP_LAUNCHES += 1
     return d_tp, d_tr, d_sp, d_sg
 
 

@@ -700,6 +700,34 @@ def test_force_acc_vjp_small_chunks_and_autograd():
         assert torch.equal(t_.grad, want)
 
 
+@pytest.mark.parametrize("t,s", [(65536, 32833), (64, 524704), (1000, 333),
+                                 (1, 1), (257, 1), (300, 2000), (70000, 900),
+                                 (900, 70000), (4096, 4096), (700, 900)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_vjp_plan_depends_on_shapes_alone_and_covers_every_pair(t, s, sms):
+    """The VJP kernel's plan (csrc/direct_vjp.cu) comes from (T, S, SMs)
+    alone, so a recomputed backward repeats its bits; its blocks' own-row
+    tiles and other-row ranges are non-empty, contiguous and cover both
+    sides, so each pair lies in exactly one block; the own side is the
+    larger; about one wave of blocks where the tiles alone are fewer."""
+    plan = df.vjp_plan(t, s, sms)
+    assert plan == df.vjp_plan(t, s, sms)
+    n_own, n_other = (t, s) if plan.own == "targets" else (s, t)
+    assert n_own >= n_other
+    blocks = df.vjp_blocks(t, s, plan)
+    tiles = sorted({own for own, _ in blocks})
+    ranges = sorted({other for _, other in blocks})
+    assert len(blocks) == len(tiles) * len(ranges) == len(set(blocks))
+    for spans, n in ((tiles, n_own), (ranges, n_other)):
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a < b for a, b in spans)
+        assert all(x[1] == y[0] for x, y in zip(spans, spans[1:]))
+    assert len(ranges) == plan.n_split
+    assert all(b - a <= plan.runs_per_split * df.RUN for a, b in ranges)
+    if len(tiles) < df.VJP_BLOCKS_PER_SM * sms:
+        assert len(blocks) <= df.VJP_BLOCKS_PER_SM * sms or plan.n_split == 1
+
+
 def test_force_acc_vjp_zero_radius_trap():
     """A zero-radius target on a gm = 0 source at its own position: the
     port's cotangents are finite, 0 from that pair, and equal JAX's rsqrt

@@ -16,6 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 import nbody_tpu as nb
 import nbody_tpu_torch as nt
@@ -25,6 +27,7 @@ from nbody_tpu_torch import forces
 from nbody_tpu_torch.ops import collisions as col
 from nbody_tpu_torch.ops.pm_forces import _cic_scatter
 from nbody_tpu_torch.parallel import ShardedWorld, make_mesh
+from nbody_tpu_torch.utils import contact_scenes
 from nbody_tpu_torch.utils.checks import validate_world_invariants
 
 TINY = nt.SimConfig(tile_targets=8, tile_sources=128)
@@ -179,15 +182,116 @@ def test_contact_on_the_boundary_is_no_contact():
     assert winner.tolist() == [4, 4, 0, 4]
 
 
-def test_contact_plan_cuts_the_sources_into_non_empty_ranges():
-    for m in (1, 255, 256, 1100, 32833, 524704):
-        for sms in (1, 132):
-            n, per = col.contact_plan(m, sms)
-            tiles = -(-m // col.BLOCK)
-            assert n * per >= tiles and (n - 1) * per < tiles
-            assert 1 <= n <= 65535
-    assert col.contact_plan(32833, 132) == (9, 15)    # 129 x 9 blocks
-    assert col.contact_plan(524704, 132) == (1, 2050)  # 2050 blocks fill it
+# --- the contact search's grid (the kernel's pairs, in plain PyTorch) ----
+
+def _same(a, b):
+    return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("kind", contact_scenes.KINDS)
+@pytest.mark.parametrize("factor", [1.0, 1.5])
+def test_grid_search_is_contacts_plain_bit_for_bit(kind, factor):
+    """The kernel's candidate pairs (contacts_grid_plain) give
+    contacts_plain's answer on the scenes where the grid is tight."""
+    scene = contact_scenes.contact_scene(kind)
+    want = col.contacts_plain(*scene, factor)
+    assert _same(col.contacts_grid_plain(*scene, factor), want)
+    assert int(want[0].sum()) > 0
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_grid_search_on_the_pass_inputs(kind):
+    pos, _, radius, mass, gm = _pass_inputs(kind)
+    t = [torch.from_numpy(x) for x in (pos, radius, mass)] + [
+        torch.from_numpy(gm > 0)]
+    for big_rows in (1, 3, None):
+        assert _same(col.contacts_grid_plain(*t, 1.0, big_rows=big_rows),
+                     col.contacts_plain(*t, 1.0))
+
+
+@pytest.mark.parametrize("margin,loses", [(None, False), (1 - 2**-20, True)])
+def test_grid_misses_no_contact_where_the_margin_is_tight(monkeypatch, margin,
+                                                          loses):
+    """Pairs one ulp inside reach, the first row just below a cell's edge:
+    the grid's margin keeps them adjacent; cells narrower than reach (a
+    margin of 1 - 2^-20) would lose them, so the scene can tell."""
+    scene = contact_scenes.tight_margin_scene(margin)
+    if margin is not None:
+        monkeypatch.setattr(col, "CELL_MARGIN", margin)
+    want = col.contacts_plain(*scene, 1.0)
+    assert int(want[0].sum()) == 7
+    assert _same(col.contacts_grid_plain(*scene, 1.0), want) is not loses
+
+
+def test_grid_holds_what_the_kernel_assumes():
+    """The big rows are the fewer than K rows whose size (|r| if live)
+    exceeds the K-th largest, r_cut; every row on the grid is live, not
+    big, at a finite position, with |r| <= r_cut, in the cell its key
+    names from the origin (the least x and y of the live finite rows);
+    keys sorted, order a permutation; cells wider than reach."""
+    pos, radius, mass, live = contact_scenes.contact_scene("far_and_big")
+    radius[7] = -30.0                                  # |r| counts
+    pos[9, 0] = float("nan")
+    grid = col.contact_grid(pos, radius, live, 1.0)
+    size = torch.where(live, radius.abs(), float("-inf"))
+    r_cut = torch.sort(size, descending=True).values[col.BIG_ROWS - 1]
+    assert torch.equal(grid.big, size > r_cut)
+    assert 0 < int(grid.big.sum()) < col.BIG_ROWS
+    assert bool(grid.big[7]) == bool(live[7])
+    assert torch.equal(torch.sort(grid.order).values, torch.arange(len(mass)))
+    assert bool((grid.keys[1:] >= grid.keys[:-1]).all())
+    on = torch.zeros(len(mass), dtype=torch.bool)
+    on[grid.order] = grid.keys != col.OFF_GRID
+    assert not on[grid.big].any() and not on[9] and not on[~live].any()
+    assert bool((radius.abs()[on] <= r_cut).all())
+    seen = live.clone()
+    seen[9] = False
+    assert torch.equal(grid.origin, pos[seen].double().amin(0))
+    rows = grid.order[grid.keys != col.OFF_GRID]
+    keys = grid.keys[grid.keys != col.OFF_GRID]
+    cell = ((pos[rows].double() - grid.origin) / grid.width).floor().long()
+    assert torch.equal(keys, (cell[:, 1] << 32) | cell[:, 0])
+    assert float(grid.width) > 2.0 * float(r_cut)
+
+
+def test_grid_search_with_non_finite_and_negative_rows():
+    rng = np.random.default_rng(8)
+    n = 600
+    pos = rng.uniform(-8.0, 8.0, (n, 2)).astype(np.float32)
+    radius = rng.uniform(0.1, 0.6, n).astype(np.float32)
+    pos[3] = np.inf
+    pos[4, 1] = np.nan
+    radius[5] = np.nan
+    radius[6] = -0.7
+    radius[10:40] = 2.0                                # ties among big rows
+    mass = (np.round(rng.uniform(0.5, 2.0, n) * 4) / 4).astype(np.float32)
+    live = rng.uniform(size=n) > 0.1
+    t = [torch.from_numpy(x) for x in (pos, radius, mass, live)]
+    for factor in (1.0, 0.5, 2.0):
+        assert _same(col.contacts_grid_plain(*t, factor),
+                     col.contacts_plain(*t, factor))
+
+
+@settings(max_examples=40, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(seed=st.integers(0, 2**31 - 1), n=st.integers(1, 300),
+       spread=st.floats(0.5, 40.0), offset=st.sampled_from([0.0, -7e3, 1e6]),
+       factor=st.sampled_from([1.0, 0.75, 1.5]), big=st.integers(0, 5),
+       big_rows=st.sampled_from([1, 4, 32]))
+def test_grid_search_on_random_clusters(seed, n, spread, offset, factor, big,
+                                        big_rows):
+    """Random clusters (some dead rows, tied masses, a few large radii,
+    far from the origin) through the kernel's pairs: contacts_plain's
+    answer, bit for bit."""
+    rng = np.random.default_rng(seed)
+    pos = (offset + rng.uniform(-spread, spread, (n, 2))).astype(np.float32)
+    radius = rng.uniform(0.05, 1.0, n).astype(np.float32)
+    radius[:big] = rng.uniform(2.0, 30.0, min(big, n))
+    mass = (np.round(rng.uniform(0.5, 2.0, n) * 4) / 4).astype(np.float32)
+    live = rng.uniform(size=n) > 0.1
+    t = [torch.from_numpy(x) for x in (pos, radius, mass, live)]
+    assert _same(col.contacts_grid_plain(*t, factor, big_rows=big_rows),
+                 col.contacts_plain(*t, factor))
 
 
 def test_merge_pass_plain_is_the_pass():

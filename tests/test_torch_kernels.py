@@ -33,6 +33,7 @@ from nbody_tpu_torch.ops import stationary_forces as stf
 from nbody_tpu_torch.ops import p3m_forces, p3m_pp
 from nbody_tpu_torch.ops import ring_forces as rf
 from nbody_tpu_torch.parallel import ShardedWorld, make_mesh
+from nbody_tpu_torch.utils import contact_scenes
 
 pytestmark = pytest.mark.cuda
 
@@ -856,32 +857,61 @@ def _contact_scene(kind, device):
     return (*t, torch.from_numpy(live).to(device))
 
 
-@pytest.mark.parametrize("kind", ["cluster", "ties", "chain", "boundary"])
+def _contact_case(kind, device):
+    if kind in contact_scenes.KINDS:
+        return contact_scenes.contact_scene(kind, device)
+    return _contact_scene(kind, device)
+
+
+@pytest.mark.parametrize("kind", ["cluster", "ties", "chain", "boundary",
+                                  *contact_scenes.KINDS])
 @pytest.mark.parametrize("factor", [1.0, 1.5])
 def test_contacts_kernel_is_bit_equal_to_plain(cuda, kind, factor):
-    pos, radius, mass, live = _contact_scene(kind, cuda)
+    pos, radius, mass, live = _contact_case(kind, cuda)
     col.LAUNCHES = 0
     got = col.contacts(pos, radius, mass, live, factor)
+    again = col.contacts(pos, radius, mass, live, factor)
     want = col.contacts_plain(pos, radius, mass, live, factor)
     torch.cuda.synchronize()
-    assert col.LAUNCHES == 1
+    assert col.LAUNCHES == 2
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[1], again[1])
     assert int(got[0].sum()) > 0
 
 
-@pytest.mark.parametrize("plan", [(1, 5), (2, 3), (5, 1)])
-def test_contacts_kernel_any_split_is_the_same(cuda, plan):
-    pos, radius, mass, live = _contact_scene("cluster", cuda)  # 5 tiles
-    want = col.contacts(pos, radius, mass, live, 1.0, plan=(1, 5))
-    got = col.contacts(pos, radius, mass, live, 1.0, plan=plan)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+@pytest.mark.parametrize("kind", ["cluster", "chain", *contact_scenes.KINDS])
+def test_contacts_kernel_grid_is_contact_grid_bit_for_bit(cuda, kind):
+    """The kernel's set-up (a radix select of the K-th largest radius, the
+    scalars, the keys) forms collisions.contact_grid's grid exactly."""
+    pos, radius, _, live = _contact_case(kind, cuda)
+    for factor in (1.0, 1.5):
+        got = col.contact_grid_kernel(pos, radius, live, factor)
+        want = col.contact_grid(pos, radius, live, factor)
+        torch.cuda.synchronize()
+        for name, a, b in zip(want._fields, got, want):
+            assert torch.equal(a, b), name
 
 
-def test_contacts_kernel_refuses_a_bad_plan(cuda):
+@pytest.mark.parametrize("big_rows", [1, 5, 64])
+def test_contacts_kernel_any_big_rows_is_the_same(cuda, monkeypatch,
+                                                  big_rows):
+    """Any number of big rows (each against every row; the rest on a grid
+    as wide as their largest reach) gives the same answer."""
+    for kind in ("cluster", "far_and_big"):
+        pos, radius, mass, live = _contact_case(kind, cuda)
+        want = col.contacts(pos, radius, mass, live, 1.0)
+        monkeypatch.setattr(col, "BIG_ROWS", big_rows)
+        got = col.contacts(pos, radius, mass, live, 1.0)
+        monkeypatch.undo()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_contacts_kernel_refuses_too_many_big_rows(cuda, monkeypatch):
     pos, radius, mass, live = _contact_scene("cluster", cuda)
-    with pytest.raises(ValueError, match="plan"):
-        col.contacts(pos, radius, mass, live, 1.0, plan=(3, 1))
+    monkeypatch.setattr(col, "BIG_ROWS", col.MAX_BIG + 1)
+    with pytest.raises(ValueError, match="big rows"):
+        col.contacts(pos, radius, mass, live, 1.0)
 
 
 def test_merge_pass_on_the_card_is_bit_equal_to_plain_and_repeats(cuda):
@@ -964,7 +994,7 @@ def test_force_acc_vjp_matches_plain_and_repeats(cuda, precise, t, s, prefix):
     before = df.VJP_LAUNCHES
     got = df.force_acc_vjp(*args, precise=precise)
     again = df.force_acc_vjp(*args, precise=precise)
-    assert df.VJP_LAUNCHES == before + (4 if s else 0)
+    assert df.VJP_LAUNCHES == before + (2 if s else 0)
     want = df.force_acc_vjp_plain(*args, precise=precise)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -972,18 +1002,25 @@ def test_force_acc_vjp_matches_plain_and_repeats(cuda, precise, t, s, prefix):
     assert max(_rel_each(got, want)) < VJP_TOL
 
 
-@pytest.mark.parametrize("t,s,split", [(200, 250, (False, False)),
-                                       (700, 900, (True, True)),
-                                       (70000, 900, (False, True)),
-                                       (900, 70000, (True, False))])
-def test_force_acc_vjp_any_split_matches_plain(cuda, t, s, split):
-    """Shapes that split neither pass, both, or one (the source ranges of
-    the target pass, the target ranges of the source pass)."""
-    ranges = df.vjp_splits(t, s, df.device_sms(cuda))
-    assert tuple(r > 1 for r in ranges) == split, ranges
+@pytest.mark.parametrize("t,s,own,split", [(200, 250, "sources", False),
+                                           (700, 900, "sources", True),
+                                           (1000, 333, "targets", True),
+                                           (70000, 900, "targets", True),
+                                           (900, 70000, "sources", True),
+                                           (300000, 600, "targets", False),
+                                           (64, 20000, "sources", False),
+                                           (40000, 20000, "targets", True)])
+def test_force_acc_vjp_any_plan_matches_plain(cuda, t, s, own, split):
+    """Plans of one tile or many, with the other side split or not, and
+    either side in registers (the larger one)."""
+    plan = df.vjp_plan(t, s, df.device_sms(cuda))
+    assert (plan.own, plan.n_split > 1) == (own, split), plan
     args = _vjp_case(cuda, t, s, seed=2)
     got = df.force_acc_vjp(*args)
+    again = df.force_acc_vjp(*args)
     want = df.force_acc_vjp_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert max(_rel_each(got, want)) < VJP_TOL
 
 
@@ -992,7 +1029,7 @@ def test_force_acc_backward_is_the_vjp_kernel(cuda):
     ts = [x.clone().requires_grad_() for x in (tp, tr, sp, sg)]
     before = df.VJP_LAUNCHES
     df.force_acc(*ts).backward(g)
-    assert df.VJP_LAUNCHES == before + 2
+    assert df.VJP_LAUNCHES == before + 1
     want = df.force_acc_vjp(tp, tr, sp, sg, g)
     assert all(torch.equal(x.grad, w) for x, w in zip(ts, want))
 
@@ -1049,7 +1086,7 @@ def test_cuda_rollout_grads_match_torch_rollout(cuda, integrator):
 
     before = df.VJP_LAUNCHES
     v_c, g_c = run("cuda")
-    assert df.VJP_LAUNCHES == before + 2 * 3 * stages
+    assert df.VJP_LAUNCHES == before + 3 * stages
     v_t, g_t = run("torch")
     assert float(v_c) == pytest.approx(float(v_t), rel=1e-5)
     for a, b in zip(g_c, g_t):
@@ -1082,7 +1119,7 @@ def test_p3m_rollout_on_the_card_matches_the_cpu_and_repeats(cuda):
     before = (p3m_pp.VJP_LAUNCHES, df.VJP_LAUNCHES)
     v1, g1 = run(cuda, 2)
     assert (p3m_pp.VJP_LAUNCHES, df.VJP_LAUNCHES) == (before[0] + 4,
-                                                      before[1] + 4)
+                                                      before[1] + 2)
     v2, g2 = run(cuda, 2)
     assert torch.equal(g1, g2) and torch.equal(v1, v2)
     assert torch.isfinite(g1).all()
