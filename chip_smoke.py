@@ -30,8 +30,8 @@ Phases, each of which raises on failure:
      and cells past the cap), the cells of the N=1M p3m world with the
      slice's config (grid 2048, gc 512, cap 768) and of the N=65536 world
      with the default one (grid 512, gc 128, cap 96); with each scene's
-     candidate pairs, pairs inside rc, tasks, lanes busy, K4's time and
-     bound;
+     candidate pairs, pairs inside rc, tasks, lanes busy (by tasks, and
+     by work: candidates over 32 × warp iterations), K4's time and bound;
   7. the direct kernel's source-split force_acc against its plain version:
      the 64 exact-core rows of the N=1M world against its 524,704 sources,
      and 1000 targets against 333 sources;
@@ -118,7 +118,10 @@ Phases, each of which raises on failure:
      N=65536 scene and the N=1M exact-core shape (64 x 524704); K4's
      (csrc/p3m_pp_vjp.cu) on random 8x8 cells, the N=65536 default cells
      and the N=1M slice's cells (on the 8x8 cells around the fullest);
-     each kernel's time and bound. Then the "cuda" rollout at N=65536,
+     each kernel's time and bound; K4's batch loop's SASS and MUFU (3 a
+     pair in rsqrt), and at both scenes its launches a call, device split,
+     range length R, tasks, scratch and longest task against K4's form.
+     Then the "cuda" rollout at N=65536,
      precise, 10 steps, remat: the value and gradient of trajectory_loss
      with respect to pos0, vel0, mass, radius and dt (equal to
      World.update with a zero hook, bit-equal twice, exactly 20 force_acc
@@ -523,7 +526,9 @@ def pair_counts(cells, rc, cap: int) -> dict:
     rows, candidate pairs (each live target against the live sources of
     its 9 neighbour cells), pairs inside rc (d² < rc² in fp32, without the
     kernel's FMA, so a pair on the boundary may count otherwise), and the
-    kernel's tasks (tiles of up to 32 live targets of a cell)."""
+    kernel's tasks (tiles of up to 32 live targets of a cell); and the
+    warp iterations of K4's form (a warp a tile against each row of its
+    cell's 3×3 neighbourhood), whose lanes the candidates fill."""
     trows, srows, st, ct, ss, cs = cells
     n_t, n_s, g = trows.shape[0], srows.shape[0], ct.numel()
     gc = math.isqrt(g)
@@ -552,9 +557,13 @@ def pair_counts(cells, rc, cap: int) -> dict:
                 dy = srows[sidx, 1] - trows[rows[r], 1][:, None]
                 near = (dx * dx + dy * dy < rc2) & (k < ns[r, None])
                 inside += int(near.sum())
+    from nbody_tpu_torch.ablations.tune_pp_vjp import task_rows
+
     return {"live_t": int(ct_live.sum()), "live_s": int(cs_live.sum()),
             "n_t": n_t, "cells": g, "cap": cap, "candidates": candidates,
             "inside": inside, "tasks": int(((ct_live + 31) // 32).sum()),
+            "warp_iterations": task_rows(ct, cs, gc, cap, cap,
+                                         1)["warp_iterations"],
             "cells_with_targets": int((ct_live > 0).sum())}
 
 
@@ -697,7 +706,9 @@ def compare_pp(pp, label, cells, blocks, rc, cap: int, dense_plain: bool) -> dic
         f"targets; {c['live_t']} live targets, {c['live_s']} live sources; "
         f"candidate pairs {c['candidates']:.4e}, inside rc {c['inside']:.4e} "
         f"({c['inside'] / max(c['candidates'], 1):.1%}); {c['tasks']} tasks, "
-        f"lanes busy {c['live_t'] / max(32 * c['tasks'], 1):.1%}")
+        f"lanes busy {c['live_t'] / max(32 * c['tasks'], 1):.1%} by tasks, "
+        f"{c['candidates'] / max(32 * c['warp_iterations'], 1):.1%} by work "
+        f"({c['warp_iterations']:.4e} warp iterations)")
     log(f"  {label}: cells route {ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}, {bound_ms / ms:.1%} of it); plain {plain_ms:.3f} ms; "
         f"pp_blocks {ms_b:.4f} ms with counts (bound {bb_ms:.4f} ms, "
@@ -2285,7 +2296,7 @@ AD_LOSS = 1e-5                  # tests/test_autodiff.py:98, forward parity
 AD_GRAD = 1e-4
 AD_SHARD_VALUE, AD_SHARD_GRAD = 1e-5, 3e-5
 # What the VJPs must do, counted once a pair (each kernel computes a pair
-# once in each of its two passes), an FMA as two operations, as
+# once), an FMA as two operations, as
 # FLOPS_DIRECT counts them. The direct VJP, 29 a pair: d (2), r2 (4), k =
 # inv³ (2), f (1), s = g·d (3), e = −1.5·f·s/r2 (3), 2e (1), f·g + 2e·d
 # (6), the target's three sums (3), the source's three (4). MUFU: rsqrt
@@ -2301,6 +2312,7 @@ FLOPS_DIRECT_VJP = 29
 MUFU_DIRECT_VJP = {False: 1, True: 2}
 FLOPS_PP_VJP = 55
 MUFU_PP_VJP = 3
+PP_VJP_KERNELS = 2                # the pass and the sums, a call
 VJP_NAMES = ("d_tgt_pos", "d_tgt_radius", "d_src_pos", "d_src_gm")
 
 
@@ -2423,6 +2435,66 @@ def pp_vjp_case(pp, label, cells, rc, cap: int, cells_sub=None) -> float:
     return worst
 
 
+def pp_vjp_timing(pp, label, cells, rc, cap: int, reps: int) -> dict:
+    """K4's VJP on these runs, rsqrt: ms a call (CUDA events), its bound
+    and share, a profiler window's kernel launches a call and device ms of
+    the pass, the sums and the rest, and the plan: R, tasks, scratch, and
+    the longest task (rows one warp walks) against K4's form (the parent's
+    VJP: a warp a tile walking its cell's whole neighbourhood)."""
+    from nbody_tpu_torch.ablations.tune_pp_vjp import device_split, task_rows
+
+    n_t, n_s = cells[0].shape[0], cells[1].shape[0]
+    gc = math.isqrt(cells[3].numel())
+    g = cotangent(n_t, cells[0].device, seed=3)
+    kw = {"cap_t": cap, "cap_s": cap}
+
+    def call():
+        return pp.pp_cells_vjp(*cells, rc, 4.0, g, **kw)
+
+    call()      # the scratch's blocks back in the allocator's cache
+    before = pp.VJP_LAUNCHES
+    ms = cuda_ms(call, reps=reps)
+    expect_launches(f"{label}: VJP_LAUNCHES a call", pp.VJP_LAUNCHES - before,
+                    reps)
+    split = device_split(call)
+    expect_launches(f"{label}: kernels a call", split["kernels"],
+                    PP_VJP_KERNELS)
+    plan = pp.vjp_plan(cells[3], cells[5], gc, cap, cap)
+    t = task_rows(cells[3], cells[5], gc, cap, cap, plan.rows)
+    mib = pp.vjp_scratch_bytes(n_t, n_s, plan) / 2 ** 20
+    c = pair_counts(cells, rc, cap)
+    b_ms, b_by = pp_vjp_bound(c, n_s)
+    log(f"  {label}: {ms:.4f} ms a call (bound {b_ms:.4f} ms by {b_by}, "
+        f"{b_ms / ms:.1%} of it; {c['inside']:.4e} pairs inside rc); one "
+        f"VJP_LAUNCHES a call, {split['kernels']} kernel launches: device ms "
+        f"pass {split['pass_ms']:.4f}, sums {split['sums_ms']:.4f}, the rest "
+        f"{split['rest_ms']:.4f}")
+    log(f"  {label}: R={plan.rows}, {t['tasks_after']} tasks of a block "
+        f"({t['tasks_before']} in K4's form), scratch {mib:.1f} MiB; the "
+        f"longest task {t['longest_after']} rows a warp, {t['longest_before']}"
+        f" in K4's form; {t['warp_iterations']:.4e} warp iterations, each once")
+    return {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "scratch_mib": mib,
+            "split": split, "tasks": t}
+
+
+def vjp_loops(_build, sass) -> None:
+    """K4's VJP pass kernel, rsqrt and precise: its batch loop (the largest
+    innermost loop, 8 staged rows against a tile) in SASS instructions,
+    MUFU operations and shuffles, from the build; rsqrt must take 3 MUFU a
+    pair."""
+    funcs = sass.functions(_build.library_path("p3m_pp_vjp"))
+    for precise in (False, True):
+        code = funcs[sass.find(funcs, rf"vjp_kernelILb{int(precise)}E")]
+        n, mufu = sass.pair_loop(code, "MUFU")
+        shfl = sass.pair_loop(code, "SHFL")[1]
+        log(f"  K4 VJP {'precise' if precise else 'rsqrt'}: batch loop {n} "
+            f"SASS instructions for 8 rows, {n / 8:.1f} a row; {mufu} MUFU "
+            f"({mufu / 8:g} a pair), {shfl} shuffles")
+        if not precise and mufu != 8 * MUFU_PP_VJP:
+            raise SystemExit(f"chip_smoke: K4 VJP rsqrt takes {mufu / 8:g} "
+                             f"MUFU a pair, not {MUFU_PP_VJP}")
+
+
 def densest_block(counts: torch.Tensor, side: int = 8) -> torch.Tensor:
     """The cells of a side × side window of the grid around its fullest
     cell (clipped to the grid)."""
@@ -2464,8 +2536,8 @@ def peak_mib(fn) -> tuple[float, object]:
     return (torch.cuda.max_memory_allocated() - base) / 2 ** 20, out
 
 
-def phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big, slice_w,
-                   device) -> dict:
+def phase_autodiff(nt, df, pp, p3m_forces, _build, sass, scene_bench,
+                   scene_big, slice_w, device) -> dict:
     """[17]: the VJP kernels and the differentiable rollouts on the card."""
     from nbody_tpu_torch import autodiff
     from nbody_tpu_torch.parallel import make_mesh
@@ -2528,6 +2600,7 @@ def phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big, slice_w,
     out["k1"]["core_ms"] = core_ms
 
     # b. K4's VJP against its plain version
+    vjp_loops(_build, sass)
     cells, _, rc = random_cells(pp, device)
     pp_worst = pp_vjp_case(pp, "K4 VJP random 8x8 cells cap 32", cells, rc, 32)
     default_w = nt.create_world(scene_bench, config=nt.SimConfig(**P3M_DEFAULT),
@@ -2536,17 +2609,11 @@ def phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big, slice_w,
     cells, _, rc = world_cells(pp, p3m_forces, default_w)
     label = f"K4 VJP N={BENCH_N} grid {P3M_DEFAULT['pm_grid']} cap={cap}"
     pp_worst = max(pp_worst, pp_vjp_case(pp, label, cells, rc, cap))
+    k4 = pp_vjp_timing(pp, label, cells, rc, cap, reps=10)
     g = cotangent(cells[0].shape[0], device, seed=3)
-    kw = {"cap_t": cap, "cap_s": cap}
-    k4 = {"ms": cuda_ms(lambda: pp.pp_cells_vjp(*cells, rc, 4.0, g, **kw),
-                        reps=10),
-          "plain_ms": cuda_ms(lambda: pp.pp_cells_vjp_plain(*cells, rc, 4.0,
-                                                            g, **kw))}
-    c = pair_counts(cells, rc, cap)
-    k4["bound_ms"], k4["bound_by"] = pp_vjp_bound(c, cells[1].shape[0])
-    log(f"  {label}: {k4['ms']:.4f} ms (bound {k4['bound_ms']:.4f} ms by "
-        f"{k4['bound_by']}, {k4['bound_ms'] / k4['ms']:.1%} of it; "
-        f"{c['inside']:.4e} pairs inside rc), plain {k4['plain_ms']:.2f} ms")
+    k4["plain_ms"] = cuda_ms(lambda: pp.pp_cells_vjp_plain(
+        *cells, rc, 4.0, g, cap_t=cap, cap_s=cap))
+    log(f"  {label}: plain {k4['plain_ms']:.2f} ms")
     del default_w
     cap = P3M_SIZED["p3m_cell_capacity"]
     cells, _, rc = world_cells(pp, p3m_forces, slice_w)
@@ -2555,15 +2622,9 @@ def phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big, slice_w,
     pp_worst = max(pp_worst, pp_vjp_case(
         pp, f"{label} (the 8x8 cells around the fullest)", cells, rc, cap,
         cells_sub=block))
-    g = cotangent(cells[0].shape[0], device, seed=3)
-    kw = {"cap_t": cap, "cap_s": cap}
-    big_ms = cuda_ms(lambda: pp.pp_cells_vjp(*cells, rc, 4.0, g, **kw), reps=3)
-    c = pair_counts(cells, rc, cap)
-    big_b = pp_vjp_bound(c, cells[1].shape[0])
-    log(f"  {label}: {big_ms:.4f} ms (bound {big_b[0]:.4f} ms by "
-        f"{big_b[1]}, {big_b[0] / big_ms:.1%} of it; {c['inside']:.4e} pairs "
-        f"inside rc)")
-    k4.update(max_abs_err=pp_worst, big_ms=big_ms, big_bound_ms=big_b[0])
+    big = pp_vjp_timing(pp, label, cells, rc, cap, reps=5)
+    k4.update(max_abs_err=pp_worst, big_ms=big["ms"],
+              big_bound_ms=big["bound_ms"], big=big)
     out["k4"] = k4
     del cells, g
 
@@ -2675,9 +2736,10 @@ def phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big, slice_w,
         counts = {"K4": pp.LAUNCHES, "K4 VJP": pp.VJP_LAUNCHES,
                   "force_acc": df.LAUNCHES, "K1 VJP": df.VJP_LAUNCHES}
         for what, got in counts.items():
-            # one pass a VJP call of K1's, two of K4's
+            # one VJP call of each a step, one pass a call; K4 and
+            # force_acc forward and recomputed
             expect_launches(f"'p3m' rollout N={n}, {what}", got,
-                            AD_P3M_STEPS if what == "K1 VJP"
+                            AD_P3M_STEPS if "VJP" in what
                             else 2 * AD_P3M_STEPS)
         _, g2 = run()
         if not torch.equal(g1, g2) or not torch.isfinite(g1).all():
@@ -2901,8 +2963,8 @@ def main() -> int:
                         scene_bench, scene_big, device)
     merge = phase_merge(nt, sh, df, rf, pp, world_mod, diagnostics,
                         scene_bench, scene_big, device)
-    rollouts = phase_autodiff(nt, df, pp, p3m_forces, scene_bench, scene_big,
-                              slice_w, device)
+    rollouts = phase_autodiff(nt, df, pp, p3m_forces, _build, sass,
+                              scene_bench, scene_big, slice_w, device)
 
     mk = merge["kernel"]
     log(f"card: {smi}")
@@ -2948,7 +3010,10 @@ def main() -> int:
         f"'p3m' slice forward {ad_p['fwd_ms']:.4f}, forward and backward "
         f"{ad_p['both_ms']:.4f} (peak {ad_p['peak_mib']:.1f} MiB); K1 VJP "
         f"{vjp1['ms']:.4f} (precise; bound {vjp1['bound_ms']:.4f}), K4 VJP "
-        f"N={BIG_N} {vjp4['big_ms']:.4f} (bound {vjp4['big_bound_ms']:.4f})")
+        f"N={BIG_N} {vjp4['big_ms']:.4f} (bound {vjp4['big_bound_ms']:.4f}, "
+        f"scratch {vjp4['big']['scratch_mib']:.1f} MiB), N={BENCH_N} "
+        f"{vjp4['ms']:.4f} (bound {vjp4['bound_ms']:.4f}, scratch "
+        f"{vjp4['scratch_mib']:.1f} MiB)")
     log("ablation path, best ms of each sweep: " + ", ".join(
         f"{key} {ablation[key]['best']['ms']:.4f} ({ablation[key]['best']['name']})"
         for key in ABLATION_KERNELS) + f" (K1 force_acc {ablation['k1_ms']:.4f})")
@@ -3049,7 +3114,7 @@ def main() -> int:
          "ms": vjp1["ms"], "plain_ms": vjp1["plain_ms"],
          "bound_ms": vjp1["bound_ms"], "bound_by": vjp1["bound_by"],
          "library_ms": None},
-        {"name": f"p3m_pp_vjp pair-correction VJP (target and source passes), "
+        {"name": f"p3m_pp_vjp pair-correction VJP (one pass over the pairs), "
                  f"'p3m' rollout N={BENCH_N} grid {P3M_DEFAULT['pm_grid']} "
                  f"cap={P3M_DEFAULT['p3m_cell_capacity']}",
          "route": "cuda", "source": PP_VJP_SRC,

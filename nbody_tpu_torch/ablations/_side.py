@@ -10,8 +10,9 @@ gives one.
     PYTHONPATH=ROOT python nbody_tpu_torch/ablations/_side.py JOBS.json OUT_DIR
 
 JOBS.json is a list of jobs, each {"what": "fused" | "hop" | "ring" |
-"pp" | "p3m" | "contacts" | "vjp" | "merging" | "rollout", "n", ...}
-(the last four are tune_merge_vjp's, below): "fused" is one fused substep
+"pp" | "p3m" | "contacts" | "vjp" | "merging" | "rollout" | "pp_vjp" |
+"p3m_rollout", "n", ...} (the four after "p3m" are tune_merge_vjp's, the
+last two tune_pp_vjp's, below): "fused" is one fused substep
 of the N-particle
 two-galaxy world (seed 11037); "hop" that world's state as the only hop of
 a one-shard ring, with its epilogue; "ring" a profiler window over a
@@ -28,7 +29,14 @@ against it) with a cotangent from seed 1 (its output the four
 cotangents); "merging" is ``substeps`` merging substeps of 0.01 of that
 world, timed from the state after 10; "rollout" is the "cuda" rollout's
 forward and backward, precise, ``steps`` steps of 0.01, the loss on the
-first tracer. A job's outputs go to OUT_DIR/<index>.pt, and one
+first tracer. "pp_vjp" is ``p3m_pp.pp_cells_vjp`` on the rows and runs
+that the p3m world of ``grid`` and ``cap`` hands K4 at its initial state,
+with a cotangent from seed 3 (its outputs the two row cotangents);
+"p3m_rollout" that world's "p3m" rollout, ``steps`` steps of 0.01 forward
+and backward, the loss sum(pos²); both also give the device ms of one
+call (a profiler window's busy time) and the peak MiB allocated above
+their inputs. A job's outputs go to
+OUT_DIR/<index>.pt, and one
 JSON line a job gives its times (ms; "reps" calls between CUDA events, the
 best of "repeats"; a "p3m" job's ms are a substep's).
 """
@@ -70,6 +78,34 @@ def best_ms(fn, reps: int, repeats: int) -> float:
     return best
 
 
+def device_ms(fn) -> float:
+    """Device ms of one call of fn: the union of its device intervals in a
+    torch.profiler window (the ranges of record_function left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return union_ms([(e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)])
+
+
+def union_ms(spans) -> float:
+    """ms covered by the union of (start, end) intervals in µs."""
+    spans = sorted(spans)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    return (busy + hi - lo) / 1e3
+
+
 def ring_window(device, n: int, d: int, substeps: int = 5) -> tuple:
     """(union, sum of the hop kernel's device intervals, wall ms) a substep
     of a torch.profiler window over a "cuda_ring" ShardedWorld of n
@@ -91,16 +127,10 @@ def ring_window(device, n: int, d: int, substeps: int = 5) -> tuple:
         w.update(1.0, substeps)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / substeps
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and "ring_hop_kernel" in e.name)
-    union, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            union, lo = union + hi - lo, a
-        hi = max(hi, b)
-    union += hi - lo
-    return (union / 1e3 / substeps,
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and "ring_hop_kernel" in e.name]
+    return (union_ms(spans) / substeps,
             sum(b - a for a, b in spans) / 1e3 / substeps, wall)
 
 
@@ -163,6 +193,57 @@ def pp_call(world, precise: bool):
         flat = torch.cat([out.reshape(-1, 2), torch.zeros_like(out[0, :1])])
         return flat[slots]
     return fn, to_rows
+
+
+def pp_vjp_call(world, precise: bool):
+    """The K4 VJP call that the backward of a "p3m" rollout step makes on
+    the world's state (rows and runs as ``pp_call``'s), with a cotangent
+    from seed 3."""
+    import numpy as np
+
+    from nbody_tpu_torch.ops import p3m_forces, p3m_pp
+
+    cfg, st, s = world.config, world.state, world.mass_len
+    cap = cfg.p3m_cell_capacity
+    bins = p3m_forces.p3m_bins(st.pos, st.radius, st.pos[:s], world.gm,
+                               grid=cfg.pm_grid, rc_cells=cfg.p3m_rc_cells,
+                               exact_targets=0)
+    rc = cfg.p3m_rc_cells * bins["h"]
+    rows = [torch.cat([xy, w[:, None] + f, torch.zeros_like(w)[:, None]],
+                      1)[order]
+            for xy, w, order, f in (
+                (st.pos, st.radius, bins["order_t"], p3m_pp.SOFTENING_FLOOR),
+                (st.pos[:s], world.gm, bins["order_s"], 0.0))]
+    runs = [bins[k] for k in ("start_t", "counts_t", "start_s", "counts_s")]
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(rows[0].shape[0], 2)).astype(np.float32)).to(st.pos.device)
+
+    def fn():
+        return p3m_pp.pp_cells_vjp(*rows, *runs, rc, 4.0, g, cap_t=cap,
+                                   cap_s=cap, precise=precise)
+    return fn
+
+
+def p3m_rollout_call(world, steps: int):
+    """The "p3m" rollout of the world's config from its state, forward and
+    backward: d sum(pos²) / d pos0 after ``steps`` steps of 0.01."""
+    from nbody_tpu_torch import autodiff
+
+    cfg, st = world.config, world.state
+    kw = dict(n_steps=steps, mass_len=world.mass_len, backend="p3m",
+              precise=cfg.precise, g=cfg.g, pm_grid=cfg.pm_grid,
+              pm_softening=cfg.pm_softening, p3m_rc_cells=cfg.p3m_rc_cells,
+              p3m_cell_capacity=cfg.p3m_cell_capacity,
+              p3m_exact_targets=cfg.p3m_exact_targets,
+              p3m_rebin_interval=cfg.p3m_rebin_interval,
+              integrator=cfg.integrator)
+    dt = torch.full((), 0.01, device=st.pos.device)
+
+    def fn():
+        p = st.pos.detach().clone().requires_grad_()
+        fin, _ = autodiff.rollout(p, st.vel, st.mass, st.radius, dt, **kw)
+        return torch.autograd.grad(torch.sum(fin ** 2), p)[0]
+    return fn
 
 
 def p3m_substep_ms(world, substeps: int, repeats: int) -> float:
@@ -242,12 +323,25 @@ def run_job(job: dict, device, worlds: dict) -> tuple:
     if job["what"] == "ring":
         union, total, wall = ring_window(device, job["n"], job["d"])
         return {"union_ms": union, "sum_ms": total, "wall_ms": wall}, None
-    if job["what"] in ("pp", "p3m"):
+    if job["what"] in ("pp", "p3m", "pp_vjp", "p3m_rollout"):
         key = (job["n"], job["grid"], job["cap"])
         if key not in worlds:
             worlds.clear()
             worlds[key] = p3m_world(*key, device)
         world = worlds[key]
+        if job["what"] in ("pp_vjp", "p3m_rollout"):
+            fn = pp_vjp_call(world, job.get("precise", False)) \
+                if job["what"] == "pp_vjp" else \
+                p3m_rollout_call(world, job["steps"])
+            out = [t.cpu() for t in fn()] if job.get("keep") else None
+            scale = job.get("steps", 1)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = best_ms(fn, job.get("reps", 1), job.get("repeats", 3))
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            return {"ms": ms / scale, "device_ms": device_ms(fn) / scale,
+                    "peak_mib": peak}, out
         if job["what"] == "p3m":
             return {"ms": p3m_substep_ms(world, job["substeps"],
                                          job.get("repeats", 2))}, None

@@ -122,15 +122,16 @@ SIGNATURES = {
             _i32, _vp, _vp],           # precise, out (n_t, 2), stream
     },
     "p3m_pp_vjp": {
-        name: [
+        "nbody_p3m_pp_vjp": [
             _vp, _i32, _vp, _i32,      # trows (n_t, 4), n_t, srows (n_s, 4), n_s
             _vp, _vp, _vp, _vp,        # start_t, counts_t, start_s, counts_s
             _i32, _i32, _i32,          # gc, cap_t, cap_s
             _vp, _i32,                 # (rc, eps2, 1/rc) fp32, precise
             _vp,                       # g (n_t, 2) cotangent
-            _vp, _i32,                 # the pass's tile_end (gc*gc,), max_tasks
-            _vp, _vp]                  # out (n, 4) of its side, stream
-        for name in ("nbody_p3m_pp_vjp_targets", "nbody_p3m_pp_vjp_sources")
+            _vp, _vp, _i32,            # plan: ranges (gc*gc,), ends (2, gc*gc), R
+            _vp,                       # task counter (one int32, 0)
+            _vp, _vp,                  # scratch: target and source partials
+            _vp, _vp, _vp],            # d_t (n_t, 4), d_s (n_s, 4), stream
     },
     "merge_contacts": {
         "nbody_contact_grid": [

@@ -32,8 +32,9 @@ Two entry points, one kernel:
 ``torch.autograd.Function`` whose backward is :func:`pp_cells_vjp`, the
 VJP of ``_pp_blocks_jnp`` (the adjoint that ``nbody_tpu``'s ``pp_blocks``
 recomputes at backward time) on the same slots, taper and ``d² < rc²``
-mask included. On the card it is the two kernels of
-``csrc/p3m_pp_vjp.cu``; on the CPU, :func:`pp_cells_vjp_plain`. The runs,
+mask included. On the card it is ``csrc/p3m_pp_vjp.cu`` (one pass over
+the pairs, cut as :func:`vjp_plan` says); on the CPU,
+:func:`pp_cells_vjp_plain`. The runs,
 ``rc`` and ``eps2`` get no gradient: the p3m path forms rc from a box that
 is detached, as JAX's is under ``stop_gradient``, and the softening is a
 constant.
@@ -45,6 +46,7 @@ version; CUDA tensors launch the kernel, and anything wrong there raises.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -57,9 +59,16 @@ from ..types import DTYPE, SOFTENING_FLOOR
 LAUNCHES = 0
 
 # Kernel launches of the VJP (csrc/p3m_pp_vjp.cu): each call of
-# ``pp_cells_vjp`` on the card launches its target pass and its source pass
-# and adds 2.
+# ``pp_cells_vjp`` on the card makes one pass over the pairs and adds 1
+# (the fixed-order sums of its partials are part of it).
 VJP_LAUNCHES = 0
+
+# The VJP's plan (:func:`vjp_plan`): the most rows of a target cell's
+# neighbourhood one task walks for each of the cell's tiles (R, a multiple
+# of 8 up to 1536), and the tiles from which a cell's tasks are taken
+# first. R sets the order of each target's sums, so it is fixed.
+VJP_RANGE = 512
+VJP_HEAVY_TILES = 4
 
 # Targets a kernel task: one warp, one target a lane (csrc/p3m_pp.cu).
 TILE = 32
@@ -484,6 +493,111 @@ def pp_cells_vjp_plain(trows, srows, start_t, counts_t, start_s, counts_s, rc,
     return d_t, d_s
 
 
+class VjpPlan(NamedTuple):
+    """How the VJP kernel cuts its work: each target cell's neighbourhood
+    (its 3×3 cells' first cap_s sources, in neighbour order) into ranges
+    of at most ``rows`` rows, one task a range; and the rows of both sides
+    into tiles of TILE rows for the sums of the partials."""
+    ranges: torch.Tensor  # (gc²,) int32 ranges of each cell, 0 without targets
+    ends: torch.Tensor    # (4 gc²,) int32 one prefix sum over four lists
+    rows: int             # R
+    k_max: int            # the most ranges a cell can have, ceil(9 cap_s / R)
+
+
+def _neighbourhood(live: torch.Tensor, gc: int) -> torch.Tensor:
+    """(gc²,) the sum of ``live`` (gc²,) over each cell's 3×3 neighbours
+    inside the grid."""
+    p = torch.nn.functional.pad(live.reshape(1, gc, gc), (1, 1, 1, 1))[0]
+    band = p[:-2] + p[1:-1] + p[2:]
+    return (band[:, :-2] + band[:, 1:-1] + band[:, 2:]).reshape(-1)
+
+
+def vjp_plan(counts_t: torch.Tensor, counts_s: torch.Tensor, gc: int,
+             cap_t: int, cap_s: int, rows: int | None = None) -> VjpPlan:
+    """The VJP kernel's plan, on the counts' device with no host sync, from
+    the counts, caps and R alone (so a recomputed backward repeats its
+    bits). A cell with live targets has ceil(L / R) ranges, L its
+    neighbourhood's live sources. ``ends`` is the inclusive prefix sum,
+    over the cells, of four lists one after the other: the ranges of the
+    cells of at least VJP_HEAVY_TILES tiles (their tasks are the longest,
+    so they are taken first), the ranges of the others (task k of the pass
+    is range k - (the cell's end - its ranges) of the cell whose end is the
+    first past k), then the sums' tiles: each cell's source tiles, and the
+    target tiles of the cells of more than one range."""
+    rows = VJP_RANGE if rows is None else rows
+    live_s = counts_s.clamp(max=cap_s)
+    tiles = (torch.stack([live_s, counts_t.clamp(max=cap_t)]) + (TILE - 1)) \
+        // TILE
+    ranges = (_neighbourhood(live_s, gc) + (rows - 1)) // rows * (tiles[1] > 0)
+    heavy = ranges * (tiles[1] >= VJP_HEAVY_TILES)
+    ends = torch.cumsum(torch.cat([heavy, ranges - heavy, tiles[0],
+                                   tiles[1] * (ranges > 1)]), 0,
+                        dtype=torch.int32)
+    return VjpPlan(ranges, ends, rows, -(-9 * cap_s // rows))
+
+
+def vjp_scratch_bytes(n_t: int, n_s: int, plan: VjpPlan) -> int:
+    """Bytes of the VJP kernel's partials: 3 floats a (target row, range
+    past the first) and a (source row, neighbour target cell)."""
+    return 4 * 3 * ((plan.k_max - 1) * n_t + 9 * n_s)
+
+
+def _plan_lists(plan: VjpPlan) -> list:
+    """The plan's four lists as [(cell, first id, end id)] of the cells
+    that hold ids, read on the host."""
+    ends = plan.ends.tolist()
+    n = len(ends) // 4
+    out = []
+    for k in range(4):
+        prev = ends[k * n - 1] if k else 0
+        cells = []
+        for c in range(n):
+            if ends[k * n + c] > prev:
+                cells.append((c, prev, ends[k * n + c]))
+            prev = ends[k * n + c]
+        out.append(cells)
+    return out
+
+
+def vjp_tasks(plan: VjpPlan, counts_s: torch.Tensor, gc: int, cap_s: int):
+    """The tasks of the pass in their order, as the kernel decodes them:
+    (cell, range, spans), with spans the (source cell, first, end, slot)
+    runs of the range's rows (rows first .. end - 1 of the source cell's
+    run) and slot the place of the target cell among the source cell's
+    3×3 neighbours, where those rows' partials go. Reads the plan on the
+    host (for tests)."""
+    live_s = counts_s.clamp(max=cap_s).tolist()
+    lists = _plan_lists(plan)
+    out = []
+    for cell, lo, hi in lists[0] + lists[1]:
+        ci, cj = divmod(cell, gc)
+        for r in range(hi - lo):
+            first, end = r * plan.rows, (r + 1) * plan.rows
+            at, spans = 0, []
+            for k in range(9):
+                ni, nj = ci + k // 3 - 1, cj + k % 3 - 1
+                if not (0 <= ni < gc and 0 <= nj < gc):
+                    continue
+                nc = ni * gc + nj
+                a, b = max(first, at), min(end, at + live_s[nc])
+                if a < b:
+                    spans.append((nc, a - at, b - at, 8 - k))
+                at += live_s[nc]
+            out.append((cell, r, spans))
+    return out
+
+
+def vjp_sum_tiles(plan: VjpPlan):
+    """The tiles of the partials' sums, as the kernel decodes them:
+    ("sources" | "targets", cell, first slot) for each tile of 32 slots of
+    a cell (its source slots, or its target slots where the cell has more
+    than one range). Reads the plan on the host (for tests)."""
+    lists = _plan_lists(plan)
+    return [(side, cell, k * TILE)
+            for side, cells in (("sources", lists[2]), ("targets", lists[3]))
+            for cell, lo, hi in cells for k in range(hi - lo)]
+
+
 def pp_cells_vjp(
     trows: torch.Tensor, srows: torch.Tensor,
     start_t: torch.Tensor, counts_t: torch.Tensor,
@@ -497,10 +611,11 @@ def pp_cells_vjp(
     for the sources), column 3 zero. Rows past a cell's cap (either side)
     get exactly 0, as the slots that ``nbody_tpu``'s packed blocks drop.
 
-    On the card: the target pass and the source pass of
-    ``csrc/p3m_pp_vjp.cu`` (one warp a tile of 32 rows of a cell, task
-    lists built on the device, fixed order, no atomics, no host sync). On
-    the CPU: :func:`pp_cells_vjp_plain`."""
+    On the card: ``csrc/p3m_pp_vjp.cu``, one pass over the pairs cut as
+    :func:`vjp_plan` says (a block a range of a target cell's
+    neighbourhood, its tiles' targets in registers) and the fixed-order
+    sums of its partials: no atomics on floats, no host sync. On the CPU:
+    :func:`pp_cells_vjp_plain`."""
     device = trows.device
     _check_device(device)
     runs = {"start_t": start_t, "counts_t": counts_t, "start_s": start_s,
@@ -516,28 +631,30 @@ def pp_cells_vjp(
     from . import _build
 
     n_t, n_s = trows.shape[0], srows.shape[0]
-    end_t, tasks_t = _tasks(counts_t, cap_t, n_t, gc)
-    end_s, tasks_s = _tasks(counts_s, cap_s, n_s, gc)
-    _check_kernel_rows(trows, srows, max(tasks_t, tasks_s))
+    plan = vjp_plan(counts_t, counts_s, gc, cap_t, cap_s)
+    # partial keys (< 9 n_s) and tasks (< gc² k_max) are int32
+    _check_kernel_rows(trows, srows, max(9 * n_s, gc * gc * plan.k_max))
     d_t = torch.zeros((n_t, 4), dtype=DTYPE, device=device)
     d_s = torch.zeros((n_s, 4), dtype=DTYPE, device=device)
-    if tasks_t == 0 or tasks_s == 0:
+    if n_t == 0 or n_s == 0:
         return d_t, d_s
+    part_t = torch.empty((plan.k_max - 1) * 3 * n_t, dtype=DTYPE,
+                         device=device)
+    part_s = torch.empty(27 * n_s, dtype=DTYPE, device=device)
+    counter = torch.zeros(1, dtype=torch.int32, device=device)
     scal = _scalars(rc, eps2, device)
-    lib = _build.load("p3m_pp_vjp")
-    args = (trows.data_ptr(), n_t, srows.data_ptr(), n_s, start_t.data_ptr(),
-            counts_t.data_ptr(), start_s.data_ptr(), counts_s.data_ptr(), gc,
-            cap_t, cap_s, scal.data_ptr(), int(precise), g.data_ptr())
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for fn, end, tasks, out, what in (
-                (lib.nbody_p3m_pp_vjp_targets, end_t, tasks_t, d_t, "target"),
-                (lib.nbody_p3m_pp_vjp_sources, end_s, tasks_s, d_s, "source")):
-            err = fn(*args, end.data_ptr(), tasks, out.data_ptr(), stream)
-            if err != 0:
-                raise RuntimeError(f"p3m_pp_vjp {what} pass launch failed: "
-                                   f"cudaError {err}")
-            VJP_LAUNCHES += 1
+        err = _build.load("p3m_pp_vjp").nbody_p3m_pp_vjp(
+            trows.data_ptr(), n_t, srows.data_ptr(), n_s, start_t.data_ptr(),
+            counts_t.data_ptr(), start_s.data_ptr(), counts_s.data_ptr(), gc,
+            cap_t, cap_s, scal.data_ptr(), int(precise), g.data_ptr(),
+            plan.ranges.data_ptr(), plan.ends.data_ptr(), plan.rows,
+            counter.data_ptr(), part_t.data_ptr(), part_s.data_ptr(),
+            d_t.data_ptr(), d_s.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"p3m_pp_vjp kernel launch failed: cudaError {err}")
+    VJP_LAUNCHES += 1
     return d_t, d_s
 
 

@@ -858,6 +858,95 @@ def test_pp_cells_autograd_is_vjp_and_cells_subset():
         assert not part[~mine].abs().max()
 
 
+@pytest.mark.parametrize("rows", [8, 64, 256])
+def test_pp_vjp_plan_depends_on_counts_alone_and_covers_every_pair(rows):
+    """The plan of K4's VJP kernel (csrc/p3m_pp_vjp.cu), built by the
+    wrapper's own torch code, on a 7×7 grid with empty cells on both
+    sides, cells past the caps, the border, and a dense cell whose
+    neighbourhood the ranges cut: it reads only min(counts, cap); every
+    (live target, live neighbour source) pair lies in exactly one task
+    and range, each range of at most R rows; every (source row, target
+    cell) partial slot that the sums read is written exactly once, and no
+    other; every (target row, range) once; the heavy cells' tasks first;
+    the sums' tiles cover the rows they add up once each."""
+    gc, cap_t, cap_s = 7, 200, 40
+    rng = np.random.default_rng(rows)
+    counts_t = rng.integers(0, 45, gc * gc).astype(np.int32)
+    counts_s = rng.integers(0, 60, gc * gc).astype(np.int32)
+    counts_t[[0, 10]] = 0
+    counts_s[[3, 10]] = 0
+    counts_t[24], counts_s[24] = 150, 75            # dense, past cap_s
+    counts_s[[16, 17, 18, 23, 25, 30, 31, 32]] = 50  # 9 · cap_s around it
+    counts_t[47], counts_s[47] = 260, 41            # past both caps, border
+    plan = pp.vjp_plan(torch.tensor(counts_t), torch.tensor(counts_s), gc,
+                       cap_t, cap_s, rows)
+    more = [np.where(c > cap, c + 9, c) for c, cap in ((counts_t, cap_t),
+                                                       (counts_s, cap_s))]
+    again = pp.vjp_plan(*(torch.tensor(c) for c in more), gc, cap_t, cap_s,
+                        rows)
+    assert all(torch.equal(a, b) for a, b in zip(plan[:2], again[:2]))
+    assert plan.k_max == -(-9 * cap_s // rows)
+    live_t = np.minimum(counts_t, cap_t)
+    live_s = np.minimum(counts_s, cap_s)
+    start_s = np.cumsum(counts_s) - counts_s
+    staged = np.zeros((gc * gc, counts_s.sum()), np.int64)  # (cell, row)
+    slots = np.zeros((counts_s.sum(), 9), np.int64)
+    seen = np.zeros((gc * gc, plan.k_max), np.int64)
+    tasks = pp.vjp_tasks(plan, torch.tensor(counts_s), gc, cap_s)
+    assert len(tasks) == int(plan.ranges.sum())
+    heavy = [live_t[c] > 3 * pp.TILE for c, _, _ in tasks]
+    assert heavy == sorted(heavy, reverse=True) and heavy[0]
+    for cell, r, spans in tasks:
+        assert live_t[cell] > 0
+        assert 0 < sum(b - a for _, a, b, _ in spans) <= rows
+        seen[cell, r] += 1
+        for nc, a, b, slot in spans:
+            assert abs(nc // gc - cell // gc) <= 1 >= abs(nc % gc - cell % gc)
+            assert slot == (cell // gc - nc // gc + 1) * 3 + cell % gc - nc % gc + 1
+            assert 0 <= a < b <= live_s[nc]
+            staged[cell, start_s[nc] + a:start_s[nc] + b] += 1
+            slots[start_s[nc] + a:start_s[nc] + b, slot] += 1
+    assert plan.ranges.max() > 1
+    for c in range(gc * gc):
+        assert (seen[c, :plan.ranges[c]] == 1).all()
+        assert not seen[c, plan.ranges[c]:].any()
+        ci, cj = divmod(c, gc)
+        for nc in range(gc * gc):
+            near = abs(nc // gc - ci) <= 1 and abs(nc % gc - cj) <= 1
+            rows_nc = slice(start_s[nc], start_s[nc] + counts_s[nc])
+            want = np.zeros(counts_s[nc], np.int64)
+            if near and live_t[c] > 0:
+                want[:live_s[nc]] = 1
+            np.testing.assert_array_equal(staged[c, rows_nc], want)
+    # the slots the sum kernel reads: target cells in the grid with targets
+    for sc in range(gc * gc):
+        si, sj = divmod(sc, gc)
+        for d in range(9):
+            ti, tj = si + d // 3 - 1, sj + d % 3 - 1
+            read = 0 <= ti < gc and 0 <= tj < gc and live_t[ti * gc + tj] > 0
+            want = np.zeros(counts_s[sc], np.int64)
+            want[:live_s[sc]] = int(read)
+            np.testing.assert_array_equal(
+                slots[start_s[sc]:start_s[sc] + counts_s[sc], d], want)
+    # the sums' tiles: every live source row once, every live target row
+    # of a cell of more than one range once
+    summed = {"sources": np.zeros((gc * gc, cap_s), np.int64),
+              "targets": np.zeros((gc * gc, cap_t), np.int64)}
+    for side, cell, q in pp.vjp_sum_tiles(plan):
+        live = (live_s if side == "sources" else live_t)[cell]
+        assert q < live     # the kernel masks the slots past live
+        summed[side][cell, q:min(q + pp.TILE, live)] += 1
+    ranges = plan.ranges.numpy()
+    for side, live in (("sources", live_s),
+                       ("targets", np.where(ranges > 1, live_t, 0))):
+        want = np.arange(summed[side].shape[1]) < live[:, None]
+        np.testing.assert_array_equal(summed[side] > 0, want)
+        assert summed[side].max() == 1
+    n_t, n_s = int(counts_t.sum()), int(counts_s.sum())
+    assert pp.vjp_scratch_bytes(n_t, n_s, plan) == \
+        12 * ((plan.k_max - 1) * n_t + 9 * n_s)
+
+
 # -- the pieces under them ---------------------------------------------------
 
 def test_sqrt_gradient_is_jax_bit_for_bit():

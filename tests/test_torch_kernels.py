@@ -1044,7 +1044,7 @@ def test_pp_cells_vjp_matches_plain_and_repeats(cuda, scene, precise):
     before = p3m_pp.VJP_LAUNCHES
     got = p3m_pp.pp_cells_vjp(*cells, rc, 4.0, g, **kw)
     again = p3m_pp.pp_cells_vjp(*cells, rc, 4.0, g, **kw)
-    assert p3m_pp.VJP_LAUNCHES == before + 4
+    assert p3m_pp.VJP_LAUNCHES == before + 2   # one pass a call
     want = p3m_pp.pp_cells_vjp_plain(*cells, rc, 4.0, g, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -1057,6 +1057,80 @@ def test_pp_cells_vjp_matches_plain_and_repeats(cuda, scene, precise):
         dropped = torch.ones(rows.shape[0], dtype=torch.bool, device=cuda)
         dropped[idx[live]] = False
         assert not out[dropped].abs().sum()
+
+
+def _cells_of(device, counts_t, counts_s, seed, cell=4.0, own_sources=False):
+    """Cell-sorted rows of a gc×gc grid of cells of size ``cell`` with the
+    given counts (radius and gm drawn from the seed, as _random_cells
+    draws them), the runs, and a cotangent. With ``own_sources`` the
+    sources are the targets (counts_s = counts_t): every target meets
+    itself at d² = 0; half the targets have radius 0 and sit on gm = 0
+    sources (zero-radius tracers)."""
+    rng = np.random.default_rng(seed)
+    gc = int(round(len(counts_t) ** 0.5))
+    rows = []
+    for c, lo, hi in ((counts_t, 0.5, 9.5), (counts_s, 10.0, 1e4)):
+        ids = np.repeat(np.arange(gc * gc), c)
+        xy = (np.stack([ids // gc, ids % gc], 1)
+              + rng.uniform(size=(len(ids), 2))) * cell
+        w = rng.uniform(lo, hi, len(ids))
+        rows.append(np.concatenate([xy, w[:, None], np.zeros((len(ids), 1))],
+                                   1).astype(np.float32))
+    if own_sources:
+        rows[1][:, :2] = rows[0][:, :2]
+        tracer = rng.uniform(size=len(rows[0])) < 0.5
+        rows[0][tracer, 2] = 0.0
+        rows[1][tracer, 2] = 0.0
+    rows[0][:, 2] += np.float32(p3m_pp.SOFTENING_FLOOR)
+    t = [torch.from_numpy(a).to(device) for a in (*rows, counts_t, counts_s)]
+    starts = [torch.cumsum(c, 0, dtype=torch.int32) - c for c in t[2:]]
+    g = torch.from_numpy(rng.normal(size=(len(rows[0]), 2))
+                         .astype(np.float32)).to(device)
+    return [t[0], t[1], starts[0], t[2], starts[1], t[3]], g
+
+
+def _check_pp_vjp(cells, g, rc, cap_t, cap_s):
+    """pp_cells_vjp twice bit-equal, finite, within VJP_TOL of the plain
+    version, one launch a call, rsqrt and precise."""
+    for precise in (False, True):
+        kw = dict(cap_t=cap_t, cap_s=cap_s, precise=precise)
+        before = p3m_pp.VJP_LAUNCHES
+        got = p3m_pp.pp_cells_vjp(*cells, rc, 4.0, g, **kw)
+        again = p3m_pp.pp_cells_vjp(*cells, rc, 4.0, g, **kw)
+        assert p3m_pp.VJP_LAUNCHES == before + 2
+        want = p3m_pp.pp_cells_vjp_plain(*cells, rc, 4.0, g, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert all(torch.isfinite(a).all() for a in got)
+        assert max(_rel_each(got, want)) < VJP_TOL
+
+
+def test_pp_cells_vjp_dense_cell_takes_ranges(cuda):
+    """A cell of 700 targets among sources enough that its neighbourhood
+    is cut into several ranges and its tasks come first (a galaxy core's
+    shape at the N=1M slice: many tiles, thousands of sources)."""
+    gc, cap = 6, 768
+    rng = np.random.default_rng(5)
+    counts_t = rng.integers(0, 40, gc * gc).astype(np.int32)
+    counts_s = rng.integers(0, 40, gc * gc).astype(np.int32)
+    counts_t[14], counts_s[14] = 700, 300
+    counts_s[[7, 8, 9, 13, 15, 19, 20, 21]] = 250
+    cells, g = _cells_of(cuda, counts_t, counts_s, seed=5)
+    plan = p3m_pp.vjp_plan(cells[3], cells[5], gc, cap, cap)
+    assert int(plan.ranges[14]) == -(-2300 // p3m_pp.VJP_RANGE) > 1
+    assert int(plan.ends[gc * gc - 1]) == int(plan.ranges[14])   # heavy
+    _check_pp_vjp(cells, g, 4.0, cap, cap)
+
+
+def test_pp_cells_vjp_self_pairs_and_zero_radius_tracers(cuda):
+    """Every target is its own source at d² = 0 (s = 0 there, so the pair
+    adds w·g alone), and half of them are zero-radius tracers on gm = 0
+    sources (r2 = 1e-18: the pair adds exactly 0, not 0 · inf)."""
+    rng = np.random.default_rng(6)
+    counts = rng.integers(0, 48, 64).astype(np.int32)
+    counts[:3] = (0, 32, 40)
+    cells, g = _cells_of(cuda, counts, counts, seed=6, own_sources=True)
+    _check_pp_vjp(cells, g, 4.0, 32, 32)
 
 
 def _rollout_scene(n, seed=11037):
@@ -1118,7 +1192,7 @@ def test_p3m_rollout_on_the_card_matches_the_cpu_and_repeats(cuda):
 
     before = (p3m_pp.VJP_LAUNCHES, df.VJP_LAUNCHES)
     v1, g1 = run(cuda, 2)
-    assert (p3m_pp.VJP_LAUNCHES, df.VJP_LAUNCHES) == (before[0] + 4,
+    assert (p3m_pp.VJP_LAUNCHES, df.VJP_LAUNCHES) == (before[0] + 2,
                                                       before[1] + 2)
     v2, g2 = run(cuda, 2)
     assert torch.equal(g1, g2) and torch.equal(v1, v2)
