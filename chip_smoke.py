@@ -137,6 +137,24 @@ Phases, each of which raises on failure:
      at N=65536, 3 steps, and over one step without the tracer's row (the
      ring's backward alone), and sum(pos²) on one galaxy of 500
      (nbody_tpu's own case). Two more kernels-line rows.
+18. the sharded mesh solvers on one card (no NVLink: D shards share it):
+     "auto" by the per-chip rule and AUTO_P3M_MIN_PAIRS (shards on one
+     card are one chip; N=262144 at D=4 resolves to "p3m"), the per-chip
+     pairs logged; ShardedWorld "p3m" and "pm" with D=4 at the N=1M slice
+     (grid 2048, cap 768) and "p3m" at N=65536 with the default config,
+     3 substeps of 0.01 against the World on the same config, on four
+     seeds, each reading logged, bounds set from them; two runs bit-equal;
+     D=1 bit-equal to the World, "p3m" and "pm"; the main path timed with
+     exactly D K4 launches and one force_acc launch a shard that holds
+     sources, each substep, no host sync; each shard's K4 launch (the
+     global-rank cut) against its plain version (at the slice the shard
+     the cut drops the most rows from), rows past the cut exactly 0; a
+     profiler window split by the p3m stages and the shard sums; the
+     sharded "p3m" and "pm" in turns with the World's "p3m"; then
+     rollout_sharded "p3m" D=4 at N=65536, 2 steps: against World.update
+     (1e-6), the tracer's loss and gradient against the single-device
+     rollout (1e-5, 3e-5), exact K4 and K4-VJP launches, no host sync,
+     the gradient bit-equal twice. Two more kernels-line rows.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -294,7 +312,7 @@ def rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def check(what: str, err: float, bound: float) -> None:
     ok = np.isfinite(err) and err < bound
-    log(f"  {what}: max|d|/max|ref| = {err:.3e} (bound {bound:.0e}) "
+    log(f"  {what}: max|d|/max|ref| = {err:.3e} (bound {bound:g}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"chip_smoke: {what} out of bound")
@@ -780,10 +798,11 @@ def phase_split(df, p3m_forces, slice_w, device) -> dict:
 
 
 def profile_stages(world, n: int = 3, dt: float = 1.0,
-                   extra_force=None) -> dict:
-    """Device and host ms per substep of each p3m stage, the device busy
-    time and the idle share of a torch.profiler window over n substeps of
-    dt (with the hook ``extra_force`` where given).
+                   extra_force=None, stages=STAGES) -> dict:
+    """Device and host ms per substep of each of ``stages``, the device
+    busy time and the idle share of a torch.profiler window over n "p3m"
+    substeps of dt (with the hook ``extra_force`` where given; a sharded
+    world runs its own backend).
     A stage's device time is that of the kernels, copies and fills that run
     inside the span its record_function range has on the device timeline;
     its host time is the range's own. (The kernels launched through ctypes
@@ -793,28 +812,30 @@ def profile_stages(world, n: int = 3, dt: float = 1.0,
     from torch.profiler import ProfilerActivity, profile
 
     world.block_until_ready()
+    # a World takes the backend, a ShardedWorld runs its own
+    kw = {} if hasattr(world, "n_devices") else {"backend": "p3m"}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        world.update(dt, n, backend="p3m", extra_force=extra_force)
+        world.update(dt, n, extra_force=extra_force, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     spans = [(e.name, e.time_range.start, e.time_range.end)
-             for e in dev if e.name in STAGES]
+             for e in dev if e.name in stages]
     work = [(e.time_range.start, e.time_range.end)
-            for e in dev if e.name not in STAGES]
+            for e in dev if e.name not in stages]
     busy_ms = sum(b - a for a, b in work) / 1e3
-    stages = {name: sum(b - a for a, b in work
-                        if any(nm == name and lo <= a and b <= hi
-                               for nm, lo, hi in spans)) / n / 1e3
-              for name in STAGES}
+    per_stage = {name: sum(b - a for a, b in work
+                           if any(nm == name and lo <= a and b <= hi
+                                  for nm, lo, hi in spans)) / n / 1e3
+                 for name in stages}
     host = {name: sum(e.cpu_time_total for e in events
                       if e.device_type == DeviceType.CPU and e.name == name)
-            / n / 1e3 for name in STAGES}
-    if busy_ms <= 0 or stages["p3m.pair_kernel"] <= 0:
+            / n / 1e3 for name in stages}
+    if busy_ms <= 0 or per_stage["p3m.pair_kernel"] <= 0:
         raise SystemExit("chip_smoke: the profiler saw no device time per stage")
-    return {"stages": stages, "host": host, "busy_ms": busy_ms / n,
+    return {"stages": per_stage, "host": host, "busy_ms": busy_ms / n,
             "wall_ms": wall_ms / n, "idle": 1.0 - busy_ms / wall_ms}
 
 
@@ -2829,6 +2850,350 @@ def phase_autodiff(nt, df, pp, p3m_forces, _build, sass, scene_bench,
     return out
 
 
+# [18] the sharded mesh solvers on one card: D = MESH_SHARDS shards of the
+# N=1M p3m slice and of the N=65536 default config, "p3m" and "pm",
+# MESH_SUBSTEPS substeps of MESH_DT against the World on the same config.
+# One evaluation of the sharded world differs from the World's by the
+# order of the fp32 sums only (the shards' grids summed in shard order
+# against one scatter; the exact-core partials), and close pairs amplify
+# that from substep to substep, by an amount that depends on the scene.
+# The bounds are set as [11]'s were, from MESH_SEEDS, each reading logged:
+# the largest reading over the four seeds on an H100 80GB HBM3 (700 W),
+# times 5, rounded down to one digit (measured, max|d|/max: p3m N=1M pos
+# 6.196e-8, vel 3.315e-6, acc 1.540e-5; pm N=1M 2.502e-8, 1.061e-7,
+# 1.507e-7; p3m N=65536 4.899e-9, 1.059e-7, 6.130e-7; D=1 bit-equal).
+MESH_SHARDS = 4
+MESH_SUBSTEPS = 3
+MESH_DT = 0.01
+MESH_SEEDS = (SEED, 1, 2, 3)
+MESH_TIMED = 10
+MESH_VS_WORLD = {("p3m", BIG_N): {"pos": 3e-7, "vel": 1.6e-5, "acc": 7e-5},
+                 ("pm", BIG_N): {"pos": 1.2e-7, "vel": 5e-7, "acc": 7e-7},
+                 ("p3m", BENCH_N): {"pos": 2e-8, "vel": 5e-7, "acc": 3e-6}}
+MESH_STAGES = STAGES + ("shards.sum",)
+AD_P3M_SHARDED_STEPS = 2
+
+
+def mesh_world(nt, sh, scene, cfg, backend, d, device):
+    return sh.ShardedWorld(scene, sh.make_mesh(devices=[device] * d),
+                           config=nt.SimConfig(**cfg), force_backend=backend)
+
+
+def mesh_gaps(nt, sh, scene, cfg, backend, device) -> tuple[dict, object]:
+    """max|d|/max of pos, vel and acc of the D=MESH_SHARDS world against the
+    World after MESH_SUBSTEPS substeps of MESH_DT from ``scene``; and the
+    sharded world's particles."""
+    w = nt.create_world(scene, config=nt.SimConfig(**cfg), device=device)
+    sw = mesh_world(nt, sh, scene, cfg, backend, MESH_SHARDS, device)
+    w.update(MESH_DT, MESH_SUBSTEPS, backend=backend)
+    sw.update(MESH_DT, MESH_SUBSTEPS)
+    a, b = sw.particles, w.particles
+    if not all(torch.isfinite(x).all() for x in (a.pos, a.vel, a.acc)):
+        raise SystemExit(f"chip_smoke: non-finite sharded {backend} state")
+    return {f: rel(getattr(a, f), getattr(b, f))
+            for f in ("pos", "vel", "acc")}, a
+
+
+def shard_cells(pp, p3m_forces, sw) -> list:
+    """For each shard of a "p3m" sharded world at its current state, the
+    inputs its K4 launch gets (the shard's targets in cell order with each
+    cell's count cut by the global-rank rule, the global sources in cell
+    order) and rc."""
+    bins = sw._p3m_bins(sw.pos, None)
+    src, gm = sw._sources(sw.pos)
+    srows = p3m_forces._cell_rows(torch.cat(src), torch.cat(gm),
+                                  bins["order_s"][0])
+    out = []
+    for k in range(sw.n_devices):
+        trows = p3m_forces._cell_rows(sw.pos[k], sw.radius[k] +
+                                      pp.SOFTENING_FLOOR, bins["order_t"][k])
+        cells = [trows, srows, bins["start_t"][k], bins["cut_t"][k],
+                 bins["start_s"][k], bins["counts_s"][k]]
+        dropped = int((bins["counts_t"][k].clamp(max=sw.config.p3m_cell_capacity)
+                       - bins["cut_t"][k]).sum())
+        out.append((cells, sw.config.p3m_rc_cells * bins["h"][k], dropped))
+    return out
+
+
+def compact_cut(pp, cells, cap: int) -> list:
+    """The cut runs' live rows packed: the same work for K4 as ``cells``,
+    with each run's length its count, as ``pair_counts`` reads them."""
+    trows, srows, st, ct, ss, cs = cells
+    idx, live = pp.run_slots(st, ct, cap, trows.shape[0])
+    counts = ct.clamp(max=cap).to(torch.int32)
+    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    return [trows[idx[live]].contiguous(), srows, starts, counts, ss, cs]
+
+
+def shard_k4(pp, p3m_forces, sw, label: str, plain_all: bool) -> dict:
+    """Each shard's K4 launch on a world's state against the plain version
+    on the same inputs (every shard with ``plain_all``, else the shard
+    from which the global-rank cut drops the most rows below the cap), the
+    launch times, and the checked shard's pair counts and bound."""
+    cap = sw.config.p3m_cell_capacity
+    shards = shard_cells(pp, p3m_forces, sw)
+    pick = max(range(len(shards)), key=lambda k: (shards[k][2], k))
+    kw = {"cap_t": cap, "cap_s": cap}
+    out = {"shard": pick, "launch_ms": []}
+    for k, (cells, rc, dropped) in enumerate(shards):
+        ms = cuda_ms(lambda: pp.pp_cells(*cells, rc, 4.0, **kw), reps=20)
+        out["launch_ms"].append(ms)
+        log(f"  {label} shard {k}: {cells[0].shape[0]} target rows, "
+            f"{int(cells[3].clamp(max=cap).sum())} live, {dropped} more "
+            f"below the cap dropped by the global-rank cut; K4 {ms:.4f} ms")
+        if not (plain_all or k == pick):
+            continue
+        got = pp.pp_cells(*cells, rc, 4.0, **kw)
+        t0 = time.perf_counter()
+        want = pp.pp_cells_plain(*cells, rc, 4.0, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(f"{label} shard {k} K4 vs plain", rel(got, want), BOUND_PP)
+        idx, live = pp.run_slots(cells[2], cells[3], cap, cells[0].shape[0])
+        kept = torch.zeros(cells[0].shape[0], dtype=torch.bool,
+                           device=got.device)
+        kept[idx[live]] = True
+        if not torch.equal(got[~kept], torch.zeros_like(got[~kept])):
+            raise SystemExit(f"chip_smoke: {label} shard {k}: a row past "
+                             "its cut count is not 0")
+        if k == pick:
+            c = pair_counts(compact_cut(pp, cells, cap), rc, cap)
+            out.update(max_abs_err=float((got - want).abs().max()),
+                       ms=ms, plain_ms=plain_ms, counts=c)
+            out["bound_ms"], out["bound_by"] = pp_bound(c)
+        del got, want
+    log(f"  {label}: shard {pick} (the most rows cut) against its plain "
+        f"version: K4 {out['ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}, {out['bound_ms'] / out['ms']:.1%} of it), "
+        f"plain {out['plain_ms']:.3f} ms; {out['counts']['candidates']:.4e} "
+        f"candidate pairs, {out['counts']['inside']:.4e} inside rc")
+    return out
+
+
+def run_mesh(df, pp, sw, label: str) -> dict:
+    """The sharded main path: a warm-up substep, then MESH_TIMED timed
+    substeps of dt 1.0 ([8]'s) with the launch counts from 0 and host
+    syncs turned into errors; "p3m" must launch K4 once a shard and
+    force_acc once a shard that holds sources, each substep."""
+    sw.update(1.0, 1)
+    sw.block_until_ready()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    df.LAUNCHES = pp.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with no_sync():
+        start.record()
+        sw.update(1.0, MESH_TIMED)
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"pp": pp.LAUNCHES, "force_acc": df.LAUNCHES}
+    with_src = sum(r > 0 for r in sw._src_rows)
+    want = ({"pp": sw.n_devices * MESH_TIMED, "force_acc": with_src * MESH_TIMED}
+            if sw.force_backend == "p3m" else {"pp": 0, "force_acc": 0})
+    expect_launches(label, launches, want)
+    finite_state(sw, label)
+    ms = start.elapsed_time(end) / MESH_TIMED
+    log(f"  {label}: {ms:.4f} ms/substep device, host "
+        f"{enqueue_ms / MESH_TIMED:.4f} ms/substep to enqueue and "
+        f"{host_ms / MESH_TIMED:.4f} to finish; launches K4 {launches['pp']}, "
+        f"force_acc {launches['force_acc']} ({with_src} shards hold sources); "
+        f"no host sync")
+    return {"ms": ms, "launches": launches, "enqueue_ms": enqueue_ms / MESH_TIMED,
+            "host_ms": host_ms / MESH_TIMED}
+
+
+def phase_mesh(nt, sh, df, pp, p3m_forces, world_mod, scene_bench, scene_big,
+               device) -> dict:
+    """[18]: ShardedWorld "pm", "p3m" and "auto" with D shards on one card."""
+    from nbody_tpu_torch import autodiff
+
+    log(f"[18] the sharded mesh solvers on one card: D={MESH_SHARDS}, "
+        f"N={BIG_N} slice {P3M_SIZED} and N={BENCH_N} default {P3M_DEFAULT}")
+    t_phase = time.perf_counter()
+    out = {}
+    # a. "auto" by the per-chip rule and the crossover's number. The
+    # answers are written out: D shards on one card are one chip, so
+    # N=262144 (3.4e10 pairs, 8.6e9 a shard) at D=4 on this card is "p3m".
+    limit = world_mod.AUTO_P3M_MIN_PAIRS
+    bench_ml = int((scene_bench.mass > 0).sum())
+    big_ml = int((scene_big.mass > 0).sum())
+    for n, ml, d, want in ((BENCH_N, bench_ml, 1, "cuda"),
+                           (BENCH_N, bench_ml, MESH_SHARDS, "cuda"),
+                           (262144, 131072, MESH_SHARDS, "p3m"),
+                           (BIG_N, big_ml, 1, "p3m"),
+                           (BIG_N, big_ml, MESH_SHARDS, "p3m")):
+        mesh = sh.make_mesh(devices=[device] * d)
+        got = sh.resolve_force_backend("auto", mesh, n, ml)
+        chips = sh.mesh_chips(mesh)
+        log(f"  auto: N={n} mass_len={ml} D={d} shards on {chips} card(s): "
+            f"{n * ml // chips:.4e} pairs a chip ({n * ml // d:.4e} a shard) "
+            f"against AUTO_P3M_MIN_PAIRS {limit:.4e} -> {got!r}")
+        if got != want:
+            raise SystemExit(f"chip_smoke: auto resolved to {got!r}, not "
+                             f"{want!r}")
+    sw = mesh_world(nt, sh, scene_bench, {}, "auto", MESH_SHARDS, device)
+    if sw.force_backend != "cuda":
+        raise SystemExit(f"chip_smoke: ShardedWorld('auto') at N={BENCH_N} "
+                         f"D={MESH_SHARDS} runs {sw.force_backend!r}, not "
+                         f"'cuda'")
+    del sw
+
+    # b. against the World, over the seeds, each reading logged
+    readings = {}
+    repeat = {}
+    for backend, n, cfg in (("p3m", BIG_N, P3M_SIZED), ("pm", BIG_N, P3M_SIZED),
+                            ("p3m", BENCH_N, P3M_DEFAULT)):
+        base = scene_big if n == BIG_N else scene_bench
+        worst = {f: 0.0 for f in ("pos", "vel", "acc")}
+        for seed in MESH_SEEDS:
+            scene = base if seed == SEED else nt.make_galaxies(n, 2, seed=seed)
+            gaps, parts = mesh_gaps(nt, sh, scene, cfg, backend, device)
+            if seed == SEED:
+                repeat[(backend, n)] = parts
+            log(f"  {backend} N={n} D={MESH_SHARDS} vs World, seed {seed}, "
+                f"{MESH_SUBSTEPS} substeps of {MESH_DT}: " + ", ".join(
+                    f"{f} {v:.3e}" for f, v in gaps.items()))
+            worst = {f: max(worst[f], gaps[f]) for f in worst}
+        readings[(backend, n)] = worst
+        bounds = MESH_VS_WORLD[(backend, n)]
+        for f, v in worst.items():
+            check(f"{backend} N={n} D={MESH_SHARDS} vs World over "
+                  f"{len(MESH_SEEDS)} seeds, largest {f}", v, bounds[f])
+    out["readings"] = readings
+
+    # c. two runs bit-equal; D=1 bit-equal to the World
+    for (backend, n), first in repeat.items():
+        cfg = P3M_SIZED if n == BIG_N else P3M_DEFAULT
+        base = scene_big if n == BIG_N else scene_bench
+        sw = mesh_world(nt, sh, base, cfg, backend, MESH_SHARDS, device)
+        sw.update(MESH_DT, MESH_SUBSTEPS)
+        again = sw.particles
+        same = all(torch.equal(getattr(first, f), getattr(again, f))
+                   for f in ("pos", "vel", "acc"))
+        log(f"  {backend} N={n} D={MESH_SHARDS}, run twice: bit-equal {same}")
+        if not same:
+            raise SystemExit(f"chip_smoke: two sharded {backend} runs differ")
+    for backend in ("p3m", "pm"):
+        w = nt.create_world(scene_big, config=nt.SimConfig(**P3M_SIZED),
+                            device=device)
+        sw = mesh_world(nt, sh, scene_big, P3M_SIZED, backend, 1, device)
+        w.update(MESH_DT, MESH_SUBSTEPS, backend=backend)
+        sw.update(MESH_DT, MESH_SUBSTEPS)
+        same = {f: torch.equal(getattr(sw.particles, f),
+                               getattr(w.particles, f))
+                for f in ("pos", "vel", "acc")}
+        log(f"  {backend} N={BIG_N} D=1 vs World, {MESH_SUBSTEPS} substeps: "
+            f"bit-equal {same}")
+        if not all(same.values()):
+            raise SystemExit(f"chip_smoke: sharded {backend} D=1 differs from "
+                             "the World")
+        del w, sw
+
+    # d. the main path: timed, exact launches, no host sync; K4 on shards
+    for key, n, cfg, scene in (("slice", BIG_N, P3M_SIZED, scene_big),
+                               ("default", BENCH_N, P3M_DEFAULT, scene_bench)):
+        sw = mesh_world(nt, sh, scene, cfg, "p3m", MESH_SHARDS, device)
+        # K4 on each shard at the scene's state, the main path's first
+        # launches ([6] takes the World's there too)
+        k4 = shard_k4(pp, p3m_forces, sw, f"p3m N={n} D={MESH_SHARDS}",
+                      plain_all=n == BENCH_N)
+        run = run_mesh(df, pp, sw, f"sharded p3m N={n} D={MESH_SHARDS} {cfg}")
+        run["k4"] = k4
+        out[key] = run
+        if key == "slice":
+            prof = profile_stages(sw, 3, stages=MESH_STAGES)
+            log(f"  profiler over 3 sharded substeps: device busy "
+                f"{prof['busy_ms']:.4f} ms of {prof['wall_ms']:.4f} ms wall "
+                f"per substep, idle {prof['idle']:.2%}. Per substep by stage, "
+                f"device ms (share of busy) and host ms (shards.sum also "
+                f"inside p3m.exact_rows):")
+            for name, ms in prof["stages"].items():
+                log(f"    {name:18s} device {ms:9.4f} ms "
+                    f"{ms / prof['busy_ms']:6.1%}   host "
+                    f"{prof['host'][name]:8.4f} ms")
+            run["profile"] = prof
+        del sw
+    spm = mesh_world(nt, sh, scene_big, P3M_SIZED, "pm", MESH_SHARDS, device)
+    out["pm"] = run_mesh(df, pp, spm, f"sharded pm N={BIG_N} D={MESH_SHARDS}")
+    # in turns with the World's p3m: World, p3m, pm, pm, p3m, World
+    w = nt.create_world(scene_big, config=nt.SimConfig(**P3M_SIZED),
+                        device=device)
+    w.update(1.0, 1, backend="p3m")
+    sp3 = mesh_world(nt, sh, scene_big, P3M_SIZED, "p3m", MESH_SHARDS, device)
+    sp3.update(1.0, 1)
+    turns = {"World p3m": [], "sharded p3m": [], "sharded pm": []}
+    for name in ("World p3m", "sharded p3m", "sharded pm", "sharded pm",
+                 "sharded p3m", "World p3m"):
+        fn = {"World p3m": lambda: w.update(1.0, MESH_TIMED, backend="p3m"),
+              "sharded p3m": lambda: sp3.update(1.0, MESH_TIMED),
+              "sharded pm": lambda: spm.update(1.0, MESH_TIMED)}[name]
+        dev, host, _ = timed(fn)
+        turns[name].append((dev / MESH_TIMED, host / MESH_TIMED))
+    for name, got in turns.items():
+        log(f"  {name} N={BIG_N} slice, in turns: device " + ", ".join(
+            f"{d:.4f}" for d, _ in got) + " ms/substep; host " + ", ".join(
+            f"{h:.4f}" for _, h in got))
+    out["turns"] = turns
+    del w, sp3, spm
+
+    # e. rollout_sharded "p3m", D shards, N=65536 default config
+    cfg = nt.SimConfig(**P3M_DEFAULT)
+    w = nt.create_world(scene_bench, config=cfg, device=device)
+    st, ml = w.state, w.mass_len
+    tracer = ml
+    target = st.pos[tracer] + 5.0
+    kw = dict(n_steps=AD_P3M_SHARDED_STEPS, mass_len=ml, backend="p3m",
+              precise=cfg.precise, g=cfg.g, pm_grid=cfg.pm_grid,
+              pm_softening=cfg.pm_softening, p3m_rc_cells=cfg.p3m_rc_cells,
+              p3m_cell_capacity=cfg.p3m_cell_capacity,
+              p3m_exact_targets=cfg.p3m_exact_targets)
+    mesh = sh.make_mesh(devices=[device] * MESH_SHARDS)
+
+    def run_ad(sharded, steps=AD_P3M_SHARDED_STEPS):
+        p = st.pos.detach().clone().requires_grad_()
+        kws = dict(kw, n_steps=steps)
+        if sharded:
+            fin, _ = autodiff.rollout_sharded(p, st.vel, st.mass, st.radius,
+                                              AD_DT, mesh=mesh, **kws)
+        else:
+            fin, _ = autodiff.rollout(p, st.vel, st.mass, st.radius, AD_DT,
+                                      **kws)
+        loss = torch.sum((fin[tracer] - target) ** 2)
+        return fin.detach(), loss.detach(), torch.autograd.grad(loss, p)[0]
+
+    df.LAUNCHES = df.VJP_LAUNCHES = pp.LAUNCHES = pp.VJP_LAUNCHES = 0
+    with no_sync():
+        fin_s, v_s, g_s = run_ad(True)
+    torch.cuda.synchronize()
+    counts = {"K4": pp.LAUNCHES, "K4 VJP": pp.VJP_LAUNCHES}
+    # forward and recomputed under remat: D launches an evaluation each
+    expect_launches(f"rollout_sharded p3m N={BENCH_N} D={MESH_SHARDS}", counts,
+                    {"K4": 2 * MESH_SHARDS * AD_P3M_SHARDED_STEPS,
+                     "K4 VJP": MESH_SHARDS * AD_P3M_SHARDED_STEPS})
+    _, _, g_again = run_ad(True)
+    if not torch.equal(g_s, g_again) or not torch.isfinite(g_s).all():
+        raise SystemExit("chip_smoke: rollout_sharded p3m gradient not finite "
+                         "or not bit-equal twice")
+    w.update(AD_DT, AD_P3M_SHARDED_STEPS, backend="p3m")
+    check(f"rollout_sharded p3m D={MESH_SHARDS} N={BENCH_N} vs World.update, "
+          f"pos", rel(fin_s, w.state.pos), AD_VALUE)
+    _, v_1, g_1 = run_ad(False)
+    check(f"rollout_sharded p3m D={MESH_SHARDS} N={BENCH_N} tracer loss vs "
+          f"single device", float((v_s - v_1).abs() / v_1.abs()),
+          AD_SHARD_VALUE)
+    check(f"rollout_sharded p3m D={MESH_SHARDS} N={BENCH_N} gradient vs "
+          f"single device", rel(g_s, g_1), AD_SHARD_GRAD)
+    ad_ms = timed(lambda: run_ad(True))[0] / AD_P3M_SHARDED_STEPS
+    log(f"  rollout_sharded 'p3m' D={MESH_SHARDS} N={BENCH_N}, "
+        f"{AD_P3M_SHARDED_STEPS} steps: launches {counts}; no host sync; "
+        f"gradient bit-equal twice; forward and backward {ad_ms:.4f} ms/step")
+    out["rollout_ms"] = ad_ms
+    del w
+    log(f"  [18] took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2965,6 +3330,9 @@ def main() -> int:
                         scene_bench, scene_big, device)
     rollouts = phase_autodiff(nt, df, pp, p3m_forces, _build, sass,
                               scene_bench, scene_big, slice_w, device)
+    del slice_w
+    mesh = phase_mesh(nt, sh, df, pp, p3m_forces, world_mod, scene_bench,
+                      scene_big, device)
 
     mk = merge["kernel"]
     log(f"card: {smi}")
@@ -3014,6 +3382,15 @@ def main() -> int:
         f"scratch {vjp4['big']['scratch_mib']:.1f} MiB), N={BENCH_N} "
         f"{vjp4['ms']:.4f} (bound {vjp4['bound_ms']:.4f}, scratch "
         f"{vjp4['scratch_mib']:.1f} MiB)")
+    tn = {name: float(np.mean([d for d, _ in got]))
+          for name, got in mesh["turns"].items()}
+    log(f"sharded mesh ms/substep on one card, D={MESH_SHARDS}, device: N="
+        f"{BIG_N} slice p3m {mesh['slice']['ms']:.4f} (host to enqueue "
+        f"{mesh['slice']['enqueue_ms']:.4f}), pm {mesh['pm']['ms']:.4f}; in "
+        f"turns p3m {tn['sharded p3m']:.4f}, pm {tn['sharded pm']:.4f}, World "
+        f"p3m {tn['World p3m']:.4f}; N={BENCH_N} default p3m "
+        f"{mesh['default']['ms']:.4f}; rollout_sharded p3m N={BENCH_N} "
+        f"{mesh['rollout_ms']:.4f} ms/step with its backward")
     log("ablation path, best ms of each sweep: " + ", ".join(
         f"{key} {ablation[key]['best']['ms']:.4f} ({ablation[key]['best']['name']})"
         for key in ABLATION_KERNELS) + f" (K1 force_acc {ablation['k1_ms']:.4f})")
@@ -3074,6 +3451,21 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None}
 
+    def shard_pp_row(key, cfg):
+        r = mesh[key]
+        k4 = r["k4"]
+        return {"name": f"p3m_pp pair correction on shard {k4['shard']} of "
+                        f"D={MESH_SHARDS} on one card, cells route with the "
+                        f"global-rank cut, gc={cfg['pm_grid'] // 4} "
+                        f"cap={cfg['p3m_cell_capacity']}, N="
+                        f"{BIG_N if key == 'slice' else BENCH_N}",
+                "route": "cuda", "source": PP_SRC,
+                "replaces": "nbody_tpu/ops/p3m_pallas.py:38",
+                "launches": r["launches"]["pp"],
+                "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+                "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+                "bound_by": k4["bound_by"], "library_ms": None}
+
     log(json.dumps({"kernels": [
         fused_row(BENCH_N, world.mass_len, "nbody_tpu/ops/pallas_forces.py:220",
                   launches_bench, err_bench, kernel_ms, plain_ms),
@@ -3123,6 +3515,8 @@ def main() -> int:
          "max_abs_err": vjp4["max_abs_err"], "ms": vjp4["ms"],
          "plain_ms": vjp4["plain_ms"], "bound_ms": vjp4["bound_ms"],
          "bound_by": vjp4["bound_by"], "library_ms": None},
+        shard_pp_row("slice", P3M_SIZED),
+        shard_pp_row("default", P3M_DEFAULT),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@ particle-mesh ("pm") and P³M ("p3m") solvers, user force hooks, adaptive
 dt, collision merging (``SimConfig.merge_collisions``), and readback; in
 ``nbody_tpu_torch.diagnostics``, energy, momentum and the dt criterion; in
 ``nbody_tpu_torch.parallel``, the world sharded over a list of devices with
-the ring of source tiles; trajectory capture (``trajectory``), headless
+the ring of source tiles or the collective mesh solvers; trajectory capture (``trajectory``), headless
 rendering (``render``, ``viewer.export_animation``), npz checkpoints and
 debug checks (``utils``), differentiable rollouts (``autodiff``), and the
 command line, ``python -m nbody_tpu_torch run|render|gif``. Imports

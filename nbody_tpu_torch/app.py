@@ -161,11 +161,8 @@ def _make_world(args):
         mesh = (make_mesh() if args.device.type == "cuda"
                 else make_mesh(devices=[args.device]))
         backend = {"cuda": "cuda_ring"}.get(args.backend, args.backend)
-        try:
-            return ShardedWorld(particles, mesh, config=config,
-                                force_backend=backend), start
-        except NotImplementedError as e:
-            sys.exit(f"{PROG}: error: {e}")
+        return ShardedWorld(particles, mesh, config=config,
+                            force_backend=backend), start
     return (create_world(particles, config=config,
                          default_backend=args.backend, device=args.device),
             start)
@@ -334,8 +331,9 @@ def main(argv=None) -> None:
     p.add_argument("--save", help="write final state checkpoint (.npz)")
     p.add_argument("--shard", action="store_true",
                    help="shard the run over every visible card "
-                        "(ShardedWorld, the ring backends; a 1-device mesh "
-                        "on one card or on the CPU)")
+                        "(ShardedWorld: cuda maps to the ring kernel, pm, "
+                        "p3m and auto to the collective mesh solvers; a "
+                        "1-device mesh on one card or on the CPU)")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="with --save: atomically rewrite the checkpoint "
                         "every K substeps (crash/preemption-safe; resume "

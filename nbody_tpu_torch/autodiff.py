@@ -25,26 +25,26 @@ Backends take the port's names, as ``World`` does:
   each block's start from detached positions.
 
 ``rollout_sharded`` is the single-controller form over a list of devices
-(``parallel.sharding.make_mesh``): each shard's rows and gm visit every
-shard round the ring, each hop a direct sum.
+(``parallel.sharding.make_mesh``): on "torch" and "cuda" each shard's rows
+and gm visit every shard round the ring, each hop a direct sum; on "pm"
+and "p3m" each force is the collective mesh solver
+(``ops/pm_forces.pm_acc_collective``, ``ops/p3m_forces.p3m_acc_collective``),
+whose shard sums and copies between devices carry the gradient back.
 """
 
 from __future__ import annotations
-
-import operator
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import forces, integrators, world
 from .ops.direct_forces import force_acc
-from .ops.p3m_forces import exact_core_rows, p3m_acc_from_bins, p3m_bins
-from .ops.pm_forces import pm_acc
-from .parallel.sharding import make_mesh, shard_layout
+from .ops.p3m_forces import (exact_core_rows, p3m_acc_collective,
+                              p3m_acc_from_bins, p3m_bins)
+from .ops.pm_forces import pm_acc, pm_acc_collective
+from .parallel.sharding import Shards, make_mesh, shard_layout
 from .types import DEFAULT_SIM_CONFIG, DTYPE, G, Particles
 from .world import BACKENDS
-
-SHARDED_BACKENDS = ("torch", "cuda")
 
 
 def _hook(extra_force, params):
@@ -68,27 +68,6 @@ def _advance(integrator, force, hook, pos, vel, dt):
 
     pos, vel, _ = integrators.advance(integrator, force, pos, vel, dt)
     return pos, vel
-
-
-class _Shards(tuple):
-    """One tensor a shard, with elementwise ``+`` and ``*`` (a scalar, or
-    one value a shard), so that ``integrators.advance`` runs its stages over
-    the shards of :func:`rollout_sharded` with the same arithmetic as over
-    one tensor."""
-
-    def _map(self, other, op):
-        if isinstance(other, _Shards):
-            return _Shards(op(a, b) for a, b in zip(self, other))
-        return _Shards(op(a, other) for a in self)
-
-    def __add__(self, other):
-        return self._map(other, operator.add)
-
-    def __mul__(self, other):
-        return self._map(other, operator.mul)
-
-    def __rmul__(self, other):
-        return self._map(other, lambda a, b: b * a)
 
 
 def _as_dt(dt, device) -> torch.Tensor:
@@ -238,6 +217,12 @@ def rollout_sharded(
     precise: bool = True,
     remat: bool = True,
     g: float = G,
+    pm_grid: int = 512,
+    pm_softening: float = 2.0,
+    p3m_rc_cells: int = 4,
+    p3m_cell_capacity: int = 96,
+    p3m_exact_targets: int = 64,
+    p3m_pp_chunk: int = 0,
     integrator: str = "euler",
     extra_force=None,
     extra_force_params=None,
@@ -247,25 +232,26 @@ def rollout_sharded(
 
     The N rows are padded to ``shard_layout``'s D·t_loc rows (padding rows
     as ``padded_state`` makes them: zero pos and vel, radius 1, gm 0) and
-    split into D shards. Each force evaluation is the ring of resident
-    tiles: at hop h shard k meets the rows and gm of shard (k − h) mod D
-    (JAX's ``ppermute`` order), each hop a direct sum ("torch": plain;
-    "cuda": ``force_acc`` and its VJP kernels), massless and padding rows
-    exerting exactly zero; the sum and the hook's term are masked by the
-    ``valid`` rows. The hook sees one shard's rows. Gradients flow back
-    through the copies between devices. Returns the global (pos, vel) of
-    the N real rows on ``pos``'s device.
+    split into D shards. On "torch" and "cuda" each force evaluation is the
+    ring of resident tiles: at hop h shard k meets the rows and gm of shard
+    (k − h) mod D (JAX's ``ppermute`` order), each hop a direct sum
+    ("torch": plain; "cuda": ``force_acc`` and its VJP kernels), massless
+    and padding rows exerting exactly zero. On "pm" and "p3m" it is the
+    collective mesh solver with ``pm_grid``, ``pm_softening`` and the
+    ``p3m_*`` knobs, its bins built afresh at every evaluation from
+    detached positions, as nbody_tpu's ``p3m_acc_collective``; on CUDA
+    shards "p3m"'s pair correction is K4 (``pp_cells``) on each shard,
+    backward through its VJP kernel with the same cut counts. The sum and
+    the hook's term are masked by the ``valid`` rows. The hook sees one
+    shard's rows. Gradients flow back through the shard sums and the
+    copies between devices. Returns the global (pos, vel) of the N real
+    rows on ``pos``'s device.
 
-    "pm" and "p3m" raise ``NotImplementedError``: the sharded mesh solvers
-    are ROADMAP A8, and their knobs (``pm_*``, ``p3m_*``) and the jnp
-    ring's ``chunk`` come with them."""
+    ``p3m_pp_chunk`` is accepted and changes nothing: the port's pair
+    correction has no chunk skip."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown sharded rollout backend {backend!r}; "
-                         f"expected one of {SHARDED_BACKENDS}")
-    if backend not in SHARDED_BACKENDS:
-        raise NotImplementedError(
-            f"rollout_sharded backend {backend!r} is not yet ported to "
-            f"nbody_tpu_torch (ROADMAP A8); use one of {SHARDED_BACKENDS}")
+                         f"expected one of {BACKENDS}")
     devices = make_mesh(devices=mesh)
     if backend == "cuda":
         for dev in devices:
@@ -306,15 +292,37 @@ def rollout_sharded(
                 acc = acc + direct(ps_[k], rads[k], ps_[src].to(dev),
                                    gms[src].to(dev))
             out.append(acc * valids[k])
-        return _Shards(out)
+        return Shards(out)
+
+    # the mesh solvers' sources: each shard's rows of the first
+    # max(mass_len, 1) rows, as ShardedWorld's
+    src_rows = [min(max(max(mass_len, 1) - k * t_loc, 0), t_loc)
+                for k in range(d)]
+    softening = [world._scalar(pm_softening, dev) for dev in devices]
+
+    def mesh_force(ps_):
+        src = [p[:r] for p, r in zip(ps_, src_rows)]
+        sg = [x[:r] for x, r in zip(gms, src_rows)]
+        if backend == "pm":
+            acc = pm_acc_collective(list(ps_), src, sg, softening,
+                                    grid=pm_grid, tgt_mask=valids)
+        else:
+            acc = p3m_acc_collective(
+                list(ps_), rads, src, sg, softening, grid=pm_grid,
+                rc_cells=p3m_rc_cells, cell_capacity=p3m_cell_capacity,
+                exact_targets=p3m_exact_targets, precise=precise,
+                tgt_mask=valids)
+        return Shards(a * m for a, m in zip(acc, valids))
 
     def masked_hook(ps_, vs_):
-        return _Shards(hook(p, v) * m for p, v, m in zip(ps_, vs_, valids))
+        return Shards(hook(p, v) * m for p, v, m in zip(ps_, vs_, valids))
+
+    force = mesh_force if backend in ("pm", "p3m") else ring_force
 
     def step(*state):
-        p, v = _advance(integrator, ring_force,
+        p, v = _advance(integrator, force,
                         None if hook is None else masked_hook,
-                        _Shards(state[:d]), _Shards(state[d:]), _Shards(dts))
+                        Shards(state[:d]), Shards(state[d:]), Shards(dts))
         return (*p, *v)
 
     step = _remat(step, remat)

@@ -28,6 +28,34 @@ Counterpart of the single-device path of ``nbody_tpu/ops/p3m_forces.py``:
 rows so a caller can reuse them for several substeps
 (``p3m_rebin_interval``); positions are always read fresh through them.
 
+The collective form (:func:`p3m_acc_collective`, the counterpart of
+``nbody_tpu``'s under ``shard_map``) takes one tensor a shard, as one
+process drives every shard of a sharded world. Each shard is a target
+shard and holds its own sources; the results are ``nbody_tpu``'s:
+
+* the box is agreed over the shards, each shard's source grid is summed
+  in shard order (``pm_forces.mesh_grid_collective``);
+* the sources of a cell are its global heaviest ``cell_capacity``, ties in
+  shard order, then row order: the first rows of each cell's run under one
+  stable (−gm, cell) sort of the shards' sources concatenated in shard
+  order, which is what JAX's per-cell ``top_k`` over the all-gathered
+  panels keeps. The bins hold that order, formed on the first shard's
+  device and copied to the others; the positions are gathered fresh at
+  every evaluation, once a distinct device;
+* a target of cell c on shard k gets a pair correction only if its rank
+  in the cell plus the cell's targets on the shards before k (``goff``)
+  is below the capacity: each shard launches ``p3m_pp.pp_cells`` on its
+  own targets with each cell's count cut to min(count, max(0, cap −
+  goff));
+* the exact cores are the global top ``exact_targets`` of the shards'
+  candidates by masked radius, ties in shard order; each shard with
+  sources adds its partial force on them (``direct_forces.force_acc``),
+  the partials are summed in shard order, and the owner writes its rows.
+
+JAX's shards also carry their massless and padding rows as sources of gm
+0; they sort last in their cells and add exact zeros, and here they are
+left out.
+
 Gradients flow as in JAX: through the CIC weights, the FFT solve, the
 row gathers into cell order and back, the pair correction
 (``p3m_pp.pp_cells``, whose backward is its VJP kernel on the card) and
@@ -49,7 +77,9 @@ from torch.profiler import record_function
 from .. import forces
 from ..types import DTYPE, SOFTENING_FLOOR
 from . import direct_forces, p3m_pp
-from .pm_forces import _bounds, _box, _cic_gather, _cic_scatter, _solve
+from .pm_forces import (_bounds, _box, _cic_gather, _cic_scatter, _solve,
+                        mesh_grid_collective, on_devices, per_shard_scalar,
+                        shard_box, shard_sum)
 
 
 def _taper(d2, rc):
@@ -282,3 +312,194 @@ def p3m_cell_overflow(src_pos, src_gm, *, grid: int = 512, rc_cells: int = 4,
     _, _, _, counts = _cell_pack(src_pos, lo, 1.0 / cell, gc,
                                  priority=src_gm)
     return torch.clamp(counts - cell_capacity, min=0).sum()
+
+
+# --- the collective form: one tensor a shard, single controller ---
+
+def _top_rows(key: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices of the ``k`` largest keys, ties in index order (as
+    ``lax.top_k``)."""
+    return torch.argsort(key, descending=True, stable=True)[:k]
+
+
+def p3m_exact_core_bins_collective(tgt_radius: list, *, exact_targets: int,
+                                   tgt_mask: list | None = None) -> dict:
+    """The exact-core selection over the shards (radius is constant in a
+    run, so a caller makes it once and passes it on as ``big_bins``):
+    each shard's top min(``exact_targets``, rows) rows by masked radius
+    (``big_i_loc``, on its device), the global top ``exact_targets`` of
+    those candidates, ties in shard order (``big_sel``, indices into the
+    candidates in shard order), their radii (``big_radius``) on the first
+    shard's device, and for each shard the row it writes for each selected
+    row (``big_row``: the local row where it owns it, else the row count,
+    one past its rows)."""
+    devices = [r.device for r in tgt_radius]
+    dev0 = devices[0]
+    n_loc = tgt_radius[0].shape[0]
+    k_loc = min(exact_targets, n_loc)
+    masks = tgt_mask if tgt_mask is not None else [None] * len(tgt_radius)
+    i_loc = [_top_rows(_masked_radius(r, m), k_loc)
+             for r, m in zip(tgt_radius, masks)]
+    cand_key = torch.cat([_masked_radius(r, m)[i].to(dev0)
+                          for r, m, i in zip(tgt_radius, masks, i_loc)])
+    cand_r = torch.cat([r[i].to(dev0) for r, i in zip(tgt_radius, i_loc)])
+    cand_i = torch.cat([i.to(dev0) for i in i_loc])
+    sel = _top_rows(cand_key, min(exact_targets, len(devices) * k_loc))
+    owner = sel // max(k_loc, 1)
+    rows = cand_i[sel]
+    return {
+        "big_i_loc": i_loc,
+        "big_sel": sel,
+        "big_radius": cand_r[sel],
+        "big_row": [torch.where(owner == k, rows, n_loc).to(dev)
+                    for k, dev in enumerate(devices)],
+    }
+
+
+def p3m_bins_collective(tgt_pos: list, tgt_radius: list, src_pos: list,
+                        src_gm: list, *, grid: int, rc_cells: int,
+                        cell_capacity: int, exact_targets: int,
+                        tgt_mask: list | None = None,
+                        big_bins: dict | None = None) -> dict:
+    """The collective counterpart of :func:`p3m_bins`, frozen for reuse
+    across substeps: the box agreed over the shards (``lo``, ``h``: one a
+    shard); the global source order (``order_s``, ``start_s``,
+    ``counts_s``: over the shards' sources concatenated in shard order,
+    one copy a distinct device); each shard's target order, runs and
+    counts (``order_t``, ``start_t``, ``counts_t``), the count of each
+    cell's targets on the shards before it (``goff``) and the counts cut
+    by the global-rank rule (``cut_t``); and the exact-core selection
+    (:func:`p3m_exact_core_bins_collective`, or ``big_bins``). Positions
+    are read detached: the bins carry no gradient."""
+    devices = [p.device for p in tgt_pos]
+    dev0 = devices[0]
+    cap = cell_capacity
+    gc = max(grid // rc_cells, 1)
+    tgt_pos = [p.detach() for p in tgt_pos]
+    lo, h = shard_box(tgt_pos, src_pos, src_gm, tgt_mask, grid)
+    inv_c = [1.0 / ((grid * h_k) / gc) for h_k in h]
+    src_all = torch.cat([p.detach().to(dev0) for p in src_pos])
+    gm_all = torch.cat([g.detach().to(dev0) for g in src_gm])
+    order_s, _, _, counts_s = _cell_pack(src_all, lo[0], inv_c[0], gc,
+                                         priority=gm_all)
+    bins = {"lo": lo, "h": h,
+            "order_s": on_devices(order_s, devices),
+            "start_s": on_devices(_run_starts(counts_s), devices),
+            "counts_s": on_devices(counts_s, devices),
+            "order_t": [], "start_t": [], "counts_t": [], "goff": [],
+            "cut_t": []}
+    goff = torch.zeros(gc * gc, dtype=torch.int32, device=dev0)
+    for p, lo_k, ic, dev in zip(tgt_pos, lo, inv_c, devices):
+        order_t, _, _, counts_t = _cell_pack(p, lo_k, ic, gc)
+        goff = goff.to(dev)
+        bins["order_t"].append(order_t)
+        bins["start_t"].append(_run_starts(counts_t))
+        bins["counts_t"].append(counts_t)
+        bins["goff"].append(goff)
+        bins["cut_t"].append(torch.minimum(
+            counts_t, torch.clamp(cap - goff, min=0)).to(torch.int32))
+        goff = goff + counts_t
+    if exact_targets:
+        bins.update(big_bins if big_bins is not None else
+                    p3m_exact_core_bins_collective(
+                        tgt_radius, exact_targets=exact_targets,
+                        tgt_mask=tgt_mask))
+    return bins
+
+
+def _write_rows(acc: torch.Tensor, rows: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """acc with acc[rows[i]] = vals[i] where rows[i] < len(acc); the rows
+    past the end are dropped (JAX's ``.at[].set(mode="drop")``), through
+    one extra row that is cut off. Out of place and differentiable."""
+    ext = torch.cat([acc, acc.new_zeros((1,) + tuple(acc.shape[1:]))])
+    return ext.index_put((rows,), vals)[:acc.shape[0]]
+
+
+def p3m_acc_collective_from_bins(bins: dict, tgt_pos: list, tgt_radius: list,
+                                 src_pos: list, src_gm: list, softening=2.0,
+                                 *, grid: int, rc_cells: int,
+                                 cell_capacity: int,
+                                 precise: bool = False) -> list:
+    """Sharded P³M with a frozen collective structure (see
+    :func:`p3m_bins_collective`): with fresh bins this is
+    :func:`p3m_acc_collective`; with stale ones every position is still
+    read fresh (mesh scatter and gather, pair distances, exact-core rows),
+    and only the candidates and the box lag. Returns (T_k, 2) a shard, the
+    padding rows' values unmasked (the caller masks them). Each shard
+    makes one ``pp_cells`` launch; each shard that holds sources makes one
+    ``force_acc`` launch for the exact-core rows."""
+    devices = [p.device for p in tgt_pos]
+    dev0 = devices[0]
+    cap = cell_capacity
+    lo, h = bins["lo"], bins["h"]
+    soft = per_shard_scalar(softening, devices)
+    eps2 = [s ** 2 for s in soft]
+    rc = [rc_cells * h_k for h_k in h]
+    a_grid = mesh_grid_collective(src_pos, src_gm, lo, h, eps2, grid, rc=rc)
+    with record_function("p3m.cic_gather"):
+        acc = [_cic_gather(a, t, lo_k, 1.0 / h_k, grid)
+               for a, t, lo_k, h_k in zip(a_grid, tgt_pos, lo, h)]
+
+    with record_function("p3m.pack"):
+        srows: dict = {}
+        for k, dev in enumerate(devices):
+            if dev not in srows:
+                xy = torch.cat([p.to(dev) for p in src_pos])
+                w = torch.cat([g.to(dev) for g in src_gm])
+                srows[dev] = _cell_rows(xy, w, bins["order_s"][k])
+        trows = [_cell_rows(p, r + SOFTENING_FLOOR, o) for p, r, o in
+                 zip(tgt_pos, tgt_radius, bins["order_t"])]
+    out = []
+    for k, dev in enumerate(devices):
+        with record_function("p3m.pair_kernel"):
+            corr = p3m_pp.pp_cells(
+                trows[k], srows[dev], bins["start_t"][k], bins["cut_t"][k],
+                bins["start_s"][k], bins["counts_s"][k], rc[k], eps2[k],
+                cap_t=cap, cap_s=cap, precise=precise)
+        with record_function("p3m.unpack"):
+            pp = torch.empty_like(corr)
+            pp[bins["order_t"][k]] = corr
+        out.append(acc[k] + pp)
+
+    if "big_sel" in bins and bins["big_sel"].shape[0]:
+        with record_function("p3m.exact_rows"):
+            cand = torch.cat([p[i].to(dev0) for p, i in
+                              zip(tgt_pos, bins["big_i_loc"])])
+            big_pos = cand[bins["big_sel"]]
+            partial = [direct_forces.force_acc(
+                big_pos.to(dev), bins["big_radius"].to(dev), s, g,
+                precise=precise)
+                for s, g, dev in zip(src_pos, src_gm, devices) if s.shape[0]]
+            exact = (shard_sum(partial, dev0) if partial
+                     else torch.zeros_like(big_pos))
+            out = [_write_rows(a, r, exact.to(a.device))
+                   for a, r in zip(out, bins["big_row"])]
+    return out
+
+
+def p3m_acc_collective(
+    tgt_pos: list,      # (T_k, 2) a shard
+    tgt_radius: list,   # (T_k,) a shard
+    src_pos: list,      # (S_k, 2) a shard: the shard's own sources
+    src_gm: list,       # (S_k,) a shard
+    softening=2.0,
+    *,
+    grid: int = 512,
+    rc_cells: int = 4,
+    cell_capacity: int = 96,
+    exact_targets: int = 64,
+    precise: bool = False,
+    tgt_mask: list | None = None,
+) -> list:
+    """Sharded P³M, single controller (the counterpart of
+    ``nbody_tpu.ops.p3m_forces.p3m_acc_collective``, one tensor a shard):
+    fresh :func:`p3m_bins_collective`, then
+    :func:`p3m_acc_collective_from_bins`. Returns (T_k, 2) a shard."""
+    bins = p3m_bins_collective(
+        tgt_pos, tgt_radius, src_pos, src_gm, grid=grid, rc_cells=rc_cells,
+        cell_capacity=cell_capacity, exact_targets=exact_targets,
+        tgt_mask=tgt_mask)
+    return p3m_acc_collective_from_bins(
+        bins, tgt_pos, tgt_radius, src_pos, src_gm, softening, grid=grid,
+        rc_cells=rc_cells, cell_capacity=cell_capacity, precise=precise)

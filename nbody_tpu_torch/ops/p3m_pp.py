@@ -22,7 +22,8 @@ Two entry points, one kernel:
   (targets x, y, radius + SOFTENING_FLOOR, 0; sources x, y, gm, 0) and each
   cell's run (start, count) on both sides. Only a run's first ``cap`` rows
   take part, the slots the JAX blocks hold; the result is one (x, y) a
-  target row, 0 for the rows past a cell's cap.
+  target row, 0 for the rows past a cell's cap, and past its count where
+  the count is below the run's length (the sharded P³M's target cut).
 * :func:`pp_blocks`, the counterpart of ``nbody_tpu``'s: packed
   (gc, gc, cap) blocks in, (gc², cap_t, 2) out. On the card it runs the
   same kernel on the blocks written as rows, cell c's run at c · cap.
@@ -344,9 +345,14 @@ def pp_cells(
     meet the first min(counts_s[n], cap_s) sources of each neighbour cell
     n, the slots that ``nbody_tpu``'s (gc, gc, cap) blocks hold; every
     other row is 0 (a target past its cell's cap keeps the mesh force
-    only). The runs must lie inside the rows. The call makes no host
-    sync. Differentiable with respect to ``trows`` and ``srows``; the
-    backward is :func:`pp_cells_vjp`."""
+    only). A count may be below its run's length: the rows of the run
+    past it are 0 and the rows before it get the bits they get with the
+    whole run. That is the target cut of the sharded P³M (each shard's
+    counts cut by the cell's targets on the shards before it,
+    ``p3m_forces.p3m_bins_collective``). The runs must lie inside the
+    rows. The call makes no host sync. Differentiable with respect to
+    ``trows`` and ``srows``; the backward is :func:`pp_cells_vjp`, on the
+    same counts."""
     device = trows.device
     _check_device(device)
     runs = {"start_t": start_t, "counts_t": counts_t, "start_s": start_s,

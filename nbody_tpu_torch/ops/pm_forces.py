@@ -20,6 +20,15 @@ that varies from run to run); on the CPU ``scatter_add_``, serially in the
 same order (``index_put_`` there adds by float atomics across threads from
 32768 entries on).
 
+The collective form (:func:`pm_acc_collective`, the counterpart of
+``nbody_tpu``'s under ``shard_map``) takes one tensor a shard, as one
+process drives every shard of a sharded world: the box is agreed over the
+shards (JAX's pmin/pmax: a min and a max formed on the first shard's
+device), each shard scatters its own sources into a grid of its own, the
+grids are summed in shard order (JAX's psum, in a fixed order and with no
+float atomics), the solve runs once a distinct device, and each shard
+gathers its own targets.
+
 The sizes and shapes stay on the device: the box is a pair of 0-dim
 tensors, so nothing here waits for the host. Gradients flow as in JAX,
 with respect to positions (through the CIC weights) and gm; the box is
@@ -30,6 +39,8 @@ computed from detached inputs, as JAX computes it under
 from __future__ import annotations
 
 import torch
+
+from torch.profiler import record_function
 
 from ..forces import add_at
 from ..types import DTYPE
@@ -166,3 +177,114 @@ def pm_acc(
     rho = _cic_scatter(src_pos, src_gm, lo, 1.0 / h, grid)
     a_grid = _solve(rho, h, eps2, grid)
     return _cic_gather(a_grid, tgt_pos, lo, 1.0 / h, grid)
+
+
+# --- the collective form: one tensor a shard, single controller ---
+
+def on_devices(x: torch.Tensor, devices: list) -> list:
+    """``x`` on each of ``devices``: one copy a distinct device, shared by
+    the shards that live there (the tensor itself on its own device)."""
+    copies: dict = {}
+    out = []
+    for dev in devices:
+        if dev not in copies:
+            copies[dev] = x.to(dev)
+        out.append(copies[dev])
+    return out
+
+
+def shard_sum(xs: list, device) -> torch.Tensor:
+    """The sum of the shards' tensors on ``device`` in shard order,
+    ((x0 + x1) + x2) + ...: a collective's psum, in a fixed order."""
+    with record_function("shards.sum"):
+        out = xs[0].to(device)
+        for x in xs[1:]:
+            out = out + x.to(device)
+        return out
+
+
+def shard_box(tgt_pos: list, src_pos: list, src_gm: list, tgt_mask, grid: int):
+    """The box agreed over all shards: each shard's :func:`_bounds`, their
+    min and max formed on the first shard's device (JAX's pmin and pmax;
+    exact in any order), then :func:`_box`. Returns the lists (lo, h), one
+    entry a shard, on the shards' devices."""
+    devices = [t.device for t in tgt_pos]
+    dev0 = devices[0]
+    masks = tgt_mask if tgt_mask is not None else [None] * len(tgt_pos)
+    mins, maxs = [], []
+    for t, s, g, m in zip(tgt_pos, src_pos, src_gm, masks):
+        if not s.shape[0]:  # no sources: one of gm 0, which no box counts
+            s, g = t[:1], torch.zeros_like(t[:1, 0])
+        lo_k, hi_k = _bounds(t, s, g, m)
+        mins.append(lo_k.to(dev0))
+        maxs.append(hi_k.to(dev0))
+    all_min, all_max = mins[0], maxs[0]
+    for lo_k, hi_k in zip(mins[1:], maxs[1:]):
+        all_min = torch.minimum(all_min, lo_k)
+        all_max = torch.maximum(all_max, hi_k)
+    lo, h = _box(all_min, all_max, grid)
+    return on_devices(lo, devices), on_devices(h, devices)
+
+
+def per_shard_scalar(x, devices: list) -> list:
+    """A float or 0-dim tensor, or a list of one a shard, as one 0-dim fp32
+    tensor a shard on its device."""
+    xs = x if isinstance(x, (list, tuple)) else [x] * len(devices)
+    return [torch.as_tensor(v, dtype=DTYPE, device=dev)
+            for v, dev in zip(xs, devices)]
+
+
+def mesh_grid_collective(src_pos: list, src_gm: list, lo: list, h: list,
+                         eps2: list, grid: int, rc=None) -> list:
+    """The collective mesh solve: each shard that holds sources scatters
+    them into its own (G, G) grid, the grids are summed in shard order on
+    the first shard's device, and :func:`_solve` runs once a distinct
+    device (with the P³M taper where ``rc``, one 0-dim tensor a shard, is
+    given). Returns the (G, G, 2) force grid of each shard (shards on one
+    device share one)."""
+    devices = [p.device for p in src_pos]
+    with record_function("p3m.cic_scatter" if rc is not None
+                         else "pm.cic_scatter"):
+        rhos = [_cic_scatter(s, g, lo_k, 1.0 / h_k, grid)
+                for s, g, lo_k, h_k in zip(src_pos, src_gm, lo, h)
+                if s.shape[0]]
+    if not rhos:
+        rhos = [torch.zeros((grid, grid), dtype=DTYPE, device=devices[0])]
+    rho = shard_sum(rhos, devices[0])
+    solved: dict = {}
+    out = []
+    with record_function("p3m.fft_solve" if rc is not None
+                         else "pm.fft_solve"):
+        for k, dev in enumerate(devices):
+            if dev not in solved:
+                solved[dev] = _solve(rho.to(dev), h[k], eps2[k], grid,
+                                     rc=None if rc is None else rc[k])
+            out.append(solved[dev])
+    return out
+
+
+def pm_acc_collective(
+    tgt_pos: list,      # (T_k, 2) a shard
+    src_pos: list,      # (S_k, 2) a shard: the shard's own sources
+    src_gm: list,       # (S_k,) a shard
+    softening=2.0,
+    *,
+    grid: int = 512,
+    tgt_mask: list | None = None,
+) -> list:
+    """Sharded particle-mesh, single controller (the counterpart of
+    ``nbody_tpu.ops.pm_forces.pm_acc_collective``, one tensor a shard): the
+    box agreed over the shards (:func:`shard_box`), each shard's sources
+    scattered into its own grid, the grids summed in shard order
+    (:func:`shard_sum`), the solve once a distinct device, and each
+    shard's targets gathered from it. Returns (T_k, 2) a shard. A shard
+    may hold no sources (S_k = 0). ``softening``: a float, a 0-dim tensor
+    or one a shard. Differentiable as :func:`pm_acc`; the box carries no
+    gradient."""
+    devices = [t.device for t in tgt_pos]
+    eps2 = [s ** 2 for s in per_shard_scalar(softening, devices)]
+    lo, h = shard_box(tgt_pos, src_pos, src_gm, tgt_mask, grid)
+    a_grid = mesh_grid_collective(src_pos, src_gm, lo, h, eps2, grid)
+    with record_function("pm.cic_gather"):
+        return [_cic_gather(a, t, lo_k, 1.0 / h_k, grid)
+                for a, t, lo_k, h_k in zip(a_grid, tgt_pos, lo, h)]

@@ -1,6 +1,6 @@
 """Particle-space sharding over a list of devices: the ring of source
-tiles. Counterpart of ``nbody_tpu/parallel/sharding.py`` for the
-direct-sum backends.
+tiles and the collective mesh solvers. Counterpart of
+``nbody_tpu/parallel/sharding.py``.
 
   * Particles are padded and split along N into D shards of ``t_loc``
     target rows; shard d also owns ``s_loc`` rows of the massive prefix
@@ -12,38 +12,59 @@ direct-sum backends.
     drives every device of a mesh under ``shard_map``). A mesh is a list of
     ``torch.device``s, one per shard, and may repeat a device: D shards on
     one card, or on the CPU, as the JAX suite runs D virtual CPU devices.
-  * Each force evaluation is one pass round the ring of
-    ``ops/ring_forces.py``: the visiting source slot moves one shard per hop
-    by a device-to-device copy on a side stream while the shard computes on
-    the other slot; CUDA events play the semaphores.
+  * On the direct-sum backends each force evaluation is one pass round the
+    ring of ``ops/ring_forces.py``: the visiting source slot moves one
+    shard per hop by a device-to-device copy on a side stream while the
+    shard computes on the other slot; CUDA events play the semaphores.
+  * On the mesh backends each force evaluation is a collective
+    (``ops/pm_forces.pm_acc_collective``,
+    ``ops/p3m_forces.p3m_acc_collective_from_bins``): each shard's
+    sources are its rows of the massive prefix, weighted by the shard's
+    per-target gm row (``nbody_tpu``'s layout for "pm" and "p3m"); the
+    grids and the exact-core partials are summed in shard order, so two
+    runs give the same bits. The whole n-substep loop of ``update`` keeps
+    "p3m"'s bins frozen for ``p3m_rebin_interval`` substeps and chooses
+    the exact-core rows once a call, as ``nbody_tpu``'s grid device loop.
 
 Backends (the port's names for JAX's): "torch" ("jnp") plain per-hop force
 then integrate; "cuda" ("pallas") the direct kernel per hop; "cuda_ring"
-("pallas_ring") the ring hop kernel K3, whose last hop integrates.
+("pallas_ring") the ring hop kernel K3, whose last hop integrates; "pm" and
+"p3m" the collective mesh solvers (on CUDA shards K4, ``p3m_pp.pp_cells``,
+once a shard an evaluation, and K1's ``force_acc`` for the exact-core
+partials); "auto" resolves by ``nbody_tpu``'s per-chip rule
+(:func:`resolve_force_backend`).
 
 A user field ``extra_force(pos, vel)`` is pointwise per shard: it sees
-the shard's rows, its term is masked by ``valid`` and added to the ring's
-force, and the integration runs in PyTorch on each shard's stream. So does
-the adaptive loop, whose dt is a tensor on the device. On "cuda_ring" such
-a substep takes its force from the hop kernel without its epilogue.
+the shard's rows, its term is masked by ``valid`` and added to the
+force, and the integration runs in PyTorch on each shard. So does the
+adaptive loop, whose dt is a tensor on the device. On "cuda_ring" such a
+substep takes its force from the hop kernel without its epilogue.
 
 Under ``SimConfig.merge_collisions`` every substep is followed by one merge
 pass (``ops/collisions.merge_pass``): the ``src_len`` rows of the massive
 prefix are gathered from the shards, in global row order, onto the first
-shard's device, merged there once, and the changed rows and ``gm_src``
-copied back to their shards: the single-controller form of the pass that
-nbody_tpu runs on the global sharded arrays. The ring reads the shards' gm
-tensors, which the merge updates in place.
+shard's device, merged there once, and the changed rows and gm copied back
+to their shards: the single-controller form of the pass that nbody_tpu
+runs on the global sharded arrays. The forces read the shards' gm tensors,
+which the merge updates in place. "p3m" does not merge (frozen cell
+blocks), as in nbody_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
+import operator
 from typing import Literal
 
 import torch
+from torch.profiler import record_function
 
 from .. import diagnostics, forces, integrators, world
 from ..ops.collisions import merge_pass
+from ..ops.p3m_forces import (p3m_acc_collective_from_bins,
+                              p3m_bins_collective,
+                              p3m_exact_core_bins_collective)
+from ..ops.pm_forces import pm_acc_collective
 from ..ops.ring_forces import Ring, ring_force, ring_substep
 from ..trajectory import stack_frames
 from ..types import DEFAULT_SIM_CONFIG, DTYPE, Particles, SimConfig, round_up
@@ -55,8 +76,29 @@ from ..world import _scalar, partition_massive_first
 # carries the same sources in both packages. No kernel of the port needs it.
 SOURCE_ALIGN = 128
 
-FORCE_BACKENDS = ("torch", "cuda", "cuda_ring")
-NOT_PORTED = ("pm", "p3m", "auto")
+RING_BACKENDS = ("torch", "cuda", "cuda_ring")
+MESH_BACKENDS = ("pm", "p3m")
+FORCE_BACKENDS = RING_BACKENDS + MESH_BACKENDS
+
+
+class Shards(tuple):
+    """One tensor a shard, with elementwise ``+`` and ``*`` (a scalar, or
+    one value a shard), so that ``integrators.advance`` runs its stages over
+    the shards with the same arithmetic as over one tensor."""
+
+    def _map(self, other, op):
+        if isinstance(other, Shards):
+            return Shards(op(a, b) for a, b in zip(self, other))
+        return Shards(op(a, other) for a in self)
+
+    def __add__(self, other):
+        return self._map(other, operator.add)
+
+    def __mul__(self, other):
+        return self._map(other, operator.mul)
+
+    def __rmul__(self, other):
+        return self._map(other, lambda a, b: b * a)
 
 
 def shard_layout(n: int, mass_len: int, config: SimConfig, d: int):
@@ -131,33 +173,56 @@ def padded_state(particles: Particles, mass_len: int, n_pad: int, g: float):
     return state, gm, valid
 
 
-def _resolve_force_backend(force_backend, devices, merging=False) -> str:
+def mesh_chips(devices) -> int:
+    """The D of "auto"'s per-chip rule: the distinct cards of a CUDA mesh
+    (four shards on one card do all the direct work on that card), and
+    every shard of a CPU mesh, which stands for nbody_tpu's virtual CPU
+    mesh of D devices."""
+    if devices[0].type == "cpu":
+        return len(devices)
+    return len(dict.fromkeys(devices))
+
+
+def resolve_force_backend(force_backend, devices, total_len: int,
+                          mass_len: int, merging: bool = False) -> str:
+    """The backend a sharded world runs: None is the shards' direct backend
+    ("cuda" on CUDA shards, "torch" on CPU ones, where nbody_tpu answers
+    "pallas" or "jnp"); "auto" is nbody_tpu's per-chip rule
+    (``nbody_tpu/parallel/sharding.py:366-391``): the direct sum's
+    total_len · mass_len pairs split evenly over the D chips while the
+    mesh cost repeats on each, so the direct backend at or below
+    ``world.AUTO_P3M_MIN_PAIRS`` pairs a chip and "p3m" above ("pm" under
+    merging). D is ``mesh_chips``: shards that share a card share its
+    time. "p3m" with merging raises, as in nbody_tpu."""
+    direct = "cuda" if devices[0].type == "cuda" else "torch"
     if force_backend is None:
-        return "cuda" if devices[0].type == "cuda" else "torch"
+        return direct
+    if force_backend == "auto":
+        per_chip = (total_len * mass_len) // mesh_chips(devices)
+        far = "pm" if merging else "p3m"
+        force_backend = direct if per_chip <= world.AUTO_P3M_MIN_PAIRS else far
+    elif force_backend not in FORCE_BACKENDS:
+        raise ValueError(
+            f"unknown force_backend {force_backend!r}; expected one of "
+            f"{FORCE_BACKENDS} or 'auto'")
     if merging and force_backend == "p3m":
         raise ValueError(
             "merge_collisions is not supported with force_backend='p3m' "
-            "(frozen cell blocks); use 'torch', 'cuda' or 'cuda_ring'")
-    if force_backend in NOT_PORTED:
-        raise NotImplementedError(
-            f"force_backend {force_backend!r} on a sharded world is not yet "
-            f"ported to nbody_tpu_torch; use one of {FORCE_BACKENDS}")
-    if force_backend not in FORCE_BACKENDS:
-        raise ValueError(
-            f"unknown force_backend {force_backend!r}; expected one of "
-            f"{FORCE_BACKENDS}")
+            "(frozen cell blocks); use 'torch', 'cuda', 'cuda_ring' or 'pm'")
     return force_backend
 
 
 class ShardedWorld:
-    """World sharded over a 1-D mesh of devices, with the force computed by
-    the ring of source tiles. Mirrors :class:`nbody_tpu_torch.World`:
-    create, ``update(dt, n)``, ``particles``.
+    """World sharded over a 1-D mesh of devices. Mirrors
+    :class:`nbody_tpu_torch.World`: create, ``update(dt, n)``,
+    ``particles``.
 
     Layout: ``n_pad`` = D·``t_loc`` padded rows, shard d holding rows
-    [d·t_loc, (d+1)·t_loc); ``src_len`` = D·``s_loc`` source rows, shard d
-    owning rows [d·s_loc, (d+1)·s_loc) of the massive prefix and their gm
-    (``gm_src``, zero past ``mass_len``). Per-shard state is in the lists
+    [d·t_loc, (d+1)·t_loc). On the ring backends ``src_len`` = D·``s_loc``
+    source rows, shard d owning rows [d·s_loc, (d+1)·s_loc) of the massive
+    prefix and their gm (``gm_src``, zero past ``mass_len``); on "pm" and
+    "p3m" each shard keeps the gm of its own rows (a per-target row, zero
+    past ``mass_len``), as in nbody_tpu. Per-shard state is in the lists
     ``pos``, ``vel``, ``acc``, ``mass``, ``radius`` and ``valid``."""
 
     def __init__(
@@ -166,39 +231,106 @@ class ShardedWorld:
         mesh: list | None = None,
         *,
         config: SimConfig = DEFAULT_SIM_CONFIG,
-        force_backend: Literal["torch", "cuda", "cuda_ring"] | None = None,
+        force_backend: Literal["torch", "cuda", "cuda_ring", "pm", "p3m",
+                               "auto"] | None = None,
     ):
-        self.mesh = make_mesh(devices=mesh) if mesh is not None else make_mesh()
-        d = self.n_devices = len(self.mesh)
-        self.config = config
-        self.force_backend = _resolve_force_backend(
-            force_backend, self.mesh, merging=config.merge_collisions)
+        devices = make_mesh(devices=mesh) if mesh is not None else make_mesh()
         n = particles.pos.shape[0]
         mass_len = int(torch.count_nonzero(particles.mass > 0))
+        backend = resolve_force_backend(force_backend, devices, n, mass_len,
+                                        config.merge_collisions)
+        n_pad = shard_layout(n, mass_len, config, len(devices))[3]
+        state, gm, valid = padded_state(particles, mass_len, n_pad, config.g)
+        self._setup(devices, config, backend, n, mass_len, state, gm, valid)
+
+    @classmethod
+    def from_arrays(cls, pos, vel, acc, mass, radius, *, total_len: int,
+                    mass_len: int, mesh: list,
+                    config: SimConfig = DEFAULT_SIM_CONFIG,
+                    force_backend=None) -> "ShardedWorld":
+        """Rebuild a ShardedWorld around PADDED state (the counterpart of
+        ``nbody_tpu``'s ``from_arrays``): each field a tensor of the
+        ``n_pad`` rows of :func:`shard_layout` for (total_len, mass_len,
+        config, mesh size), or the list of its D shards, on any device
+        (e.g. :attr:`state`, or the lists ``pos``, ``vel``, ...). The gm
+        and valid rows are made again: gm = g·mass below ``mass_len``,
+        valid = 1 below ``total_len``."""
+        self = cls.__new__(cls)
+        devices = make_mesh(devices=mesh)
+        backend = resolve_force_backend(force_backend, devices, total_len,
+                                        mass_len, config.merge_collisions)
+        n_pad = shard_layout(total_len, mass_len, config, len(devices))[3]
+
+        def whole(x):
+            if isinstance(x, (list, tuple)):
+                return torch.cat([t.to("cpu", DTYPE) for t in x])
+            return torch.as_tensor(x).to("cpu", DTYPE)
+
+        state = Particles(pos=whole(pos), vel=whole(vel), acc=whole(acc),
+                          mass=whole(mass), radius=whole(radius))
+        if tuple(state.pos.shape) != (n_pad, 2):
+            raise ValueError(
+                f"restored pos shape {tuple(state.pos.shape)} does not match "
+                f"the layout for n={total_len}, mass_len={mass_len}, "
+                f"D={len(devices)}: ({n_pad}, 2); restore with the same "
+                "config and mesh size as the save")
+        idx = torch.arange(n_pad)
+        gm = torch.where(idx < mass_len, config.g * state.mass, 0.0)
+        valid = (idx < total_len).to(DTYPE)
+        self._setup(devices, config, backend, total_len, mass_len, state, gm,
+                    valid)
+        return self
+
+    def _setup(self, devices, config, backend, n, mass_len, state, gm,
+               valid) -> None:
+        """Split the padded CPU state over ``devices`` and build the
+        backend's source layout (the ring, or the mesh solvers' rows)."""
+        self.mesh = devices
+        d = self.n_devices = len(devices)
+        self.config = config
+        self.force_backend = backend
         s_loc, t_loc, src_len, n_pad = shard_layout(n, mass_len, config, d)
         self.total_len, self.mass_len = n, mass_len
         self.s_loc, self.t_loc, self.src_len, self.n_pad = (
             s_loc, t_loc, src_len, n_pad)
 
-        state, gm, valid = padded_state(particles, mass_len, n_pad, config.g)
-
         def split(x, rows):
             return [x[k * rows:(k + 1) * rows].to(dev).contiguous()
-                    for k, dev in enumerate(self.mesh)]
+                    for k, dev in enumerate(devices)]
 
         self.pos, self.vel, self.acc = (split(x, t_loc) for x in
                                         (state.pos, state.vel, state.acc))
         self.mass, self.radius = split(state.mass, t_loc), split(state.radius, t_loc)
         self.valid = split(valid, t_loc)
-        self._gm_src = split(gm[:src_len], s_loc)
-        self.ring = Ring(self.mesh, t_loc, s_loc, mass_len, self._gm_src,
-                         n_targets=n)
+        if backend in MESH_BACKENDS:
+            # the mesh solvers' sources: the first max(mass_len, 1) rows
+            # (World's _mesh_sources), each shard's share of them
+            n_src = max(mass_len, 1)
+            self._src_rows = [min(max(n_src - k * t_loc, 0), t_loc)
+                              for k in range(d)]
+            self._gm_src = split(gm, t_loc)
+            self._softening = [world._scalar(config.pm_softening, dev)
+                               for dev in devices]
+            self.ring = None
+        else:
+            self._gm_src = split(gm[:src_len], s_loc)
+            self.ring = Ring(devices, t_loc, s_loc, mass_len, self._gm_src,
+                             n_targets=n)
         self._host_cache: Particles | None = None
 
     @property
     def gm_src(self) -> torch.Tensor:
-        """The whole (src_len,) source gm row, on the CPU."""
+        """The whole gm row on the CPU: (src_len,) on the ring backends,
+        the per-target (n_pad,) row on "pm" and "p3m", as in nbody_tpu."""
         return torch.cat([g.cpu() for g in self._gm_src])
+
+    def _fork(self):
+        return self.ring.fork() if self.ring is not None \
+            else contextlib.nullcontext()
+
+    def _on(self, k: int):
+        return self.ring.on(k) if self.ring is not None \
+            else contextlib.nullcontext()
 
     def update(self, dt: float, n: int = 1, extra_force=None) -> "ShardedWorld":
         """n substeps of size dt. ``extra_force(pos, vel) -> acc`` composes
@@ -208,6 +340,10 @@ class ShardedWorld:
         the host: ``dt`` stays a Python float, and only ``particles`` and
         ``block_until_ready`` wait."""
         if n <= 0:
+            return self
+        if self.ring is None:
+            self._mesh_update(float(dt), n, extra_force)
+            self._host_cache = None
             return self
         dts = [float(dt)] * self.n_devices
         if not self.config.merge_collisions:
@@ -239,7 +375,7 @@ class ShardedWorld:
         knobs = {key: _scalar(v, dev0) for key, v in (
             ("dt_min", dt_min), ("dt_max", dt_max), ("t_span", t_span))}
         eta = _scalar(eta, dev0)
-        with self.ring.fork():  # prime acc: dt = 0, nothing moves
+        with self._fork():  # prime acc: dt = 0, nothing moves
             self._substep([_scalar(0.0, dev) for dev in self.mesh],
                           extra_force)
         if merging:
@@ -256,12 +392,12 @@ class ShardedWorld:
                     crit, t=t, **knobs), 0.0)
                 old = (self.pos, self.vel, self.acc, self.radius, self.mass)
                 lives = [live.to(dev) for dev in self.mesh]
-                with self.ring.fork():
+                with self._fork():
                     self._substep([dt.to(dev) for dev in self.mesh],
                                   extra_force)
                     # a substep past the end keeps the old state
                     for j in range(0 if merging else self.n_devices):
-                        with self.ring.on(j):
+                        with self._on(j):
                             for new, prev in zip(
                                     (self.pos, self.vel, self.acc), old):
                                 new[j] = torch.where(lives[j], new[j], prev[j])
@@ -288,29 +424,35 @@ class ShardedWorld:
         def gather(xs):
             return torch.cat([xs[k][:rows].to(dev0) for k, rows in pieces])
 
-        out = merge_pass(gather(self.pos), gather(self.vel),
-                         gather(self.radius), gather(self.mass),
-                         torch.cat([g.to(dev0) for g in self._gm_src]),
-                         factor=self.config.merge_factor, g=self.config.g)
-        lists = []
-        for xs, merged in zip((self.pos, self.vel, self.radius, self.mass),
-                              out[:4]):
+        def scatter(xs, merged):
             new, lo = list(xs), 0
             for k, rows in pieces:
                 new[k] = torch.cat([merged[lo:lo + rows].to(self.mesh[k]),
                                     xs[k][rows:]])
                 lo += rows
-            lists.append(new)
-        s = self.s_loc
-        gms = [out[4][k * s:(k + 1) * s].to(dev)
-               for k, dev in enumerate(self.mesh)]
+            return new
+
+        ring = self.ring is not None
+        gm = (torch.cat([g.to(dev0) for g in self._gm_src]) if ring
+              else gather(self._gm_src))
+        out = merge_pass(gather(self.pos), gather(self.vel),
+                         gather(self.radius), gather(self.mass), gm,
+                         factor=self.config.merge_factor, g=self.config.g)
+        lists = [scatter(xs, merged) for xs, merged in zip(
+            (self.pos, self.vel, self.radius, self.mass), out[:4])]
+        if ring:
+            s = self.s_loc
+            gms = [out[4][k * s:(k + 1) * s].to(dev)
+                   for k, dev in enumerate(self.mesh)]
+        else:
+            gms = scatter(self._gm_src, out[4])
         return (*lists, gms)
 
     def _merge(self, lives=None, old=None) -> None:
         """Apply one merge pass; with ``lives`` (a 0-dim bool per shard) and
         ``old`` (the pre-substep pos, vel, acc, radius, mass lists), a shard
         whose flag is False keeps ``old`` and its gm. The shards' gm tensors
-        are updated in place, where the ring reads them."""
+        are updated in place, where the forces read them."""
         pos, vel, radius, mass, gms = self._merged()
         acc = self.acc
         if lives is not None:
@@ -380,12 +522,115 @@ class ShardedWorld:
                          acc=cat(self.acc), mass=cat(self.mass),
                          radius=cat(self.radius))
 
+    # -- the mesh backends ---------------------------------------------
+
+    def _sources(self, ps) -> tuple[list, list]:
+        """Each shard's sources for the mesh solvers: its rows of the first
+        max(mass_len, 1) rows, at positions ``ps``, and their gm."""
+        return ([p[:r] for p, r in zip(ps, self._src_rows)],
+                [g[:r] for g, r in zip(self._gm_src, self._src_rows)])
+
+    def _masked(self, acc: list) -> list:
+        return [a * m[:, None] for a, m in zip(acc, self.valid)]
+
+    def _pm_force(self):
+        """``force(ps) -> list``: the collective PM, masked by ``valid``."""
+        cfg = self.config
+
+        def force(ps):
+            src, gm = self._sources(ps)
+            return self._masked(pm_acc_collective(
+                list(ps), src, gm, self._softening, grid=cfg.pm_grid,
+                tgt_mask=self.valid))
+        return force
+
+    def _exact_core_bins(self):
+        """The exact-core selection, made once an update call (radius is
+        constant without merging, and "p3m" does not merge)."""
+        if not self.config.p3m_exact_targets:
+            return None
+        return p3m_exact_core_bins_collective(
+            self.radius, exact_targets=self.config.p3m_exact_targets,
+            tgt_mask=self.valid)
+
+    def _p3m_bins(self, ps, big) -> dict:
+        cfg = self.config
+        with record_function("p3m.bins"):
+            src, gm = self._sources(ps)
+            return p3m_bins_collective(
+                list(ps), self.radius, src, gm, grid=cfg.pm_grid,
+                rc_cells=cfg.p3m_rc_cells,
+                cell_capacity=cfg.p3m_cell_capacity,
+                exact_targets=cfg.p3m_exact_targets, tgt_mask=self.valid,
+                big_bins=big)
+
+    def _p3m_force(self, bins):
+        """``force(ps) -> list``: the collective P³M through the frozen
+        ``bins``, masked by ``valid``."""
+        cfg = self.config
+
+        def force(ps):
+            src, gm = self._sources(ps)
+            return self._masked(p3m_acc_collective_from_bins(
+                bins, list(ps), self.radius, src, gm, self._softening,
+                grid=cfg.pm_grid, rc_cells=cfg.p3m_rc_cells,
+                cell_capacity=cfg.p3m_cell_capacity, precise=cfg.precise))
+        return force
+
+    def _mesh_update(self, dt: float, n: int, extra_force) -> None:
+        """n substeps on "pm" or "p3m": nbody_tpu's grid device loop. "p3m"
+        builds its bins at every substep index (from this call's start)
+        that is a multiple of ``p3m_rebin_interval`` and chooses the
+        exact-core rows once; under merging ("pm") each substep is followed
+        by a merge pass."""
+        if self.force_backend == "pm":
+            force = self._pm_force()
+            for _ in range(n):
+                self._mesh_substep(dt, force, extra_force)
+                if self.config.merge_collisions:
+                    self._merge()
+            return
+        big = self._exact_core_bins()
+        for i in range(n):
+            if i % self.config.p3m_rebin_interval == 0:
+                force = self._p3m_force(self._p3m_bins(self.pos, big))
+            self._mesh_substep(dt, force, extra_force)
+
+    def _mesh_substep(self, dt, force, extra_force) -> None:
+        """One substep of the integrator's stage loop over the shards
+        (``integrators.advance`` on :class:`Shards`) with ``force(ps)``
+        plus the hook, which sees the substep-entry velocity. ``dt``: a
+        Python float, or one 0-dim tensor a shard."""
+        vel0 = self.vel
+
+        def force_at(ps):
+            acc = force(ps)
+            if extra_force is not None:
+                acc = [a + forces.checked_extra_acc(extra_force, p, v)
+                       * m[:, None]
+                       for a, p, v, m in zip(acc, ps, vel0, self.valid)]
+            return Shards(acc)
+
+        pos, vel, acc = integrators.advance(
+            self.config.integrator, force_at, Shards(self.pos),
+            Shards(self.vel), dt if isinstance(dt, float) else Shards(dt))
+        self.pos, self.vel, self.acc = list(pos), list(vel), list(acc)
+
+    # -- the ring backends ---------------------------------------------
+
     def _substep(self, dts: list, extra_force=None) -> None:
         """One substep of the integrator with each shard's dt in ``dts``
         (Python floats, or 0-dim tensors on the shards' devices). Fused
         through the hop kernel's epilogue on "cuda_ring" when dt is a float
         and there is no hook; else the ring's force, the hook, and the
-        integration in PyTorch."""
+        integration in PyTorch. On "pm" and "p3m" one collective substep
+        ("p3m": fresh bins)."""
+        if self.ring is None:
+            force = (self._pm_force() if self.force_backend == "pm" else
+                     self._p3m_force(self._p3m_bins(self.pos, None)))
+            self._mesh_substep(dts[0] if isinstance(dts[0], float) else dts,
+                               force, extra_force)
+            return
         ws = integrators.stage_weights(self.config.integrator)
         fused = (self.force_backend == "cuda_ring" and extra_force is None
                  and isinstance(dts[0], float))
@@ -442,7 +687,12 @@ class ShardedWorld:
         return self._host_cache
 
     def block_until_ready(self) -> "ShardedWorld":
-        self.ring.synchronize()
+        if self.ring is not None:
+            self.ring.synchronize()
+            return self
+        for dev in dict.fromkeys(self.mesh):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return self
 
     def __len__(self) -> int:

@@ -59,10 +59,20 @@ Backend = Literal["torch", "cuda", "pm", "p3m", "auto"]
 BACKENDS = ("torch", "cuda", "pm", "p3m")
 
 # "auto" picks the direct sum at or below this many pair evaluations per
-# substep (total_len * mass_len) and p3m above. This is nbody_tpu's rule
-# and number (nbody_tpu/world.py:81-100), set on a TPU; the H100's own
-# crossover is a measurement still to make (ROADMAP A6).
-AUTO_P3M_MIN_PAIRS = 16_000_000_000
+# substep (total_len * mass_len) and p3m above: nbody_tpu's rule
+# (nbody_tpu/world.py:81-100) with the crossover measured on an NVIDIA H100
+# 80GB HBM3 at its 700 W limit by `python -m
+# nbody_tpu_torch.ablations.tune_crossover` (two galaxies, seed 1, default
+# config, 32 substeps of 0.005, best of two, wall ms a substep): N=65536
+# (2.1616e9 pairs) "cuda" 0.9302 against "p3m" 4.0259; N=131072 (8.5861e9)
+# 3.6271 against 4.2215; N=147456 (1.0869e10) 6.0963 against 5.3530;
+# N=196608 (1.9309e10) 8.1112 against 5.4379; N=262144 14.3638 against
+# 4.9176; N=393216 32.2875 against 5.1131. The direct sum wins up to
+# 8.5861e9 pairs and p3m from 1.0869e10; the number lies between. It was
+# measured on one card, so a sharded world divides the pairs by its cards,
+# not its shards (`parallel.sharding.mesh_chips`): D shards on one card
+# still do all the direct work there.
+AUTO_P3M_MIN_PAIRS = 9_000_000_000
 
 # Substeps the adaptive loop enqueues between two reads of its flag. A
 # batch costs one host sync; the substeps of the last batch that fall past

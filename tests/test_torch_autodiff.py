@@ -256,7 +256,8 @@ def test_sharded_rollout_matches_single_device_and_jax():
     """rollout_sharded on four CPU shards: value and gradient against the
     port's single-device rollout and nbody_tpu's on its 8-device CPU mesh,
     with tests/test_autodiff.py's bounds for the ring (value 1e-5 relative,
-    gradient 3e-5); "pm" and "p3m" wait for ROADMAP A8."""
+    gradient 3e-5); and the values of "pm" and "p3m" against nbody_tpu's
+    sharded ones."""
     (pos, vel, mass, radius), ml = galaxy_state(500, 4)
     kw = dict(n_steps=3, mass_len=ml)
 
@@ -281,10 +282,18 @@ def test_sharded_rollout_matches_single_device_and_jax():
     assert v_s == pytest.approx(float(v_j), rel=1e-5)
     assert rel_err(g_s, g_1) < 3e-5
     assert rel_err(g_s, g_j) < 3e-5
+    # "pm" and "p3m" (ROADMAP A8), which raised before: the value against
+    # nbody_tpu's sharded rollout (gradients in
+    # tests/test_torch_sharded_mesh.py)
     for backend in ("pm", "p3m"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            tad.rollout_sharded(T(pos), T(vel), T(mass), T(radius), 0.01,
-                                mesh=CPU4, backend=backend, **kw)
+        mesh_kw = dict(kw, backend=backend, pm_grid=128,
+                       p3m_cell_capacity=32)
+        a_t, _ = tad.rollout_sharded(T(pos), T(vel), T(mass), T(radius), 0.01,
+                                     mesh=CPU4, **mesh_kw)
+        a_j, _ = jad.rollout_sharded(J(pos), J(vel), J(mass), J(radius), 0.01,
+                                     mesh=jax_mesh(8), **mesh_kw)
+        assert torch.sum(a_t ** 2).item() == pytest.approx(
+            float(jnp.sum(a_j ** 2)), rel=1e-5)
 
 
 def test_sharded_gradient_conditioning():

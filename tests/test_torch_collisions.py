@@ -736,9 +736,18 @@ def test_sharded_adaptive_merging_matches_the_world():
 
 
 def test_sharded_merge_p3m_rejected():
+    """"p3m" with merging is refused, as in nbody_tpu; "pm", which raised
+    NotImplementedError before the sharded mesh solvers were ported,
+    merges (tests/test_collisions.py:318's "pm" case)."""
     with pytest.raises(ValueError, match="not supported"):
         _sharded([[0.0, 0.0], [1.0, 0.0]], mass=[1.0, 1.0],
                  radius=[0.5, 0.5], backend="p3m")
-    with pytest.raises(NotImplementedError):
-        _sharded([[0.0, 0.0], [1.0, 0.0]], mass=[1.0, 1.0],
-                 radius=[0.5, 0.5], backend="pm")
+    sw = _sharded([[0.0, 0.0], [1.0, 0.0]], mass=[5.0, 3.0],
+                  radius=[0.7, 0.7], backend="pm")
+    sw.update(DT, 1)
+    p = sw.particles
+    assert p.mass.tolist() == [8.0, 0.0]
+    assert float(p.pos[0, 0]) == pytest.approx(3.0 / 8.0, abs=1e-4)
+    assert float(p.radius[0]) == pytest.approx((2 * 0.7**3) ** (1 / 3), rel=1e-5)
+    np.testing.assert_array_equal(sw.gm_src.numpy()[:2], [80.0, 0.0])
+    validate_world_invariants(sw)

@@ -1253,3 +1253,126 @@ def test_sharded_cuda_rollout_matches_single_device(cuda):
     v_1, g_1 = run(one, w.mass_len, squares, False)
     assert v_s == pytest.approx(v_1, rel=1e-5)
     assert rel_err(g_s, g_1) < 3e-5
+
+
+# --- the sharded mesh solvers, D shards on one card ---
+
+def _mesh_shards(cuda, backend, d, scene, cfg):
+    return ShardedWorld(scene, make_mesh(devices=[cuda] * d), config=cfg,
+                        force_backend=backend)
+
+
+def test_sharded_p3m_on_one_card_repeats_with_exact_launches(cuda):
+    """D=4 "p3m" shards on one card: two runs from the same state give the
+    same bits (the grids and the exact-core partials are summed in shard
+    order), each evaluation launches K4 once a shard and force_acc once a
+    shard that holds sources, and the substeps make no host sync."""
+    cfg = nt.SimConfig(pm_grid=256, p3m_cell_capacity=32)
+    scene = nt.make_galaxies(20_000, 2, seed=11037)
+    runs = []
+    for _ in range(2):
+        sw = _mesh_shards(cuda, "p3m", 4, scene, cfg)
+        with_src = sum(r > 0 for r in sw._src_rows)
+        df.LAUNCHES = p3m_pp.LAUNCHES = 0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sw.update(0.01, 3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert (p3m_pp.LAUNCHES, df.LAUNCHES) == (3 * 4, 3 * with_src)
+        runs.append(sw.particles)
+    assert 1 < with_src < 4
+    for name in ("pos", "vel", "acc"):
+        got = getattr(runs[0], name)
+        assert torch.isfinite(got).all(), name
+        assert torch.equal(got, getattr(runs[1], name)), name
+
+
+@pytest.mark.parametrize("backend", ["pm", "p3m"])
+def test_sharded_mesh_one_shard_is_the_world_on_the_card(cuda, backend):
+    """D=1 on the card: a sum over one shard adds nothing and the padding
+    rows are no sources, so every field is the World's bit for bit."""
+    cfg = nt.SimConfig(pm_grid=256, p3m_cell_capacity=32)
+    scene = nt.make_galaxies(20_000, 2, seed=5)
+    sw = _mesh_shards(cuda, backend, 1, scene, cfg)
+    w = nt.create_world(scene, config=cfg, device=cuda)
+    sw.update(0.01, 3)
+    w.update(0.01, 3, backend=backend)
+    for name in ("pos", "vel", "acc"):
+        assert torch.equal(getattr(sw.particles, name),
+                           getattr(w.particles, name)), name
+
+
+@pytest.mark.parametrize("backend", ["pm", "p3m"])
+def test_sharded_mesh_on_the_card_matches_the_cpu(cuda, backend):
+    """D=4 on one card against D=4 CPU shards (the plain versions), 3
+    substeps, with test_world_p3m_on_the_card's bounds (cuFFT against the
+    CPU's FFT: fp32 noise)."""
+    cfg = nt.SimConfig(pm_grid=256, p3m_cell_capacity=32)
+    scene = nt.make_galaxies(4000, 2, seed=11037)
+    sw_k = _mesh_shards(cuda, backend, 4, scene, cfg)
+    sw_p = ShardedWorld(scene, make_mesh(devices=["cpu"] * 4), config=cfg,
+                        force_backend=backend)
+    sw_k.update(0.01, 3)
+    sw_p.update(0.01, 3)
+    for name, tol in (("pos", 1e-6), ("vel", 2e-5), ("acc", 2e-5)):
+        got, want = getattr(sw_k.particles, name), getattr(sw_p.particles, name)
+        assert torch.isfinite(got).all()
+        assert rel_err(got, want) < tol, name
+
+
+def test_pp_cells_cut_counts_leave_rows_zero_on_the_card(cuda):
+    """The drop rule's cut: counts below the runs' lengths leave the rest
+    of each run at exactly 0, and the kept rows get the bits they get with
+    the whole runs (each target's sum is its own), within 1e-5 of the
+    plain version on the same cut."""
+    cells, rc, _ = _galaxy_cells(cuda)
+    trows, srows, start_t, counts_t, start_s, counts_s = cells
+    cut = torch.clamp(counts_t - 5, min=0).to(torch.int32)
+    whole = p3m_pp.pp_cells(*cells, rc, 4.0, cap_t=32, cap_s=32)
+    got = p3m_pp.pp_cells(trows, srows, start_t, cut, start_s, counts_s, rc,
+                          4.0, cap_t=32, cap_s=32)
+    idx, live = p3m_pp.run_slots(start_t, cut, 32, len(trows))
+    kept = torch.zeros(len(trows), dtype=torch.bool, device=cuda)
+    kept[idx[live]] = True
+    assert (whole[~kept] != 0).any()
+    assert torch.equal(got[~kept], torch.zeros_like(got[~kept]))
+    assert torch.equal(got[kept], whole[kept])
+    want = p3m_pp.pp_cells_plain(trows.cpu(), srows.cpu(), start_t.cpu(),
+                                 cut.cpu(), start_s.cpu(), counts_s.cpu(), rc,
+                                 4.0, cap_t=32, cap_s=32)
+    assert rel_err(got.cpu(), want) < TOL
+
+
+def test_sharded_p3m_rollout_on_the_card_matches_the_cpu(cuda):
+    """rollout_sharded "p3m" with four shards on one card (K4 and its VJP
+    kernel on each shard, the cut counts in both): two steps twice
+    bit-equal with one K4 VJP call a shard a step; one step against four
+    CPU shards (the plain versions), value 1e-5 relative and gradient 1e-4
+    of max, test_p3m_rollout_on_the_card_matches_the_cpu_and_repeats'
+    bounds (one step, for the reason given there)."""
+    from nbody_tpu_torch import autodiff
+
+    (pos, vel, mass, radius), ml = _rollout_scene(3000)
+    kw = dict(mass_len=ml, backend="p3m", pm_grid=128, p3m_cell_capacity=32,
+              p3m_exact_targets=16, precise=False)
+
+    def run(device, n_steps):
+        p = pos.to(device).requires_grad_()
+        out, _ = autodiff.rollout_sharded(
+            p, vel.to(device), mass.to(device), radius.to(device), 0.01,
+            n_steps=n_steps, mesh=[device] * 4, **kw)
+        val = torch.sum(out ** 2) * 1e-6
+        return val, torch.autograd.grad(val, p)[0]
+
+    before = p3m_pp.VJP_LAUNCHES
+    v1, g1 = run(cuda, 2)
+    assert p3m_pp.VJP_LAUNCHES == before + 2 * 4
+    v2, g2 = run(cuda, 2)
+    assert torch.equal(g1, g2) and torch.equal(v1, v2)
+    assert torch.isfinite(g1).all()
+    v_card, g_card = run(cuda, 1)
+    v_cpu, g_cpu = run(torch.device("cpu"), 1)
+    assert float(v_card) == pytest.approx(float(v_cpu), rel=1e-5)
+    assert rel_err(g_card.cpu(), g_cpu) < 1e-4
