@@ -155,6 +155,28 @@ Phases, each of which raises on failure:
      (1e-6), the tracer's loss and gradient against the single-device
      rollout (1e-5, 3e-5), exact K4 and K4-VJP launches, no host sync,
      the gradient bit-equal twice. Two more kernels-line rows.
+19. the device-side scenes (nbody_tpu_torch.models): make_galaxies_device
+     at N=1M (two galaxies) and the Plummer, Kepler and cold disks at
+     N=65536, each drawn on the card twice from seed 11037 with host syncs
+     turned into errors, bit-equal, checked for structure (counts, fp32,
+     mass_len, core and body radii, mass/r³ constants, the tracer rule,
+     orbital speeds), wall time (utils.profiling.StepTimer) and device
+     time beside the host numpy generator; K1 with every row a source (the
+     Plummer World on "cuda", S = N = 65536) against its plain version,
+     10 substeps with exactly 10 launches and no host sync, pairs/s and
+     bound; tests/test_disks.py's checks on "cuda" (Kepler orbits, the
+     cold disk's momentum and infall, its adaptive run through force_acc),
+     each gated at that test's size and read at N=65536; the native AVX
+     oracle (utils.cpp_oracle, built from cpp/ into build/cpp/) against
+     World "cuda", precise: the N=65536 two-galaxy scene after one
+     substep (acc, vel, pos within 5e-6 of max), the Plummer disk at
+     N=8192 after 10 (rtol 5e-4, atol 5e-2); the N=1M device galaxies on
+     "p3m" at the slice's config (K4, rsqrt, and the exact-core
+     force_acc against their plain versions, 3 substeps with exact
+     launches and no host sync, the cell overflow and the error against
+     the direct kernel as readings, a profiler window by stage); then
+     python -m nbody_tpu_torch run --scene plummer|kepler|cold at
+     N=65536 on "cuda". One more kernels-line row.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -627,9 +649,10 @@ def cells_and_blocks(pp, trows, t_radius, srows, counts_t, counts_s, cap):
     return cells, blocks
 
 
-def world_cells(pp, p3m_forces, world):
-    """The rows, runs and rc that world.update(backend="p3m") hands K4 on
-    the world's current state, and the blocks of the same cells."""
+def world_bins(pp, p3m_forces, world) -> tuple:
+    """The bins and the cell-sorted target and source rows that
+    world.update(backend="p3m") builds for K4 on the world's current
+    state, and rc."""
     cfg, st, s = world.config, world.state, world.mass_len
     bins = p3m_forces.p3m_bins(st.pos, st.radius, st.pos[:s], world.gm,
                                grid=cfg.pm_grid, rc_cells=cfg.p3m_rc_cells,
@@ -637,14 +660,21 @@ def world_cells(pp, p3m_forces, world):
     trows = p3m_forces._cell_rows(st.pos, st.radius + pp.SOFTENING_FLOOR,
                                   bins["order_t"])
     srows = p3m_forces._cell_rows(st.pos[:s], world.gm, bins["order_s"])
+    return bins, trows, srows, cfg.p3m_rc_cells * bins["h"]
+
+
+def world_cells(pp, p3m_forces, world):
+    """The rows, runs and rc that world.update(backend="p3m") hands K4 on
+    the world's current state, and the blocks of the same cells."""
+    bins, trows, srows, rc = world_bins(pp, p3m_forces, world)
     cells, blocks = cells_and_blocks(
-        pp, trows, st.radius[bins["order_t"]], srows, bins["counts_t"],
-        bins["counts_s"], cfg.p3m_cell_capacity)
+        pp, trows, world.state.radius[bins["order_t"]], srows,
+        bins["counts_t"], bins["counts_s"], world.config.p3m_cell_capacity)
     for mine, theirs in zip(cells[2::2], (bins["start_t"], bins["start_s"])):
         if not torch.equal(mine, theirs):
             raise SystemExit("chip_smoke: p3m_bins' run starts are not the "
                              "exclusive prefix sums of its counts")
-    return cells, blocks, cfg.p3m_rc_cells * bins["h"]
+    return cells, blocks, rc
 
 
 def random_cells(pp, device, gc: int = 8, cap: int = 32):
@@ -1335,7 +1365,7 @@ def force_acc_error(df, world, rows=None) -> float:
 def finite_state(world, what: str) -> None:
     p = world.particles
     if not all(torch.isfinite(x).all() for x in (p.pos, p.vel, p.acc)):
-        raise SystemExit(f"chip_smoke: non-finite sharded state, {what}")
+        raise SystemExit(f"chip_smoke: non-finite state, {what}")
 
 
 def phase_sharded(sh, rf, df, scene_bench, scene_big, device) -> dict:
@@ -3194,6 +3224,448 @@ def phase_mesh(nt, sh, df, pp, p3m_forces, world_mod, scene_bench, scene_big,
     return out
 
 
+# [19] the device-side scenes: the four generators at full size on the
+# card, K1 with every row a source, the physics checks of the JAX suite's
+# scene tests (each gated at that test's own size and bound, read at
+# BENCH_N), the native AVX oracle as a third judge of K1, the device
+# galaxies through the p3m slice, and the CLI's --scene.
+SCENE_DT = 0.005                # tests/test_plummer.py's substep
+SCENE_SUBSTEPS = 10
+ORACLE_BOUND = BOUND_SMALL      # acc, vel and pos, one substep at N=65536
+ORACLE_SMALL_N = 8192           # the Plummer scene, tests/test_cpp_oracle.py:33-46
+ORACLE_SMALL_STEPS = 10
+ORACLE_RTOL, ORACLE_ATOL = 5e-4, 5e-2
+# tests/test_disks.py: (N, substeps, dt) of the Kepler and cold-disk cases
+KEPLER_CASE = (128, 300, 0.001)
+COLD_CASE = (256, 50, 0.01)
+ADAPTIVE_CASE = (128, 0.5, 0.05)  # N, t_span, dt_max
+ADAPTIVE_READING_SPAN = 0.02      # the reading at BENCH_N (the collapse's
+                                  # substeps grow with N)
+SCENE_P3M_SUBSTEPS = 3
+CLI_SCENE_STEPS = 3
+
+
+def gate(what: str, value: float, bound: float) -> None:
+    """Fail unless value < bound (a negated pair gates value > bound)."""
+    ok = np.isfinite(value) and value < bound
+    log(f"  {what}: {abs(value):.4g} ({'<' if bound > 0 else '>'} "
+        f"{abs(bound):g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: {what} out of bound")
+
+
+def check_structure(nt, name: str, p, n: int, device) -> dict:
+    """The structural checks of the CPU tests (tests/test_torch_scenes.py)
+    on a scene drawn on the card."""
+    fields = {f: getattr(p, f) for f in ("pos", "vel", "acc", "mass", "radius")}
+    for f, x in fields.items():
+        if x.device.type != device.type or x.dtype != torch.float32 \
+                or x.shape[0] != n or not torch.isfinite(x).all():
+            raise SystemExit(f"chip_smoke: {name}.{f} is not {n} finite fp32 "
+                             "rows on the card")
+    pos, vel = p.pos.double(), p.vel.double()
+    mass, radius = p.mass.double(), p.radius.double()
+    r = torch.hypot(pos[:, 0], pos[:, 1])
+    out = {"mass_len": int((p.mass > 0).sum())}
+    fails = []
+    if name == "galaxies":
+        cfg = nt.GalaxyConfig()
+        core = mass >= cfg.min_gc_mass
+        tracer = mass == 0
+        body = ~core & ~tracer
+        cores = torch.nonzero(core).reshape(-1)
+        rc, rb = radius[core], radius[body]
+        ratio_c = mass[core] / cfg.r_to_m(rc, cfg.gc_density)
+        ratio_b = mass[body] / cfg.r_to_m(rb, cfg.np_density)
+        # each row's galaxy: the rows from a core to the next are its own
+        gal = torch.searchsorted(cores, torch.arange(n, device=cores.device),
+                                 right=True) - 1
+        d = torch.hypot(*(pos - pos[cores][gal]).T)
+        speed = torch.hypot(*(vel - vel[cores][gal]).T)
+        orbit = ~core
+        want = torch.sqrt(nt.G * mass[cores][gal][orbit] / d[orbit])
+        speed_err = float(((speed[orbit] - want).abs() / want).max())
+        norm = d[orbit] / radius[cores][gal][orbit]
+        med = norm.median()
+        t = tracer[orbit]
+        inner, outer = float(t[norm <= med].double().mean()), \
+            float(t[norm > med].double().mean())
+        out.update(cores=len(cores), tracers=float(tracer.double().mean()),
+                   speed_err=speed_err, inner=inner, outer=outer)
+        checks = {"two cores": len(cores) == 2,
+                  "core radii in [200, 600)": bool(((rc >= 200) & (rc < 600)).all()),
+                  "body radii in [1.5, 9.5]": bool(((rb >= 1.5) & (rb <= 9.5)).all()),
+                  "tracers: mass 0, radius 0.5": bool(tracer.any()) and bool(
+                      (radius[tracer] == 0.5).all()),
+                  "core mass / r^3 at density 30": float(
+                      (ratio_c - 1).abs().max()) < 1e-4,
+                  "body mass / r^3 at density 10": float(
+                      (ratio_b - 1).abs().max()) < 1e-4,
+                  "circular speed about the core (rtol 1e-3)": speed_err < 1e-3,
+                  "tracer share rises with distance": outer > inner + 0.1}
+    else:
+        checks = {"mass_len == N": out["mass_len"] == n}
+        if name == "plummer":
+            v = torch.hypot(vel[:, 0], vel[:, 1])
+            cosang = float(((vel * pos).sum(1).abs()
+                            / torch.clamp(v * r, min=1e-9)).mean())
+            out.update(r50=float(r.median()), cosang=cosang)
+            checks["median radius 400 (rtol 0.1)"] = abs(out["r50"] - 400) < 40
+            checks["mostly tangential (mean cos < 0.1)"] = cosang < 0.1
+        elif name == "kepler":
+            v = torch.hypot(vel[1:, 0], vel[1:, 1])
+            want = torch.sqrt(nt.G * 1e7 / r[1:])
+            out["speed_err"] = float(((v - want).abs() / want).max())
+            checks["central mass 1e7, bodies 1"] = float(mass[0]) == 1e7 and \
+                bool((mass[1:] == 1).all())
+            checks["radii in [200, 1200]"] = float(r[1:].min()) >= 200 - 1e-3 \
+                and float(r[1:].max()) <= 1200 + 1e-3
+            checks["circular speed (rtol 1e-5)"] = out["speed_err"] < 1e-5
+        else:
+            checks["at rest"] = bool((p.vel == 0).all())
+            checks["inside the extent 800"] = float(r.max()) <= 800 * (1 + 1e-6)
+    for what, ok in checks.items():
+        if not ok:
+            fails.append(what)
+    log(f"  {name}: {n} rows, mass_len {out['mass_len']}; checks "
+        + ", ".join(checks) + (" ok" if not fails else f" FAILED: {fails}"))
+    if fails:
+        raise SystemExit(f"chip_smoke: the {name} scene on the card: {fails}")
+    return out
+
+
+def draw_scenes(nt, models, profiling, host_gen_s: float, smi: str,
+                device) -> dict:
+    """[19a]: each generator twice from one seed on the card, with host
+    syncs turned into errors: bit-equal, structurally right, timed (the
+    wall time through utils.profiling.StepTimer, the device time by CUDA
+    events)."""
+    log(f"[19a] the device-side scenes at full size on the card, seed {SEED}")
+    out = {}
+    makers = {"galaxies": (models.make_galaxies_device, (BIG_N, 2)),
+              "plummer": (models.make_plummer_disk, (BENCH_N,)),
+              "kepler": (models.make_kepler_disk, (BENCH_N,)),
+              "cold": (models.make_cold_disk, (BENCH_N,))}
+    for name, (make, args) in makers.items():
+        timer, runs, dev = profiling.StepTimer(), [], []
+        for _ in range(2):
+            box = []
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            with timer.measure(box):
+                with no_sync():
+                    start.record()
+                    box.append(make(SEED, *args, device=device))
+                    end.record()
+            dev.append(start.elapsed_time(end))
+            runs.append(box[0])
+        same = all(torch.equal(getattr(runs[0], f), getattr(runs[1], f))
+                   for f in ("pos", "vel", "acc", "mass", "radius"))
+        log(f"  {name}{args}: twice from seed {SEED} with no host sync, "
+            f"bit-equal {same}")
+        if not same:
+            raise SystemExit(f"chip_smoke: two {name} scenes of one seed differ")
+        stats = check_structure(nt, name, runs[0], args[0], device)
+        log(f"  {name}: wall {timer.summary()} (StepTimer, to the card's "
+            f"last op), device {dev[0]:.4f} and {dev[1]:.4f} ms [{smi}]")
+        out[name] = {"scene": runs[0], "wall_us": timer.best_us,
+                     "device_ms": min(dev), **stats}
+    g = out["galaxies"]
+    log(f"  galaxies: {g['tracers']:.2%} tracers; tracer share {g['inner']:.3f} "
+        f"inside the median distance, {g['outer']:.3f} outside; speed about "
+        f"the core within {g['speed_err']:.2e}")
+    log(f"  host numpy make_galaxies({BIG_N}, 2): {host_gen_s * 1e3:.1f} ms "
+        f"against the card's {g['wall_us'] / 1e3:.4f} ms wall, "
+        f"{g['device_ms']:.4f} ms device [{smi}]")
+    return out
+
+
+def all_massive_k1(nt, df, plummer, smi: str, device) -> dict:
+    """[19b]: the Plummer scene in World "cuda" (S = N): K1 against its
+    plain version, then SCENE_SUBSTEPS timed substeps, exact launches, no
+    host sync; the plain "torch" backend timed beside it."""
+    log(f"[19b] K1 with every row a source: the Plummer scene, N={BENCH_N}")
+    world = nt.create_world(plummer, device=device)
+    n, s = world.total_len, world.mass_len
+    if s != n:
+        raise SystemExit(f"chip_smoke: the Plummer World has mass_len {s} != {n}")
+    st = world.state
+    df.PLANS.clear()
+    err = compare_variants(df, f"Plummer N={n} S={s}", st.pos, st.vel,
+                           st.radius, world.gm, BOUND_SMALL)
+    log_plans("Plummer", df.PLANS)
+    world.update(SCENE_DT, 1)
+    world.block_until_ready()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    df.LAUNCHES = 0
+    with no_sync():
+        start.record()
+        world.update(SCENE_DT, SCENE_SUBSTEPS)
+        end.record()
+    torch.cuda.synchronize()
+    launches = df.LAUNCHES
+    expect_launches(f"the Plummer World, {SCENE_SUBSTEPS} substeps", launches,
+                    SCENE_SUBSTEPS)
+    finite_state(world, "the Plummer World")
+    ms = start.elapsed_time(end) / SCENE_SUBSTEPS
+    plain = nt.create_world(plummer, device=device)
+    plain.update(SCENE_DT, 1, backend="torch")
+    plain_ms = cuda_ms(lambda: plain.update(SCENE_DT, 1, backend="torch"),
+                       reps=2)
+    b_ms, b_by = bound(FLOPS_DIRECT * n * s, 44 * n + 4 * s, MUFU_DIRECT * n * s)
+    log(f"  fused substep S = N = {n}: {ms:.4f} ms/substep, "
+        f"{n * s / (ms * 1e-3):.4e} pairs/s, bound {b_ms:.4f} ms ({b_by}, "
+        f"{b_ms / ms:.1%} of it); plain {plain_ms:.4f} ms; launches "
+        f"{launches}, no host sync [{smi}]")
+    return {"n": n, "s": s, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def kepler_radii(nt, models, n: int, steps: int, dt: float, device) -> float:
+    """max relative change of the bodies' orbit radii after ``steps``
+    substeps of the Kepler disk (tests/test_disks.py:28-38)."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    w = nt.create_world(models.make_kepler_disk(gen, n), device=device)
+    r0 = torch.hypot(*w.state.pos[1:].T)
+    w.update(dt, steps)
+    r1 = torch.hypot(*w.state.pos[1:].T)
+    return float(((r1 - r0).abs() / r0).max())
+
+
+def cold_collapse(nt, models, n: int, steps: int, dt: float, device) -> dict:
+    """Momentum over its scale, radial velocities and kinetic energy after
+    ``steps`` substeps of the cold disk (tests/test_disks.py:41-59)."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    w = nt.create_world(models.make_cold_disk(gen, n), device=device)
+    w.update(dt, steps)
+    p = w.particles
+    mass, pos, vel = (x.double() for x in (p.mass, p.pos, p.vel))
+    mom = (mass[:, None] * vel).sum(0)
+    v_rad = (pos * vel).sum(1) / torch.clamp(torch.hypot(*pos.T), min=1e-6)
+    return {"mom": float(mom.abs().max() / (mass[:, None] * vel).abs().sum()),
+            "v_mean": float(v_rad.mean()), "v_median": float(v_rad.median()),
+            "kinetic": float(0.5 * (mass * (vel ** 2).sum(1)).sum()),
+            "finite": bool(torch.isfinite(p.pos).all())}
+
+
+def scene_physics(nt, df, models, smi: str, device) -> dict:
+    """[19b] the physics checks of tests/test_disks.py on World "cuda":
+    each gated at the JAX test's own size and bound, and read at BENCH_N
+    (a bound set at N=128-256 is not carried to N=65536)."""
+    n, steps, dt = KEPLER_CASE
+    err = kepler_radii(nt, models, n, steps, dt, device)
+    gate(f"Kepler N={n}, {steps} substeps of {dt}: max relative change of "
+         f"the orbit radii", err, 1e-2)
+    big = kepler_radii(nt, models, BENCH_N, steps, dt, device)
+    log(f"  reading: Kepler N={BENCH_N}, {steps} substeps of {dt}: orbit "
+        f"radii within {big:.3e} (relative) [{smi}]")
+    n, steps, dt = COLD_CASE
+    c = cold_collapse(nt, models, n, steps, dt, device)
+    gate(f"cold disk N={n}, {steps} substeps of {dt}: |momentum| / scale",
+         c["mom"], 1e-5)
+    log(f"  cold disk N={n}: radial velocity mean {c['v_mean']:.4f}, median "
+        f"{c['v_median']:.4f}, kinetic energy {c['kinetic']:.4e}")
+    if not (c["finite"] and c["v_median"] < -1.0 and c["kinetic"] > 0):
+        raise SystemExit("chip_smoke: the cold disk does not fall inward")
+    cb = cold_collapse(nt, models, BENCH_N, steps, dt, device)
+    log(f"  reading: cold disk N={BENCH_N}: |momentum| / scale "
+        f"{cb['mom']:.3e}, radial velocity mean {cb['v_mean']:.4f}, median "
+        f"{cb['v_median']:.4f} [{smi}]")
+    n, span, dt_max = ADAPTIVE_CASE
+    out = {}
+    for size, t_span in ((n, span), (BENCH_N, ADAPTIVE_READING_SPAN)):
+        gen = torch.Generator(device=device).manual_seed(3)
+        w = nt.create_world(models.make_cold_disk(gen, size), device=device)
+        df.LAUNCHES = 0
+        dev_ms, host_ms, k = timed(lambda: w.update_adaptive(t_span,
+                                                             dt_max=dt_max))
+        out[size] = {"k": k, "launches": df.LAUNCHES, "ms": dev_ms / k}
+        log(f"  {'reading: ' if size != n else ''}cold disk N={size} "
+            f"update_adaptive({t_span}, dt_max={dt_max}) on 'cuda': {k} "
+            f"substeps, {df.LAUNCHES} force_acc launches, {dev_ms / k:.4f} ms "
+            f"a substep on the device, {host_ms / k:.4f} on the host [{smi}]")
+    for size, r in out.items():
+        expect_launches(f"cold disk N={size} update_adaptive", r["launches"],
+                        adaptive_evaluations(r["k"]))
+    gate(f"cold disk N={n}: adaptive substeps over span / dt_max + 1",
+         -out[n]["k"], -(int(span / dt_max) + 1))
+    return {"kepler": big, "cold": cb, "adaptive": out}
+
+
+def oracle_judges(nt, models, cpp_oracle, scene_bench, smi: str, device) -> dict:
+    """[19c]: the native AVX oracle (cpp/nbody_oracle.cpp, IEEE sqrt) and
+    World "cuda" (precise) from the same massive-first state."""
+    log("[19c] the AVX oracle against the card's K1 (precise)")
+    out = {}
+    w = nt.create_world(scene_bench, config=nt.SimConfig(precise=True),
+                        device=device)
+    host = w.particles
+    t0 = time.perf_counter()
+    try:
+        want = cpp_oracle.oracle_update(host, w.mass_len, 0.01, 1)
+    except cpp_oracle.OracleUnavailable as e:
+        raise SystemExit(f"chip_smoke: the AVX oracle: {e}") from e
+    out["oracle_s"] = time.perf_counter() - t0
+    w.update(0.01, 1)
+    got = w.particles
+    for f in ("acc", "vel", "pos"):
+        out[f] = rel(getattr(got, f), getattr(want, f))
+        check(f"two galaxies N={BENCH_N} S={w.mass_len}, 1 substep of 0.01: "
+              f"{f} against the oracle", out[f], ORACLE_BOUND)
+    log(f"  the oracle's substep: {out['oracle_s']:.2f} s on the host "
+        f"[{smi}]")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    w = nt.create_world(models.make_plummer_disk(gen, ORACLE_SMALL_N),
+                        config=nt.SimConfig(precise=True), device=device)
+    want = cpp_oracle.oracle_update(w.particles, w.mass_len, 0.01,
+                                    ORACLE_SMALL_STEPS)
+    w.update(0.01, ORACLE_SMALL_STEPS)
+    got = w.particles
+    for f in ("pos", "vel"):
+        a, b = getattr(got, f).double(), getattr(want, f).double()
+        excess = float(((a - b).abs() - ORACLE_RTOL * b.abs()).max())
+        log(f"  Plummer N={ORACLE_SMALL_N}, {ORACLE_SMALL_STEPS} substeps: "
+            f"{f} max|d| - {ORACLE_RTOL:g}|ref| = {excess:.3e} (bound "
+            f"{ORACLE_ATOL:g}); max|d|/max|ref| {rel(a, b):.3e}")
+        if not excess <= ORACLE_ATOL:
+            raise SystemExit(f"chip_smoke: Plummer {f} against the oracle "
+                             "out of bound")
+    return out
+
+
+def device_galaxies_p3m(nt, df, pp, p3m_forces, galaxies, smi: str,
+                        device) -> dict:
+    """[19d]: make_galaxies_device(SEED, BIG_N, 2) on "p3m" with the
+    slice's config: K4 on its cells (rsqrt) and the exact-core force_acc
+    against their plain versions ([6]'s and [7]'s bounds),
+    SCENE_P3M_SUBSTEPS substeps with exact launches and no host sync, and,
+    as readings beside [9]'s bounds (set on the other scene), the cell
+    overflow and the force error against the direct kernel on SUBSET fixed
+    targets at the initial state; then a profiler window split by the p3m
+    stages."""
+    log(f"[19d] the device galaxies through the p3m slice {P3M_SIZED}")
+    w = nt.create_world(galaxies, config=nt.SimConfig(**P3M_SIZED),
+                        device=device)
+    cfg, st, s = w.config, w.state, w.mass_len
+    cap = cfg.p3m_cell_capacity
+    bins, trows, srows, rc = world_bins(pp, p3m_forces, w)
+    cells = [trows, srows, bins["start_t"], bins["counts_t"], bins["start_s"],
+             bins["counts_s"]]
+    out = {"s": s}
+    # the main path's rsqrt form only: the plain version takes ~30 s here
+    # ([6] holds both forms on the host scene's cells)
+    got = pp.pp_cells(*cells, rc, 4.0, cap_t=cap, cap_s=cap)
+    want = pp.pp_cells_plain(*cells, rc, 4.0, cap_t=cap, cap_s=cap)
+    check(f"K4 cells route rsqrt, N={w.total_len} S={s}", rel(got, want),
+          BOUND_PP)
+    del got, want
+    out["k4_ms"] = cuda_ms(lambda: pp.pp_cells(*cells, rc, 4.0, cap_t=cap,
+                                               cap_s=cap), reps=5)
+    rows = p3m_forces.exact_core_rows(st.radius, cfg.p3m_exact_targets)
+    tp, tr = st.pos[rows].contiguous(), st.radius[rows].contiguous()
+    for precise in (False, True):
+        check(f"exact-core force_acc T={tp.shape[0]} S={s} "
+              f"{'precise' if precise else 'rsqrt'}",
+              rel(df.force_acc(tp, tr, st.pos[:s], w.gm, precise=precise),
+                  df.force_acc_plain(tp, tr, st.pos[:s], w.gm, precise=precise)),
+              BOUND_SPLIT_BIG)
+    del cells, trows, srows, bins
+    kw = dict(grid=cfg.pm_grid, cell_capacity=cap)
+    out["overflow"] = int(nt.p3m_cell_overflow(st.pos[:s], w.gm, **kw))
+    got = nt.p3m_acc(st.pos, st.radius, st.pos[:s], w.gm, 2.0, **kw)
+    rows = torch.from_numpy(np.random.default_rng(3).choice(
+        w.total_len, SUBSET, replace=False)).to(device)
+    ref = df.force_acc(st.pos[rows], st.radius[rows], st.pos[:s], w.gm,
+                       precise=True)
+    err = p3m_errors(got[rows], ref)
+    del got
+    out["err"] = {"median": float(np.median(err)),
+                  "p99": float(np.percentile(err, 99)), "max": float(err.max())}
+    log(f"  reading at the initial state: p3m_cell_overflow {out['overflow']} "
+        f"of {s} sources ({out['overflow'] / s:.2%}); per-target error "
+        f"against the direct kernel on {SUBSET} targets: median "
+        f"{out['err']['median']:.3e} ([9]'s bound {P3M_MEDIAN:g}), p99 "
+        f"{out['err']['p99']:.3e} ({P3M_P99:g}), max {out['err']['max']:.3e}")
+    w.update(1.0, 1, backend="p3m")
+    w.block_until_ready()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    df.LAUNCHES = pp.LAUNCHES = 0
+    with no_sync():
+        start.record()
+        w.update(1.0, SCENE_P3M_SUBSTEPS, backend="p3m")
+        end.record()
+    torch.cuda.synchronize()
+    expect_launches("device galaxies p3m, K4", pp.LAUNCHES, SCENE_P3M_SUBSTEPS)
+    expect_launches("device galaxies p3m, force_acc", df.LAUNCHES,
+                    SCENE_P3M_SUBSTEPS)
+    finite_state(w, "the device galaxies on p3m")
+    out["ms"] = start.elapsed_time(end) / SCENE_P3M_SUBSTEPS
+    log(f"  p3m substep {out['ms']:.4f} ms (CUDA events), K4 "
+        f"{out['k4_ms']:.4f} ms at the initial state; launches exact, no "
+        f"host sync [{smi}]")
+    prof = profile_stages(w)
+    log(f"  profiler over 3 more substeps: device busy {prof['busy_ms']:.4f} "
+        f"ms of {prof['wall_ms']:.4f} ms wall a substep, idle "
+        f"{prof['idle']:.2%}; device ms a substep by stage: " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in prof["stages"].items()))
+    out["profile"] = prof
+    return out
+
+
+def scene_cli(smi: str) -> list:
+    """[19e]: run --scene plummer|kepler|cold at N=BENCH_N on "cuda" as a
+    user runs it; each saved state must hold N rows."""
+    log("[19e] the CLI's device-side scenes")
+    out_dir = ROOT / "build" / "chip_smoke_cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    secs = []
+    for scene in ("plummer", "kepler", "cold"):
+        path = out_dir / f"scene_{scene}.npz"
+        secs.append(run_cli(["run", "--scene", scene, "--n", str(BENCH_N),
+                             "--backend", "cuda", "--steps",
+                             str(CLI_SCENE_STEPS), "--save", str(path)]))
+        with np.load(path) as d:
+            ok = (d["pos"].shape == (BENCH_N, 2) and int(d["step"]) ==
+                  CLI_SCENE_STEPS and np.isfinite(d["pos"]).all())
+        log(f"  {path.relative_to(ROOT)}: {BENCH_N} rows, step "
+            f"{CLI_SCENE_STEPS}, finite: {ok}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: run --scene {scene} saved a wrong "
+                             "state")
+    log(f"  wall s: {', '.join(f'{x:.1f}' for x in secs)} [{smi}]")
+    return secs
+
+
+def phase_scenes(nt, df, pp, p3m_forces, scene_bench, host_gen_s: float,
+                 smi: str, device) -> dict:
+    from nbody_tpu_torch import models
+    from nbody_tpu_torch.utils import cpp_oracle, profiling
+
+    t0 = t_step = time.perf_counter()
+
+    def took(step: str) -> None:
+        nonlocal t_step
+        log(f"  [{step}] took {time.perf_counter() - t_step:.1f} s")
+        t_step = time.perf_counter()
+
+    scenes = draw_scenes(nt, models, profiling, host_gen_s, smi, device)
+    took("19a")
+    k1 = all_massive_k1(nt, df, scenes["plummer"]["scene"], smi, device)
+    physics = scene_physics(nt, df, models, smi, device)
+    took("19b")
+    oracle = oracle_judges(nt, models, cpp_oracle, scene_bench, smi, device)
+    took("19c")
+    p3m = device_galaxies_p3m(nt, df, pp, p3m_forces,
+                              scenes["galaxies"]["scene"], smi, device)
+    del scenes["galaxies"]["scene"]
+    took("19d")
+    cli = scene_cli(smi)
+    took("19e")
+    log(f"  [19] took {time.perf_counter() - t0:.1f} s")
+    return {"scenes": scenes, "k1": k1, "physics": physics, "oracle": oracle,
+            "p3m": p3m, "cli": cli}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3229,7 +3701,9 @@ def main() -> int:
     forced_clusters(df, device)
 
     scene_bench = nt.make_galaxies(BENCH_N, 2, seed=SEED)
+    t0 = time.perf_counter()
     scene_big = nt.make_galaxies(BIG_N, 2, seed=SEED)
+    host_gen_s = time.perf_counter() - t0
     bench = nt.create_world(scene_bench, device=device)
     st = bench.state
     err_bench = compare_variants(df, f"N={BENCH_N} S={bench.mass_len}", st.pos,
@@ -3333,6 +3807,11 @@ def main() -> int:
     del slice_w
     mesh = phase_mesh(nt, sh, df, pp, p3m_forces, world_mod, scene_bench,
                       scene_big, device)
+    del scene_big
+    log("[19] the device-side scenes, K1 with every row a source, the AVX "
+        "oracle")
+    scn = phase_scenes(nt, df, pp, p3m_forces, scene_bench, host_gen_s, smi,
+                       device)
 
     mk = merge["kernel"]
     log(f"card: {smi}")
@@ -3391,6 +3870,17 @@ def main() -> int:
         f"p3m {tn['World p3m']:.4f}; N={BENCH_N} default p3m "
         f"{mesh['default']['ms']:.4f}; rollout_sharded p3m N={BENCH_N} "
         f"{mesh['rollout_ms']:.4f} ms/step with its backward")
+    sk, so, sp = scn["k1"], scn["oracle"], scn["p3m"]
+    log(f"device scenes on the card: " + ", ".join(
+        f"{name} {r['device_ms']:.4f} ms device, {r['wall_us'] / 1e3:.4f} ms "
+        f"wall" for name, r in scn["scenes"].items())
+        + f" (host numpy galaxies at N={BIG_N}: {host_gen_s * 1e3:.1f} ms); "
+        f"K1 on the Plummer scene S = N = {sk['n']}: {sk['ms']:.4f} ms/substep,"
+        f" {sk['n'] * sk['s'] / (sk['ms'] * 1e-3):.4e} pairs/s, "
+        f"{sk['bound_ms'] / sk['ms']:.1%} of its bound; the AVX oracle "
+        f"against the card at N={BENCH_N}: acc {so['acc']:.3e}, vel "
+        f"{so['vel']:.3e}, pos {so['pos']:.3e}; device galaxies p3m "
+        f"{sp['ms']:.4f} ms/substep")
     log("ablation path, best ms of each sweep: " + ", ".join(
         f"{key} {ablation[key]['best']['ms']:.4f} ({ablation[key]['best']['name']})"
         for key in ABLATION_KERNELS) + f" (K1 force_acc {ablation['k1_ms']:.4f})")
@@ -3517,6 +4007,14 @@ def main() -> int:
          "bound_by": vjp4["bound_by"], "library_ms": None},
         shard_pp_row("slice", P3M_SIZED),
         shard_pp_row("default", P3M_DEFAULT),
+        {"name": f"K1, all-massive Plummer scene, S = N = {sk['n']} "
+                 f"(fused substep)",
+         "route": "cuda", "source": KERNEL_SRC,
+         "replaces": "nbody_tpu/ops/pallas_forces.py:220",
+         "launches": sk["launches"], "max_abs_err": sk["max_abs_err"],
+         "ms": sk["ms"], "plain_ms": sk["plain_ms"],
+         "bound_ms": sk["bound_ms"], "bound_by": sk["bound_by"],
+         "library_ms": None},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

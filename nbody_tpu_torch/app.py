@@ -11,8 +11,13 @@ messages, under the port's names:
 "cuda" (its "pallas"), "pm", "p3m" and "auto". ``--platform`` is the
 device: "cuda" (the default) or "cpu"; without a card, "cuda" exits with
 an error and does not fall back to the CPU. ``--shard`` shards the run
-over every visible card (a 1-device mesh on the CPU). Not registered: the
-interactive ``view``, ``--compile-cache`` and the remote-device probe.
+over every visible card (a 1-device mesh on the CPU). ``--scene plummer``,
+``kepler`` and ``cold`` draw their disk on that device with a
+``torch.Generator`` seeded from ``--seed`` (a card's stream is not the
+CPU's, so the two give different scenes of the same distribution); the
+default ``--scene galaxies`` is the numpy generator on the host. Not
+registered: the interactive ``view``, ``--compile-cache`` and the
+remote-device probe.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ def _add_scene_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--scene",
                    choices=["galaxies", "plummer", "kepler", "cold"],
                    default="galaxies",
-                   help="model family: spiral galaxies (reference scene); "
-                        "plummer, kepler and cold are not ported yet")
+                   help="model family: spiral galaxies (reference scene, "
+                        "numpy on the host), or a Plummer, Kepler or cold-"
+                        "collapse disk drawn on --platform's device")
     p.add_argument("--state", help="resume from a .npz checkpoint instead of generating")
     p.add_argument("--backend", choices=["torch", "cuda", "pm", "p3m", "auto"],
                    default=None,
@@ -117,11 +123,16 @@ def _make_world(args):
         saved = saved_config(extra)
     else:
         scene = getattr(args, "scene", "galaxies")
-        if scene != "galaxies":
-            sys.exit(f"{PROG}: error: --scene {scene} is not ported yet "
-                     "(ROADMAP A10: the device-side scenes); use --scene "
-                     "galaxies")
-        particles = make_galaxies(args.n, args.galaxies, seed=args.seed)
+        if scene == "galaxies":
+            particles = make_galaxies(args.n, args.galaxies, seed=args.seed)
+        else:
+            from . import models
+
+            maker = {"plummer": models.make_plummer_disk,
+                     "kepler": models.make_kepler_disk,
+                     "cold": models.make_cold_disk}[scene]
+            gen = torch.Generator(device=args.device).manual_seed(args.seed)
+            particles = maker(gen, args.n)
     pm_grid = args.pm_grid
     if pm_grid == "auto":
         from .ops.pm_forces import suggest_grid

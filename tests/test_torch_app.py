@@ -280,9 +280,48 @@ def test_merging_run_matches_nbody_tpu(tmp_path):
         assert int((d["mass"] > 0).sum()) < n
 
 
-def test_other_scenes_exit_naming_the_roadmap():
-    with pytest.raises(SystemExit, match="A10"):
-        main(["run", "--n", "300", "--scene", "plummer", "--steps", "1"])
+def test_other_scenes_exit_naming_the_roadmap(capsys):
+    """The device-side scenes are ported (ROADMAP A10); a scene that is not
+    one of --scene's choices exits with argparse's error, naming them."""
+    with pytest.raises(SystemExit) as exc:
+        main(["run", "--n", "300", "--scene", "nebula", "--steps", "1"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "invalid choice: 'nebula'" in err
+    assert all(s in err for s in ("plummer", "kepler", "cold"))
+
+
+def _scene_stats(path):
+    with np.load(path) as d:
+        pos, vel = d["pos"].astype(np.float64), d["vel"].astype(np.float64)
+        return {"n": len(pos), "mass": np.sort(d["mass"]),
+                "radius": np.sort(d["radius"]),
+                "r50": np.median(np.hypot(*pos.T)),
+                "v50": np.median(np.hypot(*vel.T))}
+
+
+@pytest.mark.parametrize("scene", ["plummer", "kepler", "cold"])
+def test_run_device_scenes(scene, tmp_path):
+    """run --scene plummer|kepler|cold on the CPU: N rows saved after the
+    substeps; the initial scene has the masses and radii of nbody_tpu's
+    CLI scene (each disk's are constants) and its median radius and speed
+    within 10% (the two packages draw other streams: the same
+    distribution, not the same particles)."""
+    n = 2000
+    args = ["run", "--scene", scene, "--n", str(n), "--seed", "3"]
+    stepped, port0, jax0 = (str(tmp_path / f) for f in ("s.npz", "p.npz", "j.npz"))
+    main([*args, "--steps", "2", "--dt", "0.001", "--save", stepped])
+    with np.load(stepped) as d:
+        assert d["pos"].shape == (n, 2) and int(d["step"]) == 2
+        assert np.isfinite(d["pos"]).all() and np.isfinite(d["vel"]).all()
+    main([*args, "--steps", "0", "--save", port0])
+    jax_main([*args, "--steps", "0", "--save", jax0])
+    got, want = _scene_stats(port0), _scene_stats(jax0)
+    assert got["n"] == want["n"] == n
+    np.testing.assert_array_equal(got["mass"], want["mass"])
+    np.testing.assert_array_equal(got["radius"], want["radius"])
+    for key in ("r50", "v50"):
+        np.testing.assert_allclose(got[key], want[key], rtol=0.1, atol=1e-6)
 
 
 def test_the_cli_needs_a_card_unless_told_cpu(tmp_path):

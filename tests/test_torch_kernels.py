@@ -1376,3 +1376,74 @@ def test_sharded_p3m_rollout_on_the_card_matches_the_cpu(cuda):
     v_cpu, g_cpu = run(torch.device("cpu"), 1)
     assert float(v_card) == pytest.approx(float(v_cpu), rel=1e-5)
     assert rel_err(g_card.cpu(), g_cpu) < 1e-4
+
+
+# --- the device-side scenes, K1 with every row a source, the AVX oracle ---
+
+def _scene_makers():
+    from nbody_tpu_torch import models
+
+    return {"galaxies": (models.make_galaxies_device, (65536, 3)),
+            "plummer": (models.make_plummer_disk, (8192,)),
+            "kepler": (models.make_kepler_disk, (8192,)),
+            "cold": (models.make_cold_disk, (8192,))}
+
+
+@pytest.mark.parametrize("name", ["galaxies", "plummer", "kepler", "cold"])
+def test_scene_on_the_card_repeats_without_a_host_sync(cuda, name):
+    """Each generator draws on the card by default: twice from one seed,
+    bit-equal, with the sync debug mode raising on any host sync; every
+    field fp32 and finite on the card."""
+    make, args = _scene_makers()[name]
+    runs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            runs.append(make(11037, *args))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    a, b = runs
+    for field in ("pos", "vel", "acc", "mass", "radius"):
+        x = getattr(a, field)
+        assert x.device.type == "cuda" and x.dtype == torch.float32
+        assert torch.isfinite(x).all()
+        assert torch.equal(x, getattr(b, field)), field
+    gen = torch.Generator(device=cuda).manual_seed(11037)
+    assert torch.equal(make(gen, *args).pos, a.pos)
+
+
+def test_direct_kernel_on_an_all_massive_scene(cuda):
+    """K1 with every row a source (S = N, the Plummer disk): force_acc and
+    the fused substep against the plain version."""
+    from nbody_tpu_torch.models import make_plummer_disk
+
+    p = make_plummer_disk(3, 8192)
+    w = nt.create_world(p, device=cuda)
+    assert w.mass_len == 8192
+    st = w.state
+    for precise in (False, True):
+        want = df.force_acc_plain(st.pos, st.radius, st.pos, w.gm, precise=precise)
+        got = df.force_acc(st.pos, st.radius, st.pos, w.gm, precise=precise)
+        assert rel_err(got.cpu(), want.cpu()) < TOL
+        _, nvel, acc = df.fused_substep(0.01, st.pos, st.vel, st.radius, w.gm,
+                                        precise=precise)
+        assert rel_err(acc.cpu(), want.cpu()) < TOL
+        assert rel_err(nvel.cpu(), (st.vel + 0.01 * acc).cpu()) < EPILOGUE_TOL
+
+
+@pytest.mark.parametrize("scene", ["galaxies", "plummer"])
+def test_avx_oracle_judges_the_card_world(cuda, scene):
+    """One substep of 0.01 of the "cuda" World (precise: the oracle takes
+    IEEE sqrt) against the native AVX oracle on the same massive-first
+    state: acc, vel and pos within 5e-6 of max|ref|."""
+    from nbody_tpu_torch.models import make_plummer_disk
+    from nbody_tpu_torch.utils import cpp_oracle
+
+    p = (nt.make_galaxies(8192, 2, seed=11037) if scene == "galaxies"
+         else make_plummer_disk(3, 4096))
+    w = nt.create_world(p, config=nt.SimConfig(precise=True), device=cuda)
+    want = cpp_oracle.oracle_update(w.particles, w.mass_len, 0.01, 1)
+    w.update(0.01, 1)
+    got = w.particles
+    for field in ("acc", "vel", "pos"):
+        assert rel_err(getattr(got, field), getattr(want, field)) < 5e-6, field

@@ -52,7 +52,15 @@ def test_port_files_found():
                  "nbody_tpu_torch/utils/checks.py",
                  "nbody_tpu_torch/autodiff.py",
                  "nbody_tpu_torch/parallel/sharding.py",
-                 "nbody_tpu_torch/ablations/tune_crossover.py"):
+                 "nbody_tpu_torch/ablations/tune_crossover.py",
+                 "nbody_tpu_torch/models/draws.py",
+                 "nbody_tpu_torch/models/plummer.py",
+                 "nbody_tpu_torch/models/disks.py",
+                 "nbody_tpu_torch/models/galaxy_device.py",
+                 "nbody_tpu_torch/utils/_native.py",
+                 "nbody_tpu_torch/utils/cpp_oracle.py",
+                 "nbody_tpu_torch/utils/cpp_galaxy.py",
+                 "nbody_tpu_torch/utils/profiling.py"):
         assert want in names
     for source in ("direct_vjp.cu", "p3m_pp_vjp.cu"):
         assert (ROOT / "nbody_tpu_torch" / "csrc" / source).is_file()
