@@ -177,6 +177,26 @@ Phases, each of which raises on failure:
      the direct kernel as readings, a profiler window by stage); then
      python -m nbody_tpu_torch run --scene plummer|kepler|cold at
      N=65536 on "cuda". One more kernels-line row.
+20. multi-process on the card (nbody_tpu_torch.parallel.multihost): an
+     NCCL group of world size 1 (multihost.initialize; the machine has one
+     card, and NCCL refuses two ranks on one device) with D=4 local shards
+     on it, through multihost_world at N=65536 "cuda_ring" and at the N=1M
+     p3m slice (grid 2048, cap 768): 10 substeps each with the launches
+     counted from 0 (K3 D² = 16 a substep, K4 4 a substep and force_acc one
+     a shard that holds sources), bit-equal to the single-process
+     ShardedWorld on the same mesh, gather_particles equal to particles,
+     then update_adaptive with the same count and the same bits; K3 and K4
+     against their plain versions at the path's shapes; ms a substep,
+     device and host, in turns with the single-process world. Two more
+     kernels-line rows. The cross-process transport itself is held on the
+     CPU (2 Gloo processes, tests/test_torch_multihost.py).
+21. the viewer's ControlState (nbody_tpu_torch.viewer) on a card World at
+     N=65536 on "cuda": a fixed frame-time sequence, the fused substep
+     launches equal to the substeps the accumulator rule gives, the state
+     bit-equal to World.update with the same substeps, no host sync; a
+     paused sequence launches nothing; one TAB frame runs on "torch" (no
+     launch, bit-equal). Neither matplotlib nor pygame is imported (the
+     card machine has neither).
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -188,6 +208,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import socket
 import subprocess
 import sys
 import time
@@ -827,6 +848,47 @@ def phase_split(df, p3m_forces, slice_w, device) -> dict:
             "bound_by": bound_by, "t": t, "s": s}
 
 
+PROFILE_TRIES = 3
+
+
+def profile_window(fn, measure):
+    """fn() in a torch.profiler window, with CUDA events around it; the
+    window's events go to ``measure``, which returns None where they lack
+    the device time it reads. The profiler on an H100 has dropped a whole
+    window's device events, so a window that measure refuses is run again,
+    up to PROFILE_TRIES windows. Returns measure's result (None if every
+    window was refused), fn's result, and the last window's wall ms and
+    CUDA-event ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        got = measure(prof.events())
+        if got is not None:
+            return got, out, wall_ms, start.elapsed_time(end)
+        log(f"  profiler window {attempt} of {PROFILE_TRIES} held too little "
+            "device time")
+    return None, out, wall_ms, start.elapsed_time(end)
+
+
+def not_profiled(what: str, event_ms: float) -> float:
+    """Log that the profiler measured nothing of ``what`` in PROFILE_TRIES
+    windows and the CUDA-event time instead; NaN for the numbers it lacks."""
+    log(f"  NOT MEASURED: the profiler saw no device time for {what} in "
+        f"{PROFILE_TRIES} windows; CUDA events {event_ms:.4f} ms instead, "
+        "and the profiler's numbers below are nan")
+    return float("nan")
+
+
 def profile_stages(world, n: int = 3, dt: float = 1.0,
                    extra_force=None, stages=STAGES) -> dict:
     """Device and host ms per substep of each of ``stages``, the device
@@ -839,32 +901,36 @@ def profile_stages(world, n: int = 3, dt: float = 1.0,
     are on the device timeline but linked to no host-side op, so the host
     ranges' device totals would miss them.)"""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    def measure(events):
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        spans = [(e.name, e.time_range.start, e.time_range.end)
+                 for e in dev if e.name in stages]
+        work = [(e.time_range.start, e.time_range.end)
+                for e in dev if e.name not in stages]
+        busy_ms = sum(b - a for a, b in work) / 1e3
+        per_stage = {name: sum(b - a for a, b in work
+                               if any(nm == name and lo <= a and b <= hi
+                                      for nm, lo, hi in spans)) / n / 1e3
+                     for name in stages}
+        host = {name: sum(e.cpu_time_total for e in events
+                          if e.device_type == DeviceType.CPU and e.name == name)
+                / n / 1e3 for name in stages}
+        if busy_ms <= 0 or per_stage["p3m.pair_kernel"] <= 0:
+            return None
+        return per_stage, host, busy_ms
 
     world.block_until_ready()
     # a World takes the backend, a ShardedWorld runs its own
     kw = {} if hasattr(world, "n_devices") else {"backend": "p3m"}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        world.update(dt, n, extra_force=extra_force, **kw)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    spans = [(e.name, e.time_range.start, e.time_range.end)
-             for e in dev if e.name in stages]
-    work = [(e.time_range.start, e.time_range.end)
-            for e in dev if e.name not in stages]
-    busy_ms = sum(b - a for a, b in work) / 1e3
-    per_stage = {name: sum(b - a for a, b in work
-                           if any(nm == name and lo <= a and b <= hi
-                                  for nm, lo, hi in spans)) / n / 1e3
-                 for name in stages}
-    host = {name: sum(e.cpu_time_total for e in events
-                      if e.device_type == DeviceType.CPU and e.name == name)
-            / n / 1e3 for name in stages}
-    if busy_ms <= 0 or per_stage["p3m.pair_kernel"] <= 0:
-        raise SystemExit("chip_smoke: the profiler saw no device time per stage")
+    got, _, wall_ms, event_ms = profile_window(
+        lambda: world.update(dt, n, extra_force=extra_force, **kw), measure)
+    if got is None:
+        nan = not_profiled("the p3m stages", event_ms / n)
+        return {"stages": dict.fromkeys(stages, nan),
+                "host": dict.fromkeys(stages, nan), "busy_ms": nan,
+                "wall_ms": wall_ms / n, "idle": nan}
+    per_stage, host, busy_ms = got
     return {"stages": per_stage, "host": host, "busy_ms": busy_ms / n,
             "wall_ms": wall_ms / n, "idle": 1.0 - busy_ms / wall_ms}
 
@@ -1274,6 +1340,18 @@ def visiting(world) -> tuple:
     return src, world.ring.gm_src[k][:n]
 
 
+def last_hop(rf, world):
+    """A call of K3 at the world's last hop: shard 0's targets against the
+    sources of :func:`visiting`, with the epilogue."""
+    src, gm = visiting(world)
+    pos, vel, radius, valid = (x[0] for x in (world.pos, world.vel,
+                                              world.radius, world.valid))
+    return lambda: rf.ring_hop(pos, radius, src, gm, torch.empty_like(pos),
+                               vel=vel, valid=valid,
+                               t_real=world.ring.t_real[0], accumulate=False,
+                               dt=1.0, pos_dt=1.0)
+
+
 def hop_error(rf, world, rows=None) -> float:
     """max|kernel - plain| of the last hop at the world's shapes: shard 0's
     targets against the sources of :func:`visiting`, with the epilogue;
@@ -1283,9 +1361,7 @@ def hop_error(rf, world, rows=None) -> float:
     pos, vel, radius, valid = (x[0] for x in (world.pos, world.vel,
                                               world.radius, world.valid))
     kw = dict(accumulate=False, dt=1.0, pos_dt=1.0)
-    acc = rf.ring_hop(pos, radius, src, gm, torch.empty_like(pos),
-                      vel=vel, valid=valid, t_real=world.ring.t_real[0],
-                      **kw)[2]
+    acc = last_hop(rf, world)()[2]
     log_plans("hop kernel vs plain", rf.PLANS)
     label = "" if rows is None else f" ({len(rows)} targets)"
     rows = torch.arange(pos.shape[0], device=pos.device) if rows is None else rows
@@ -1309,30 +1385,40 @@ def union_ms(spans) -> float:
     return (busy + hi - lo) / 1e3
 
 
-def profile_overlap(world, n: int, kernel: str) -> dict:
+def profile_overlap(world, n: int, kernel: str, launch_ms=None,
+                    launches: int = 0) -> dict:
     """Device time of a torch.profiler window over n substeps of a sharded
     world, per substep: the kernels' and copies' summed time, the time the
     card had at least one of them running (the union of their intervals;
     the shards' streams overlap), the idle share of the wall time; and the
-    summed and the union time of the kernels whose name holds ``kernel``."""
+    summed and the union time of the kernels whose name holds ``kernel``.
+    Where no window sees ``kernel``, ``launch_ms()`` (one launch timed with
+    CUDA events) times ``launches`` a substep, summed, in its place."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    def measure(events):
+        events = [e for e in events if e.device_type == DeviceType.CUDA]
+        mine = [(e.time_range.start, e.time_range.end) for e in events
+                if kernel in e.name]
+        if not mine:
+            return None
+        return [(e.time_range.start, e.time_range.end) for e in events], mine
 
     world.block_until_ready()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        world.update(1.0, n)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        raise SystemExit("chip_smoke: the profiler saw no device time")
-    spans = [(e.time_range.start, e.time_range.end) for e in events]
-    mine = [(e.time_range.start, e.time_range.end) for e in events
-            if kernel in e.name]
-    if not mine:
-        raise SystemExit(f"chip_smoke: the profiler saw no {kernel} among "
-                         f"{sorted({e.name for e in events})}")
+    got, _, wall_ms, event_ms = profile_window(lambda: world.update(1.0, n),
+                                               measure)
+    if got is None:
+        nan = not_profiled(kernel, event_ms / n)
+        if launch_ms is None:
+            raise SystemExit(f"chip_smoke: no time for {kernel}")
+        one = launch_ms()
+        log(f"  {kernel}: {one:.4f} ms a launch (CUDA events, alone), "
+            f"{launches} a substep, summed")
+        return {"sum_ms": nan, "busy_ms": nan, "wall_ms": wall_ms / n,
+                "idle": nan, "kernel_launches": launches,
+                "kernel_sum_ms": one * launches,
+                "kernel_busy_ms": one * launches}
+    spans, mine = got
     busy = union_ms(spans)
     return {"sum_ms": sum(b - a for a, b in spans) / 1e3 / n,
             "busy_ms": busy / n, "wall_ms": wall_ms / n,
@@ -1381,7 +1467,9 @@ def phase_sharded(sh, rf, df, scene_bench, scene_big, device) -> dict:
         finite_state(w, f"cuda_ring N={n} D={d}")
         if d > 1:
             k = PROFILE_SUBSTEPS[n]
-            prof = profile_overlap(w, k, "ring_hop_kernel")
+            prof = profile_overlap(
+                w, k, "ring_hop_kernel", launches=d * d,
+                launch_ms=lambda: cuda_ms(last_hop(rf, w), reps=10))
             log(f"  N={n} D={d} cuda_ring profiler over {k} substeps, per "
                 f"substep: kernels and copies {prof['sum_ms']:.4f} ms summed, "
                 f"card busy {prof['busy_ms']:.4f} ms of {prof['wall_ms']:.4f} ms "
@@ -1691,19 +1779,15 @@ def profile_call(fn) -> dict:
     device busy time (the union of its kernels', copies' and fills'
     intervals), the wall time and the idle share, in ms."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    if not spans:
-        raise SystemExit("chip_smoke: the profiler saw no device time")
-    busy = union_ms(spans)
+    def measure(events):
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == DeviceType.CUDA]
+        return union_ms(spans) if spans else None
+
+    busy, out, wall_ms, event_ms = profile_window(fn, measure)
+    if busy is None:
+        busy = not_profiled("the call", event_ms)
     return {"out": out, "busy_ms": busy, "wall_ms": wall_ms,
             "idle": 1.0 - busy / wall_ms}
 
@@ -2072,26 +2156,27 @@ def profile_merging(world) -> dict:
     included); the card's busy time (the union of the kernels' and
     copies' intervals) and its idle share."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        world.update(MERGE_DT, MERGE_SUBSTEPS)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    work, ranges = [], []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        span = (e.time_range.start, e.time_range.end)
-        if getattr(e, "is_user_annotation", False) or e.name == "merge_pass":
-            ranges.append(span)
-        else:
-            work.append((*span, e.name))
-    if not work:
-        raise SystemExit("chip_smoke: the profiler saw no device time")
+    def measure(events):
+        work, ranges = [], []
+        for e in events:
+            if e.device_type != DeviceType.CUDA:
+                continue
+            span = (e.time_range.start, e.time_range.end)
+            if getattr(e, "is_user_annotation", False) or e.name == "merge_pass":
+                ranges.append(span)
+            else:
+                work.append((*span, e.name))
+        return (work, ranges) if work else None
+
+    got, _, wall, event_ms = profile_window(
+        lambda: world.update(MERGE_DT, MERGE_SUBSTEPS), measure)
+    if got is None:
+        nan = not_profiled("the merging substeps", event_ms / MERGE_SUBSTEPS)
+        return {"contacts": nan, "direct": nan, "other": nan,
+                "merge_range_ms": nan, "busy_ms": nan,
+                "wall_ms": wall / MERGE_SUBSTEPS, "idle": nan}
+    work, ranges = got
     by = {"contacts": 0.0, "direct": 0.0, "other": 0.0}
     for a, b, name in work:
         key = ("contacts" if any(k in name for k in CONTACT_KERNELS)
@@ -3666,6 +3751,218 @@ def phase_scenes(nt, df, pp, p3m_forces, scene_bench, host_gen_s: float,
             "p3m": p3m, "cli": cli}
 
 
+MH_SHARDS = 4
+MH_DT = 0.01
+MH_SUBSTEPS = 10
+MH_SPAN = 0.02                  # the adaptive span after the fixed substeps
+MH_TIMED = 10
+MH_PLAIN_SUBSTEPS = 2
+FIELDS = ("pos", "vel", "acc", "mass", "radius")
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def same_bits(label: str, got, want) -> None:
+    for f in FIELDS:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            d = (getattr(got, f) - getattr(want, f)).abs().max()
+            raise SystemExit(f"chip_smoke: {label}: {f} not bit-equal "
+                             f"(max |d| {float(d):.3e})")
+
+
+def phase_multihost(nt, sh, df, rf, pp, p3m_forces, multihost, scene_bench,
+                    scene_big, device) -> dict:
+    """[20]: multihost_world over an NCCL group of one with D=4 shards on
+    the card, against the single-process ShardedWorld."""
+    import torch.distributed as dist
+
+    log(f"[20] multi-process on the card: an NCCL group of world size 1, "
+        f"D={MH_SHARDS} local shards on {device}, through multihost_world")
+    t_phase = time.perf_counter()
+    multihost.initialize(f"localhost:{free_port()}", 1, 0,
+                         local_device_ids=[device.index or 0])
+    out = {}
+    try:
+        backend = str(dist.get_backend())
+        if backend != "nccl":
+            raise SystemExit(f"chip_smoke: [20] the group runs {backend!r}, "
+                             "not nccl")
+        mesh = [device] * MH_SHARDS
+        cases = (("ring", scene_bench, {}, "cuda_ring"),
+                 ("p3m", scene_big, P3M_SIZED, "p3m"))
+        for key, scene, cfg, backend in cases:
+            label = f"[20] {backend} N={scene.pos.shape[0]}"
+            config = nt.SimConfig(**cfg)
+            mw = multihost.multihost_world(scene, mesh, config=config,
+                                           force_backend=backend)
+            sw = sh.ShardedWorld(scene, sh.make_mesh(devices=mesh),
+                                 config=config, force_backend=backend)
+            if mw.group.pg is None or mw.group.size != 1 \
+                    or mw.n_devices != MH_SHARDS:
+                raise SystemExit(f"chip_smoke: {label}: not a world over the "
+                                 "group")
+            # the main path's run, the counts from 0 just before it
+            rf.LAUNCHES = pp.LAUNCHES = df.LAUNCHES = 0
+            mw.update(MH_DT, MH_SUBSTEPS)
+            mw.block_until_ready()
+            got = {"K3": rf.LAUNCHES, "K4": pp.LAUNCHES,
+                   "force_acc": df.LAUNCHES}
+            if key == "ring":
+                want = {"K3": MH_SHARDS ** 2 * MH_SUBSTEPS, "K4": 0,
+                        "force_acc": 0}
+            else:
+                with_src = sum(r > 0 for r in mw._src_rows)
+                want = {"K3": 0, "K4": MH_SHARDS * MH_SUBSTEPS,
+                        "force_acc": with_src * MH_SUBSTEPS}
+            expect_launches(label, got, want)
+            sw.update(MH_DT, MH_SUBSTEPS)
+            gathered = multihost.gather_particles(mw)
+            same_bits(f"{label}: multihost_world against ShardedWorld",
+                      gathered, sw.particles)
+            same_bits(f"{label}: gather_particles against particles",
+                      gathered, mw.particles)
+            k_m = mw.update_adaptive(MH_SPAN, dt_max=MH_DT)
+            k_s = sw.update_adaptive(MH_SPAN, dt_max=MH_DT)
+            if k_m != k_s:
+                raise SystemExit(f"chip_smoke: {label}: adaptive count {k_m} "
+                                 f"over the group, {k_s} in one process")
+            same_bits(f"{label}: after update_adaptive",
+                      multihost.gather_particles(mw), sw.particles)
+            finite_state(mw, label)
+            log(f"  {label}: {MH_SUBSTEPS} substeps bit-equal to the "
+                f"single-process world, launches {got}; update_adaptive "
+                f"{k_m} substeps in both, bit-equal")
+            res = {"launches": got, "k_adaptive": k_m, "mass_len": mw.mass_len,
+                   "n_pad": mw.n_pad, "n": mw.total_len}
+            if key == "ring":
+                res["max_abs_err"] = hop_error(rf, mw)
+                prof = profile_overlap(
+                    mw, PROFILE_SUBSTEPS[BENCH_N], "ring_hop_kernel",
+                    launches=MH_SHARDS ** 2,
+                    launch_ms=lambda: cuda_ms(last_hop(rf, mw), reps=10))
+                res["profile"] = prof
+                # the window may hold fewer launches than ran (one has
+                # kept 13 of the 16 a substep): the mean launch it saw,
+                # times the D² launches a substep
+                launch_ms = prof["kernel_sum_ms"] / prof["kernel_launches"]
+                res["k3_ms"] = launch_ms * MH_SHARDS ** 2
+                log(f"  {label} profiler: card busy {prof['busy_ms']:.4f} ms "
+                    f"of {prof['wall_ms']:.4f} ms wall a substep (idle "
+                    f"{prof['idle']:.2%}); ring_hop_kernel "
+                    f"{prof['kernel_launches']:g} launches a substep in the "
+                    f"window, {launch_ms:.4f} ms each: "
+                    f"{res['k3_ms']:.4f} ms for the {MH_SHARDS ** 2} a "
+                    "substep")
+                plain = multihost.multihost_world(scene, mesh, config=config,
+                                                  force_backend="torch")
+                plain.update(1.0, 1)
+                plain.block_until_ready()
+                res["plain_ms"] = cuda_ms(lambda: plain.update(
+                    1.0, MH_PLAIN_SUBSTEPS)) / MH_PLAIN_SUBSTEPS
+                del plain
+            else:
+                res["k4"] = shard_k4(pp, p3m_forces, mw, label, plain_all=False)
+            turns = {"multihost": [], "single": []}
+            for name in ("multihost", "single", "single", "multihost"):
+                w = mw if name == "multihost" else sw
+                w.update(1.0, 1)
+                dev_ms, host_ms, _ = timed(lambda: w.update(1.0, MH_TIMED))
+                turns[name].append((dev_ms / MH_TIMED, host_ms / MH_TIMED))
+            res["turns"] = turns
+            log(f"  {label} ms/substep in turns (device, host to finish): "
+                + "; ".join(f"{name} " + ", ".join(
+                    f"{d:.4f} / {h:.4f}" for d, h in got_)
+                    for name, got_ in turns.items()))
+            out[key] = res
+            del mw, sw
+    finally:
+        dist.destroy_process_group()
+    log(f"  [20] took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+VIEW_FRAMES = (0.0, 0.004, 0.011, 0.0167, 0.05, 0.02, 10.0, 0.01, 0.0333)
+VIEW_SPEED_STEPS = 2            # cmd_speed(+2): speed x4
+
+
+def accumulator_counts(frame_times, speed: int, phys_step: float,
+                       overwork: int) -> list:
+    """The substeps of each frame under the reference's accumulator rule
+    (main.c:140-163), written out here: bank speed·frame_time (one tick
+    for a frame time of 0), cap the bank at overwork·speed ticks, run its
+    whole ticks."""
+    bank, out = 0.0, []
+    for ft in frame_times:
+        bank += speed * (phys_step if ft == 0.0 else ft)
+        bank = min(bank, speed * phys_step * overwork)
+        n = int(bank // phys_step)
+        bank -= n * phys_step
+        out.append(n)
+    return out
+
+
+def phase_viewer(nt, df, viewer, scene_bench, device) -> dict:
+    """[21]: the viewer's ControlState driving a card World."""
+    log(f"[21] the viewer's ControlState on a card World, N={BENCH_N}, "
+        f"'cuda'; matplotlib imported: {'matplotlib' in sys.modules}, pygame "
+        f"imported: {'pygame' in sys.modules} (neither is needed, and the "
+        "card machine has neither)")
+    if "matplotlib" in sys.modules or "pygame" in sys.modules:
+        raise SystemExit("chip_smoke: [21] a GUI library was imported")
+    w = nt.create_world(scene_bench, device=device)
+    ref = nt.create_world(scene_bench, device=device)
+    c = viewer.ControlState(w)
+    c.cmd_speed(+VIEW_SPEED_STEPS)
+    speed = viewer.SPEEDS[c.speed_idx]
+    step = c.phys_step * viewer.STEPS[c.step_idx]
+    counts = accumulator_counts(VIEW_FRAMES, speed, c.phys_step,
+                                viewer.MAX_OVERWORK)
+    df.LAUNCHES = 0
+    with no_sync():
+        for ft in VIEW_FRAMES:
+            c.advance(ft)
+    w.block_until_ready()
+    launches = df.LAUNCHES
+    expect_launches("[21] ControlState.advance", launches, sum(counts))
+    for n in counts:
+        ref.update(step, n)
+    same_bits("[21] ControlState against World.update", w.state, ref.state)
+    log(f"  frames {list(VIEW_FRAMES)} at speed x{speed}: substeps {counts}, "
+        f"{launches} fused launches, bit-equal to World.update; skipped "
+        f"frames {c.skipped_frames}")
+    c.cmd_pause()
+    df.LAUNCHES = 0
+    for ft in VIEW_FRAMES:
+        c.advance(ft)
+    expect_launches("[21] paused", df.LAUNCHES, 0)
+    same_bits("[21] paused", w.state, ref.state)
+    c.cmd_pause()
+    c.cmd_toggle_backend()  # resets the bank, as a pause does
+    n_tab, = accumulator_counts((0.0,), speed, c.phys_step,
+                                viewer.MAX_OVERWORK)
+    df.LAUNCHES = 0
+    with no_sync():
+        c.advance(0.0)
+    expect_launches("[21] TAB frame on 'torch'", df.LAUNCHES, 0)
+    ref.update(step, n_tab, backend="torch")
+    same_bits("[21] TAB frame against World.update on 'torch'", w.state,
+              ref.state)
+    c.cmd_toggle_backend()
+    line = c.overlay_text(100.0).splitlines()[0]
+    want = f"cuda ({torch.cuda.get_device_name(device)}) simulation"
+    if line != want:
+        raise SystemExit(f"chip_smoke: [21] overlay {line!r}, expected {want!r}")
+    log(f"  paused: 0 launches; TAB frame: {n_tab} substeps on 'torch', 0 "
+        f"launches, bit-equal; overlay {line!r}")
+    return {"substeps": sum(counts), "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3683,6 +3980,8 @@ def main() -> int:
     from nbody_tpu_torch.ops import pm_forces
     from nbody_tpu_torch.ops import ring_forces as rf
     from nbody_tpu_torch.ops import sass
+    from nbody_tpu_torch import viewer
+    from nbody_tpu_torch.parallel import multihost
     from nbody_tpu_torch.parallel import sharding as sh
     from nbody_tpu_torch.utils.ref_dump import load_hex_dump
 
@@ -3807,11 +4106,14 @@ def main() -> int:
     del slice_w
     mesh = phase_mesh(nt, sh, df, pp, p3m_forces, world_mod, scene_bench,
                       scene_big, device)
-    del scene_big
     log("[19] the device-side scenes, K1 with every row a source, the AVX "
         "oracle")
     scn = phase_scenes(nt, df, pp, p3m_forces, scene_bench, host_gen_s, smi,
                        device)
+    mh = phase_multihost(nt, sh, df, rf, pp, p3m_forces, multihost,
+                         scene_bench, scene_big, device)
+    del scene_big
+    view = phase_viewer(nt, df, viewer, scene_bench, device)
 
     mk = merge["kernel"]
     log(f"card: {smi}")
@@ -3881,6 +4183,15 @@ def main() -> int:
         f"against the card at N={BENCH_N}: acc {so['acc']:.3e}, vel "
         f"{so['vel']:.3e}, pos {so['pos']:.3e}; device galaxies p3m "
         f"{sp['ms']:.4f} ms/substep")
+    mt = {key: {name: float(np.mean([d for d, _ in got]))
+                for name, got in r["turns"].items()}
+          for key, r in mh.items()}
+    log(f"multi-process on the card (NCCL group of 1, D={MH_SHARDS} on one "
+        f"card), device ms/substep, multihost_world / single-process: "
+        f"N={BENCH_N} cuda_ring {mt['ring']['multihost']:.4f} / "
+        f"{mt['ring']['single']:.4f}; N={BIG_N} p3m slice "
+        f"{mt['p3m']['multihost']:.4f} / {mt['p3m']['single']:.4f}; "
+        f"viewer: {view['substeps']} substeps through ControlState")
     log("ablation path, best ms of each sweep: " + ", ".join(
         f"{key} {ablation[key]['best']['ms']:.4f} ({ablation[key]['best']['name']})"
         for key in ABLATION_KERNELS) + f" (K1 force_acc {ablation['k1_ms']:.4f})")
@@ -3956,6 +4267,37 @@ def main() -> int:
                 "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
                 "bound_by": k4["bound_by"], "library_ms": None}
 
+    def mh_ring_row():
+        r = mh["ring"]
+        b_ms, b_by = bound(FLOPS_DIRECT * r["n"] * r["mass_len"],
+                           48 * r["n_pad"] + 4 * r["mass_len"],
+                           MUFU_DIRECT * r["n"] * r["mass_len"])
+        return {"name": f"ring_forces hop through multihost_world, NCCL group "
+                        f"of 1, N={r['n']} D={MH_SHARDS} S={r['mass_len']} on "
+                        f"one card, sources all-gathered",
+                "route": "cuda", "source": RING_SRC,
+                "replaces": "nbody_tpu/ops/ring_forces.py:58",
+                "launches": r["launches"]["K3"],
+                "max_abs_err": r["max_abs_err"],
+                "ms": r["k3_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}
+
+    def mh_pp_row():
+        r = mh["p3m"]
+        k4 = r["k4"]
+        return {"name": f"p3m_pp pair correction through multihost_world, "
+                        f"NCCL group of 1, shard {k4['shard']} of "
+                        f"D={MH_SHARDS} on one card, gc="
+                        f"{P3M_SIZED['pm_grid'] // 4} "
+                        f"cap={P3M_SIZED['p3m_cell_capacity']}, N={r['n']}",
+                "route": "cuda", "source": PP_SRC,
+                "replaces": "nbody_tpu/ops/p3m_pallas.py:38",
+                "launches": r["launches"]["K4"],
+                "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+                "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+                "bound_by": k4["bound_by"], "library_ms": None}
+
     log(json.dumps({"kernels": [
         fused_row(BENCH_N, world.mass_len, "nbody_tpu/ops/pallas_forces.py:220",
                   launches_bench, err_bench, kernel_ms, plain_ms),
@@ -4015,6 +4357,8 @@ def main() -> int:
          "ms": sk["ms"], "plain_ms": sk["plain_ms"],
          "bound_ms": sk["bound_ms"], "bound_by": sk["bound_by"],
          "library_ms": None},
+        mh_ring_row(),
+        mh_pp_row(),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

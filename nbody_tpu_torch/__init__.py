@@ -10,12 +10,14 @@ solvers, user force hooks, adaptive dt, collision merging
 (``SimConfig.merge_collisions``), and readback; in
 ``nbody_tpu_torch.diagnostics``, energy, momentum and the dt criterion; in
 ``nbody_tpu_torch.parallel``, the world sharded over a list of devices with
-the ring of source tiles or the collective mesh solvers; trajectory
-capture (``trajectory``), headless rendering (``render``,
-``viewer.export_animation``), npz checkpoints, debug checks, profiling
-helpers and the native C++ oracles (``utils``), differentiable rollouts
-(``autodiff``), and the command line, ``python -m nbody_tpu_torch
-run|render|gif``. Imports neither JAX nor ``nbody_tpu``.
+the ring of source tiles or the collective mesh solvers, in one process or
+over the processes of a ``torch.distributed`` group (``multihost``);
+trajectory capture (``trajectory``), rendering (``render``,
+``viewer.export_animation``), the interactive viewers (``viewer``,
+``viewer_sdl``), npz checkpoints, debug checks, profiling helpers and the
+native C++ oracles (``utils``), differentiable rollouts (``autodiff``),
+and the command line, ``python -m nbody_tpu_torch run|render|gif|view``.
+Imports neither JAX nor ``nbody_tpu``.
 """
 
 from .types import (

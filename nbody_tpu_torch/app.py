@@ -1,4 +1,5 @@
-"""Command-line application: run, render and gif, on the card by default.
+"""Command-line application: run, render, gif and view, on the card by
+default.
 
 Counterpart of ``nbody_tpu/app.py`` with its flags, defaults, checks and
 messages, under the port's names:
@@ -6,6 +7,7 @@ messages, under the port's names:
   python -m nbody_tpu_torch run    --n 6000 --galaxies 3 --steps 1000 [--traj out.npz]
   python -m nbody_tpu_torch render --state state.npz --out frame.ppm
   python -m nbody_tpu_torch gif    --n 6000 --frames 120 --out anim.npz
+  python -m nbody_tpu_torch view   --n 6000 [--sdl]
 
 ``--backend`` takes the port's backends: "torch" (nbody_tpu's "jnp"),
 "cuda" (its "pallas"), "pm", "p3m" and "auto". ``--platform`` is the
@@ -15,9 +17,11 @@ over every visible card (a 1-device mesh on the CPU). ``--scene plummer``,
 ``kepler`` and ``cold`` draw their disk on that device with a
 ``torch.Generator`` seeded from ``--seed`` (a card's stream is not the
 CPU's, so the two give different scenes of the same distribution); the
-default ``--scene galaxies`` is the numpy generator on the host. Not
-registered: the interactive ``view``, ``--compile-cache`` and the
-remote-device probe.
+default ``--scene galaxies`` is the numpy generator on the host. ``view``
+opens the matplotlib viewer, or with ``--sdl`` the pygame game loop; where
+that viewer cannot run (no pygame, no interactive matplotlib backend) it
+exits with an error and does not switch to the other. Not registered:
+``--compile-cache`` and the remote-device probe.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from . import create_world, make_galaxies
 from .render import fit_camera, render_frame, save_ppm
 from .types import SimConfig
 from .utils.checkpoint import load_particles, save_world_atomic, saved_config
-from .viewer import PHYS_STEP, export_animation
+from .viewer import PHYS_STEP, Viewer, export_animation
 
 PROG = "nbody_tpu_torch"
 
@@ -303,6 +307,26 @@ def cmd_gif(args) -> None:
     print(f"wrote {args.frames} frames -> {args.out}", file=sys.stderr)
 
 
+def cmd_view(args) -> None:
+    try:  # the viewer's own library: there is no switch to the other one
+        __import__("pygame" if args.sdl else "matplotlib")
+    except ImportError as e:
+        sys.exit(f"{PROG}: error: view{' --sdl' if args.sdl else ''} needs "
+                 f"{'pygame' if args.sdl else 'matplotlib'} ({e})")
+    w, _ = _make_world(args)
+    _resolve_dt(args, w)
+    if args.sdl:
+        from .viewer_sdl import SdlViewer
+
+        SdlViewer(w, phys_step=args.dt,
+                  video_driver=args.video_driver).run(max_frames=args.max_frames)
+        return
+    try:
+        Viewer(w, phys_step=args.dt).run()
+    except RuntimeError as e:  # no interactive matplotlib backend
+        sys.exit(f"{PROG}: error: {e}")
+
+
 def _device(platform: str | None) -> torch.device:
     """The device ``--platform`` names: "cuda" unless given. Without a
     card, "cuda" exits with an error: there is no fallback to the CPU."""
@@ -369,6 +393,18 @@ def main(argv=None) -> None:
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--height", type=int, default=360)
     p.set_defaults(fn=cmd_gif)
+
+    p = sub.add_parser("view", help="interactive viewer (needs a display, "
+                                    "or --sdl --video-driver dummy)")
+    _add_scene_args(p)
+    p.add_argument("--sdl", action="store_true",
+                   help="windowed pygame/SDL game loop instead of matplotlib")
+    p.add_argument("--video-driver", default=None,
+                   help="force an SDL video driver (e.g. 'dummy' for no "
+                        "display)")
+    p.add_argument("--max-frames", type=int, default=None,
+                   help="stop the SDL loop after N frames")
+    p.set_defaults(fn=cmd_view)
 
     args = ap.parse_args(argv)
     args.device = _device(args.platform)

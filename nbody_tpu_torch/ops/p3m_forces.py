@@ -29,8 +29,11 @@ rows so a caller can reuse them for several substeps
 (``p3m_rebin_interval``); positions are always read fresh through them.
 
 The collective form (:func:`p3m_acc_collective`, the counterpart of
-``nbody_tpu``'s under ``shard_map``) takes one tensor a shard, as one
-process drives every shard of a sharded world. Each shard is a target
+``nbody_tpu``'s under ``shard_map``) takes one tensor a shard of this
+process: every shard of a single-controller world, or this rank's shards
+of a world over a process group (``group``, ``ops/collective.py``, whose
+gathers put every shard's piece on each rank in shard order, so every rank
+forms the same bits as the single controller). Each shard is a target
 shard and holds its own sources; the results are ``nbody_tpu``'s:
 
 * the box is agreed over the shards, each shard's source grid is summed
@@ -77,6 +80,7 @@ from torch.profiler import record_function
 from .. import forces
 from ..types import DTYPE, SOFTENING_FLOOR
 from . import direct_forces, p3m_pp
+from .collective import group_of
 from .pm_forces import (_bounds, _box, _cic_gather, _cic_scatter, _solve,
                         mesh_grid_collective, on_devices, per_shard_scalar,
                         shard_box, shard_sum)
@@ -314,7 +318,7 @@ def p3m_cell_overflow(src_pos, src_gm, *, grid: int = 512, rc_cells: int = 4,
     return torch.clamp(counts - cell_capacity, min=0).sum()
 
 
-# --- the collective form: one tensor a shard, single controller ---
+# --- the collective form: one tensor a shard of this process ---
 
 def _top_rows(key: torch.Tensor, k: int) -> torch.Tensor:
     """The indices of the ``k`` largest keys, ties in index order (as
@@ -323,35 +327,41 @@ def _top_rows(key: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def p3m_exact_core_bins_collective(tgt_radius: list, *, exact_targets: int,
-                                   tgt_mask: list | None = None) -> dict:
+                                   tgt_mask: list | None = None,
+                                   group=None) -> dict:
     """The exact-core selection over the shards (radius is constant in a
     run, so a caller makes it once and passes it on as ``big_bins``):
     each shard's top min(``exact_targets``, rows) rows by masked radius
     (``big_i_loc``, on its device), the global top ``exact_targets`` of
-    those candidates, ties in shard order (``big_sel``, indices into the
-    candidates in shard order), their radii (``big_radius``) on the first
-    shard's device, and for each shard the row it writes for each selected
-    row (``big_row``: the local row where it owns it, else the row count,
-    one past its rows)."""
+    every shard's candidates, ties in shard order (``big_sel``, indices
+    into the candidates in shard order), their radii (``big_radius``) on
+    the first local shard's device, and for each local shard the row it
+    writes for each selected row (``big_row``: the local row where it owns
+    it, else the row count, one past its rows)."""
+    group = group_of(group)
     devices = [r.device for r in tgt_radius]
     dev0 = devices[0]
     n_loc = tgt_radius[0].shape[0]
     k_loc = min(exact_targets, n_loc)
+    first = group.first(len(devices))
     masks = tgt_mask if tgt_mask is not None else [None] * len(tgt_radius)
     i_loc = [_top_rows(_masked_radius(r, m), k_loc)
              for r, m in zip(tgt_radius, masks)]
-    cand_key = torch.cat([_masked_radius(r, m)[i].to(dev0)
-                          for r, m, i in zip(tgt_radius, masks, i_loc)])
-    cand_r = torch.cat([r[i].to(dev0) for r, i in zip(tgt_radius, i_loc)])
-    cand_i = torch.cat([i.to(dev0) for i in i_loc])
-    sel = _top_rows(cand_key, min(exact_targets, len(devices) * k_loc))
+    cand_key = torch.cat(group.gather(
+        [_masked_radius(r, m)[i] for r, m, i in zip(tgt_radius, masks, i_loc)],
+        dev0))
+    cand_r = torch.cat(group.gather(
+        [r[i] for r, i in zip(tgt_radius, i_loc)], dev0))
+    cand_i = torch.cat(group.gather(i_loc, dev0))
+    sel = _top_rows(cand_key, min(exact_targets,
+                                  group.n_shards(len(devices)) * k_loc))
     owner = sel // max(k_loc, 1)
     rows = cand_i[sel]
     return {
         "big_i_loc": i_loc,
         "big_sel": sel,
         "big_radius": cand_r[sel],
-        "big_row": [torch.where(owner == k, rows, n_loc).to(dev)
+        "big_row": [torch.where(owner == first + k, rows, n_loc).to(dev)
                     for k, dev in enumerate(devices)],
     }
 
@@ -360,26 +370,29 @@ def p3m_bins_collective(tgt_pos: list, tgt_radius: list, src_pos: list,
                         src_gm: list, *, grid: int, rc_cells: int,
                         cell_capacity: int, exact_targets: int,
                         tgt_mask: list | None = None,
-                        big_bins: dict | None = None) -> dict:
+                        big_bins: dict | None = None, group=None) -> dict:
     """The collective counterpart of :func:`p3m_bins`, frozen for reuse
     across substeps: the box agreed over the shards (``lo``, ``h``: one a
-    shard); the global source order (``order_s``, ``start_s``,
-    ``counts_s``: over the shards' sources concatenated in shard order,
-    one copy a distinct device); each shard's target order, runs and
-    counts (``order_t``, ``start_t``, ``counts_t``), the count of each
-    cell's targets on the shards before it (``goff``) and the counts cut
-    by the global-rank rule (``cut_t``); and the exact-core selection
+    local shard); the global source order (``order_s``, ``start_s``,
+    ``counts_s``: over every shard's sources concatenated in shard order,
+    one copy a distinct local device); each local shard's target order,
+    runs and counts (``order_t``, ``start_t``, ``counts_t``), the count of
+    each cell's targets on the shards before it (``goff``) and the counts
+    cut by the global-rank rule (``cut_t``); and the exact-core selection
     (:func:`p3m_exact_core_bins_collective`, or ``big_bins``). Positions
     are read detached: the bins carry no gradient."""
+    group = group_of(group)
     devices = [p.device for p in tgt_pos]
     dev0 = devices[0]
     cap = cell_capacity
     gc = max(grid // rc_cells, 1)
     tgt_pos = [p.detach() for p in tgt_pos]
-    lo, h = shard_box(tgt_pos, src_pos, src_gm, tgt_mask, grid)
+    lo, h = shard_box(tgt_pos, src_pos, src_gm, tgt_mask, grid, group)
     inv_c = [1.0 / ((grid * h_k) / gc) for h_k in h]
-    src_all = torch.cat([p.detach().to(dev0) for p in src_pos])
-    gm_all = torch.cat([g.detach().to(dev0) for g in src_gm])
+    rows = group.source_rows(src_pos)
+    src_all = torch.cat(group.gather([p.detach() for p in src_pos], dev0,
+                                     rows))
+    gm_all = torch.cat(group.gather([g.detach() for g in src_gm], dev0, rows))
     order_s, _, _, counts_s = _cell_pack(src_all, lo[0], inv_c[0], gc,
                                          priority=gm_all)
     bins = {"lo": lo, "h": h,
@@ -388,9 +401,14 @@ def p3m_bins_collective(tgt_pos: list, tgt_radius: list, src_pos: list,
             "counts_s": on_devices(counts_s, devices),
             "order_t": [], "start_t": [], "counts_t": [], "goff": [],
             "cut_t": []}
+    packs = [_cell_pack(p, lo_k, ic, gc)
+             for p, lo_k, ic in zip(tgt_pos, lo, inv_c)]
     goff = torch.zeros(gc * gc, dtype=torch.int32, device=dev0)
-    for p, lo_k, ic, dev in zip(tgt_pos, lo, inv_c, devices):
-        order_t, _, _, counts_t = _cell_pack(p, lo_k, ic, gc)
+    if group.size > 1:  # the cells' targets on the earlier ranks' shards
+        counts = group.gather([c for *_, c in packs], dev0)
+        for c in counts[:group.first(len(devices))]:
+            goff = goff + c
+    for (order_t, _, _, counts_t), dev in zip(packs, devices):
         goff = goff.to(dev)
         bins["order_t"].append(order_t)
         bins["start_t"].append(_run_starts(counts_t))
@@ -403,7 +421,7 @@ def p3m_bins_collective(tgt_pos: list, tgt_radius: list, src_pos: list,
         bins.update(big_bins if big_bins is not None else
                     p3m_exact_core_bins_collective(
                         tgt_radius, exact_targets=exact_targets,
-                        tgt_mask=tgt_mask))
+                        tgt_mask=tgt_mask, group=group))
     return bins
 
 
@@ -419,16 +437,17 @@ def _write_rows(acc: torch.Tensor, rows: torch.Tensor,
 def p3m_acc_collective_from_bins(bins: dict, tgt_pos: list, tgt_radius: list,
                                  src_pos: list, src_gm: list, softening=2.0,
                                  *, grid: int, rc_cells: int,
-                                 cell_capacity: int,
-                                 precise: bool = False) -> list:
+                                 cell_capacity: int, precise: bool = False,
+                                 group=None) -> list:
     """Sharded P³M with a frozen collective structure (see
     :func:`p3m_bins_collective`): with fresh bins this is
     :func:`p3m_acc_collective`; with stale ones every position is still
     read fresh (mesh scatter and gather, pair distances, exact-core rows),
-    and only the candidates and the box lag. Returns (T_k, 2) a shard, the
-    padding rows' values unmasked (the caller masks them). Each shard
-    makes one ``pp_cells`` launch; each shard that holds sources makes one
-    ``force_acc`` launch for the exact-core rows."""
+    and only the candidates and the box lag. Returns (T_k, 2) a local
+    shard, the padding rows' values unmasked (the caller masks them). Each
+    shard makes one ``pp_cells`` launch; each shard that holds sources
+    makes one ``force_acc`` launch for the exact-core rows."""
+    group = group_of(group)
     devices = [p.device for p in tgt_pos]
     dev0 = devices[0]
     cap = cell_capacity
@@ -436,18 +455,21 @@ def p3m_acc_collective_from_bins(bins: dict, tgt_pos: list, tgt_radius: list,
     soft = per_shard_scalar(softening, devices)
     eps2 = [s ** 2 for s in soft]
     rc = [rc_cells * h_k for h_k in h]
-    a_grid = mesh_grid_collective(src_pos, src_gm, lo, h, eps2, grid, rc=rc)
+    a_grid = mesh_grid_collective(src_pos, src_gm, lo, h, eps2, grid, rc=rc,
+                                  group=group)
     with record_function("p3m.cic_gather"):
         acc = [_cic_gather(a, t, lo_k, 1.0 / h_k, grid)
                for a, t, lo_k, h_k in zip(a_grid, tgt_pos, lo, h)]
 
+    rows = group.source_rows(src_pos)
     with record_function("p3m.pack"):
+        xy = torch.cat(group.gather(src_pos, dev0, rows))
+        w = torch.cat(group.gather(src_gm, dev0, rows))
         srows: dict = {}
         for k, dev in enumerate(devices):
             if dev not in srows:
-                xy = torch.cat([p.to(dev) for p in src_pos])
-                w = torch.cat([g.to(dev) for g in src_gm])
-                srows[dev] = _cell_rows(xy, w, bins["order_s"][k])
+                srows[dev] = _cell_rows(xy.to(dev), w.to(dev),
+                                        bins["order_s"][k])
         trows = [_cell_rows(p, r + SOFTENING_FLOOR, o) for p, r, o in
                  zip(tgt_pos, tgt_radius, bins["order_t"])]
     out = []
@@ -464,13 +486,15 @@ def p3m_acc_collective_from_bins(bins: dict, tgt_pos: list, tgt_radius: list,
 
     if "big_sel" in bins and bins["big_sel"].shape[0]:
         with record_function("p3m.exact_rows"):
-            cand = torch.cat([p[i].to(dev0) for p, i in
-                              zip(tgt_pos, bins["big_i_loc"])])
+            cand = torch.cat(group.gather(
+                [p[i] for p, i in zip(tgt_pos, bins["big_i_loc"])], dev0))
             big_pos = cand[bins["big_sel"]]
-            partial = [direct_forces.force_acc(
-                big_pos.to(dev), bins["big_radius"].to(dev), s, g,
-                precise=precise)
-                for s, g, dev in zip(src_pos, src_gm, devices) if s.shape[0]]
+            partial = group.gather_where(
+                [direct_forces.force_acc(
+                    big_pos.to(dev), bins["big_radius"].to(dev), s, g,
+                    precise=precise) if s.shape[0] else None
+                 for s, g, dev in zip(src_pos, src_gm, devices)],
+                dev0, [r > 0 for r in rows], tuple(big_pos.shape))
             exact = (shard_sum(partial, dev0) if partial
                      else torch.zeros_like(big_pos))
             out = [_write_rows(a, r, exact.to(a.device))
@@ -491,15 +515,18 @@ def p3m_acc_collective(
     exact_targets: int = 64,
     precise: bool = False,
     tgt_mask: list | None = None,
+    group=None,
 ) -> list:
-    """Sharded P³M, single controller (the counterpart of
-    ``nbody_tpu.ops.p3m_forces.p3m_acc_collective``, one tensor a shard):
-    fresh :func:`p3m_bins_collective`, then
+    """Sharded P³M (the counterpart of
+    ``nbody_tpu.ops.p3m_forces.p3m_acc_collective``, one tensor a shard of
+    this process; ``group`` a ``collective.ShardGroup``, or None for the
+    single controller): fresh :func:`p3m_bins_collective`, then
     :func:`p3m_acc_collective_from_bins`. Returns (T_k, 2) a shard."""
     bins = p3m_bins_collective(
         tgt_pos, tgt_radius, src_pos, src_gm, grid=grid, rc_cells=rc_cells,
         cell_capacity=cell_capacity, exact_targets=exact_targets,
-        tgt_mask=tgt_mask)
+        tgt_mask=tgt_mask, group=group)
     return p3m_acc_collective_from_bins(
         bins, tgt_pos, tgt_radius, src_pos, src_gm, softening, grid=grid,
-        rc_cells=rc_cells, cell_capacity=cell_capacity, precise=precise)
+        rc_cells=rc_cells, cell_capacity=cell_capacity, precise=precise,
+        group=group)

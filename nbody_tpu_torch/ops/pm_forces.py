@@ -21,13 +21,15 @@ same order (``index_put_`` there adds by float atomics across threads from
 32768 entries on).
 
 The collective form (:func:`pm_acc_collective`, the counterpart of
-``nbody_tpu``'s under ``shard_map``) takes one tensor a shard, as one
-process drives every shard of a sharded world: the box is agreed over the
-shards (JAX's pmin/pmax: a min and a max formed on the first shard's
-device), each shard scatters its own sources into a grid of its own, the
-grids are summed in shard order (JAX's psum, in a fixed order and with no
-float atomics), the solve runs once a distinct device, and each shard
-gathers its own targets.
+``nbody_tpu``'s under ``shard_map``) takes one tensor a shard of this
+process: every shard of a single-controller world, or this rank's shards of
+a world over a process group (``group``, ``ops/collective.py``). The box is
+agreed over the shards (JAX's pmin/pmax: a min and a max of every shard's
+bounds, gathered onto the first local shard's device), each shard scatters
+its own sources into a grid of its own, the grids are gathered and summed
+in shard order (JAX's psum, in a fixed order and with no float atomics),
+the solve runs once a distinct device, and each shard gathers its own
+targets.
 
 The sizes and shapes stay on the device: the box is a pair of 0-dim
 tensors, so nothing here waits for the host. Gradients flow as in JAX,
@@ -44,6 +46,7 @@ from torch.profiler import record_function
 
 from ..forces import add_at
 from ..types import DTYPE
+from .collective import group_of
 
 
 def suggest_grid(n: int, lo: int = 256, hi: int = 4096) -> int:
@@ -179,7 +182,7 @@ def pm_acc(
     return _cic_gather(a_grid, tgt_pos, lo, 1.0 / h, grid)
 
 
-# --- the collective form: one tensor a shard, single controller ---
+# --- the collective form: one tensor a shard of this process ---
 
 def on_devices(x: torch.Tensor, devices: list) -> list:
     """``x`` on each of ``devices``: one copy a distinct device, shared by
@@ -203,11 +206,14 @@ def shard_sum(xs: list, device) -> torch.Tensor:
         return out
 
 
-def shard_box(tgt_pos: list, src_pos: list, src_gm: list, tgt_mask, grid: int):
-    """The box agreed over all shards: each shard's :func:`_bounds`, their
-    min and max formed on the first shard's device (JAX's pmin and pmax;
-    exact in any order), then :func:`_box`. Returns the lists (lo, h), one
-    entry a shard, on the shards' devices."""
+def shard_box(tgt_pos: list, src_pos: list, src_gm: list, tgt_mask, grid: int,
+              group=None):
+    """The box agreed over all shards: each shard's :func:`_bounds`, every
+    shard's gathered onto the first local shard's device and their min and
+    max formed there in shard order (JAX's pmin and pmax; exact in any
+    order), then :func:`_box`. Returns the lists (lo, h), one entry a local
+    shard, on the shards' devices."""
+    group = group_of(group)
     devices = [t.device for t in tgt_pos]
     dev0 = devices[0]
     masks = tgt_mask if tgt_mask is not None else [None] * len(tgt_pos)
@@ -216,8 +222,9 @@ def shard_box(tgt_pos: list, src_pos: list, src_gm: list, tgt_mask, grid: int):
         if not s.shape[0]:  # no sources: one of gm 0, which no box counts
             s, g = t[:1], torch.zeros_like(t[:1, 0])
         lo_k, hi_k = _bounds(t, s, g, m)
-        mins.append(lo_k.to(dev0))
-        maxs.append(hi_k.to(dev0))
+        mins.append(lo_k)
+        maxs.append(hi_k)
+    mins, maxs = group.gather(mins, dev0), group.gather(maxs, dev0)
     all_min, all_max = mins[0], maxs[0]
     for lo_k, hi_k in zip(mins[1:], maxs[1:]):
         all_min = torch.minimum(all_min, lo_k)
@@ -235,19 +242,24 @@ def per_shard_scalar(x, devices: list) -> list:
 
 
 def mesh_grid_collective(src_pos: list, src_gm: list, lo: list, h: list,
-                         eps2: list, grid: int, rc=None) -> list:
+                         eps2: list, grid: int, rc=None, group=None) -> list:
     """The collective mesh solve: each shard that holds sources scatters
-    them into its own (G, G) grid, the grids are summed in shard order on
-    the first shard's device, and :func:`_solve` runs once a distinct
-    device (with the P³M taper where ``rc``, one 0-dim tensor a shard, is
-    given). Returns the (G, G, 2) force grid of each shard (shards on one
-    device share one)."""
+    them into its own (G, G) grid, the grids of every such shard are
+    gathered onto the first local shard's device and summed there in shard
+    order, and :func:`_solve` runs once a distinct device (with the P³M
+    taper where ``rc``, one 0-dim tensor a shard, is given). Returns the
+    (G, G, 2) force grid of each local shard (shards on one device share
+    one)."""
+    group = group_of(group)
     devices = [p.device for p in src_pos]
     with record_function("p3m.cic_scatter" if rc is not None
                          else "pm.cic_scatter"):
-        rhos = [_cic_scatter(s, g, lo_k, 1.0 / h_k, grid)
-                for s, g, lo_k, h_k in zip(src_pos, src_gm, lo, h)
-                if s.shape[0]]
+        rhos = [_cic_scatter(s, g, lo_k, 1.0 / h_k, grid) if s.shape[0]
+                else None
+                for s, g, lo_k, h_k in zip(src_pos, src_gm, lo, h)]
+    rhos = group.gather_where(
+        rhos, devices[0], [r > 0 for r in group.source_rows(src_pos)],
+        (grid, grid))
     if not rhos:
         rhos = [torch.zeros((grid, grid), dtype=DTYPE, device=devices[0])]
     rho = shard_sum(rhos, devices[0])
@@ -271,20 +283,23 @@ def pm_acc_collective(
     *,
     grid: int = 512,
     tgt_mask: list | None = None,
+    group=None,
 ) -> list:
-    """Sharded particle-mesh, single controller (the counterpart of
-    ``nbody_tpu.ops.pm_forces.pm_acc_collective``, one tensor a shard): the
-    box agreed over the shards (:func:`shard_box`), each shard's sources
-    scattered into its own grid, the grids summed in shard order
-    (:func:`shard_sum`), the solve once a distinct device, and each
-    shard's targets gathered from it. Returns (T_k, 2) a shard. A shard
+    """Sharded particle-mesh (the counterpart of
+    ``nbody_tpu.ops.pm_forces.pm_acc_collective``, one tensor a shard of
+    this process; ``group`` a ``collective.ShardGroup``, or None for the
+    single controller): the box agreed over the shards
+    (:func:`shard_box`), each shard's sources scattered into its own grid,
+    the grids summed in shard order (:func:`shard_sum`), the solve once a
+    distinct device, and each shard's targets gathered from it. Returns (T_k, 2) a shard. A shard
     may hold no sources (S_k = 0). ``softening``: a float, a 0-dim tensor
     or one a shard. Differentiable as :func:`pm_acc`; the box carries no
     gradient."""
     devices = [t.device for t in tgt_pos]
     eps2 = [s ** 2 for s in per_shard_scalar(softening, devices)]
-    lo, h = shard_box(tgt_pos, src_pos, src_gm, tgt_mask, grid)
-    a_grid = mesh_grid_collective(src_pos, src_gm, lo, h, eps2, grid)
+    lo, h = shard_box(tgt_pos, src_pos, src_gm, tgt_mask, grid, group)
+    a_grid = mesh_grid_collective(src_pos, src_gm, lo, h, eps2, grid,
+                                  group=group)
     with record_function("pm.cic_gather"):
         return [_cic_gather(a, t, lo_k, 1.0 / h_k, grid)
                 for a, t, lo_k, h_k in zip(a_grid, tgt_pos, lo, h)]

@@ -28,6 +28,15 @@ and CUDA events play K3's semaphores:
 :class:`Ring` walks the same list on CUDA shards (streams and events) and on
 CPU shards (in order, events ignored); a CPU test checks the list itself.
 
+Across processes (a world over a ``torch.distributed`` group, whose ranks
+each hold L of the D shards) the ring has no slots: once a force
+evaluation every rank ``all_gather``s the source rows of every shard in
+shard order (``ops/collective.py``), and each local shard then runs its D
+hops in the schedule's order, hop h reading the sources of shard
+(d − h) mod D from the gathered rows, on the caller's stream. The hops get
+the same inputs in the same order as on the single controller, so they
+give the same bits.
+
 Per hop, :func:`ring_substep` launches the hop kernel
 (``csrc/ring_forces.cu``), whose last hop also integrates;
 :func:`ring_force` calls the direct kernel (``direct_forces.force_acc``),
@@ -47,6 +56,7 @@ import torch
 from .. import forces
 from ..types import DTYPE
 from . import direct_forces
+from .collective import group_of
 from .direct_forces import (MAX_CLUSTER, _check, _checked_plan, _device_of,
                             _pos_dt_times_dt, _raise_on, cluster_plan,
                             device_sms)
@@ -230,41 +240,58 @@ def source_pieces(shard: int, s_loc: int, t_loc: int, n: int) -> list[tuple]:
 # --- the executor -----------------------------------------------------------
 
 class Ring:
-    """The ring of a sharded world over ``devices`` (one entry per shard; a
-    device may repeat): two slots per shard, each an (s_loc, 2) block of
-    positions followed by (s_loc,) gm in one buffer, so one copy moves a
-    slot; a running acceleration per shard for the hop kernel; and on CUDA
-    a compute and a copy stream per shard with the schedule's events.
+    """The ring of a sharded world over ``devices`` (one entry per shard of
+    this process; a device may repeat): two slots per shard, each an
+    (s_loc, 2) block of positions followed by (s_loc,) gm in one buffer, so
+    one copy moves a slot; a running acceleration per shard for the hop
+    kernel; and on CUDA a compute and a copy stream per shard with the
+    schedule's events.
 
     ``n_real[k]`` is the number of real sources of shard k (rows below
-    mass_len): computes read only those. ``t_real[k]`` is the number of its
-    real targets (rows below ``n_targets``, all rows by default), from
-    which its launches are planned. ``serial = True`` synchronises the
-    card after every operation, a schedule that cannot race, against which
-    the overlapped one must be bit-equal."""
+    mass_len): computes read only those. ``t_real[j]`` is the number of
+    real targets of local shard j (rows below ``n_targets``, all rows by
+    default), from which its launches are planned. ``serial = True``
+    synchronises the card after every operation, a schedule that cannot
+    race, against which the overlapped one must be bit-equal.
+
+    With a ``group`` (``collective.ShardGroup``) the shards are this
+    rank's L of D over the group's processes, ``gm_src`` holds every
+    shard's gm (the same on every rank), and a pass gathers the sources
+    instead of sending slots (the module's docstring); without one the
+    ring is the single controller's."""
 
     def __init__(self, devices, t_loc: int, s_loc: int, mass_len: int,
-                 gm_src, n_targets: int | None = None):
+                 gm_src, n_targets: int | None = None, group=None):
         self.devices = [torch.device(x) for x in devices]
-        d = self.n_devices = len(self.devices)
+        self.group = group_of(group)
+        n_local = len(self.devices)
+        d = self.n_devices = self.group.n_shards(n_local)
+        self.first = self.group.first(n_local)
         self.s_loc = s_loc
         self.n_real = [min(max(mass_len - k * s_loc, 0), s_loc)
                        for k in range(d)]
         n_targets = d * t_loc if n_targets is None else n_targets
         self.t_real = [min(max(n_targets - k * t_loc, 0), t_loc)
-                       for k in range(d)]
-        self.schedule = ring_schedule(d)
-        self.pieces = [source_pieces(k, s_loc, t_loc, self.n_real[k])
-                       for k in range(d)]
+                       for k in range(self.first, self.first + n_local)]
         self.gm_src = gm_src
-        self.slots = [[torch.zeros(3 * s_loc, dtype=DTYPE, device=dev)
-                       for _ in range(2)] for dev in self.devices]
         self.acc_run = [torch.zeros((t_loc, 2), dtype=DTYPE, device=dev)
                         for dev in self.devices]
         self.cuda = self.devices[0].type == "cuda"
         self.serial = False
         self.streams = {}
         self.events = {}
+        if self.group.pg is not None:
+            # the rows of [0, mass_len) that each shard holds as targets
+            self.prefix_rows = [min(max(mass_len - k * t_loc, 0), t_loc)
+                                for k in range(d)]
+            self.streamed = False
+            return
+        self.schedule = ring_schedule(d)
+        self.pieces = [source_pieces(k, s_loc, t_loc, self.n_real[k])
+                       for k in range(d)]
+        self.slots = [[torch.zeros(3 * s_loc, dtype=DTYPE, device=dev)
+                       for _ in range(2)] for dev in self.devices]
+        self.streamed = self.cuda
         if self.cuda:
             for k, dev in enumerate(self.devices):
                 for kind in ("compute", "copy"):
@@ -290,8 +317,9 @@ class Ring:
     @contextlib.contextmanager
     def on(self, shard: int, kind: str = "compute"):
         """Run what the block enqueues on shard ``shard``'s ``kind`` stream
-        ("compute" or "copy"); on the CPU, as it is."""
-        if not self.cuda:
+        ("compute" or "copy"); on the CPU, and across processes, on the
+        caller's stream."""
+        if not self.streamed:
             yield
             return
         with torch.cuda.stream(self.streams[(kind, shard)]):  # and its device
@@ -302,8 +330,8 @@ class Ring:
         """Order the shards' streams after the work the caller's current
         streams hold, and the caller's current streams after the shards'
         work at exit: tensors cross between them as if one stream ran it
-        all."""
-        if not self.cuda:
+        all. Nothing to do where there are no streams."""
+        if not self.streamed:
             yield
             return
         mine = sorted({dev.index for dev in self.devices})
@@ -314,10 +342,10 @@ class Ring:
         try:
             yield
         finally:
-            for k in range(self.n_devices):
+            for k in range(len(self.devices)):
                 self._event(("join", k)).record(self.streams[("compute", k)])
             for i in mine:
-                for k in range(self.n_devices):
+                for k in range(len(self.devices)):
                     torch.cuda.current_stream(i).wait_event(
                         self._event(("join", k)))
 
@@ -340,9 +368,12 @@ class Ring:
     def run(self, pos, compute) -> None:
         """One pass round the ring: gather every shard's sources from the
         per-shard positions ``pos``, then for each compute of the schedule
-        call ``compute(shard, hop, last, src_pos, src_gm)`` on that shard's
-        compute stream with the real sources visiting it; ``last`` marks
-        the compute that carries the epilogue."""
+        call ``compute(j, hop, last, src_pos, src_gm)`` for local shard j
+        on its compute stream with the real sources visiting it; ``last``
+        marks the compute that carries the epilogue."""
+        if self.group.pg is not None:
+            self._run_gathered(pos, compute)
+            return
         if self.cuda:
             for k in range(self.n_devices):
                 self._event(("ready", k)).record(self.streams[("compute", k)])
@@ -366,6 +397,24 @@ class Ring:
                     if self.serial:
                         self.synchronize()
 
+    def _run_gathered(self, pos, compute) -> None:
+        """The pass across processes: one gather of the rows [0, mass_len)
+        of every shard, then the computes in the schedule's order (hop by
+        hop, the shards in order), on the caller's stream."""
+        dev0 = self.devices[0]
+        mine = self.prefix_rows[self.first:self.first + len(self.devices)]
+        prefix = torch.cat(self.group.gather(
+            [p[:r] for p, r in zip(pos, mine)], dev0, self.prefix_rows))
+        d, s = self.n_devices, self.s_loc
+        for h in range(d):
+            for j, dev in enumerate(self.devices):
+                k = (self.first + j - h) % d
+                n = self.n_real[k]
+                compute(j, h, h == d - 1, prefix[k * s:k * s + n].to(dev),
+                        self.gm_src[k][:n].to(dev))
+                if self.serial:
+                    self.synchronize()
+
 
 def ring_substep(ring: Ring, dt: float, pos, vel, radius, valid, *,
                  precise: bool = False, pos_dt: float = 1.0):
@@ -375,7 +424,7 @@ def ring_substep(ring: Ring, dt: float, pos, vel, radius, valid, *,
     ``radius`` and ``valid`` are per-shard lists. ``pos_dt=0.5`` makes the
     epilogue the kick and half-drift of a DKD stage. Returns new per-shard
     lists (pos, vel, acc); the inputs are not modified."""
-    out = [None] * ring.n_devices
+    out = [None] * len(ring.devices)
 
     def compute(k, h, last, src_pos, src_gm):
         kw = dict(vel=vel[k], valid=valid[k], dt=dt, pos_dt=pos_dt) if last else {}
@@ -400,7 +449,7 @@ def ring_force(ring: Ring, pos, radius, valid, *, precise: bool = False,
     if backend not in ("torch", "cuda", "cuda_ring"):
         raise ValueError(f"backend must be 'torch', 'cuda' or 'cuda_ring', "
                          f"got {backend!r}")
-    acc = [None] * ring.n_devices
+    acc = [None] * len(ring.devices)
 
     def compute(k, h, last, src_pos, src_gm):
         if backend == "cuda_ring":

@@ -12,6 +12,14 @@ tiles and the collective mesh solvers. Counterpart of
     drives every device of a mesh under ``shard_map``). A mesh is a list of
     ``torch.device``s, one per shard, and may repeat a device: D shards on
     one card, or on the CPU, as the JAX suite runs D virtual CPU devices.
+  * Or the shards are spread over the processes of a ``torch.distributed``
+    group (``parallel/multihost.py``): the world is built with
+    :meth:`ShardedWorld.from_arrays` and the group, its mesh is this rank's
+    L shards, and rank r holds shards r·L … r·L + L − 1 of D = P·L. Every
+    place where the single controller gathers the shards' pieces onto the
+    first shard's device then gathers them from every rank
+    (``ops/collective.py``), and every rank runs the same reduction, so
+    the ranks hold the same bits as the single controller.
   * On the direct-sum backends each force evaluation is one pass round the
     ring of ``ops/ring_forces.py``: the visiting source slot moves one
     shard per hop by a device-to-device copy on a side stream while the
@@ -60,6 +68,7 @@ import torch
 from torch.profiler import record_function
 
 from .. import diagnostics, forces, integrators, world
+from ..ops.collective import LOCAL, ShardGroup
 from ..ops.collisions import merge_pass
 from ..ops.p3m_forces import (p3m_acc_collective_from_bins,
                               p3m_bins_collective,
@@ -173,18 +182,23 @@ def padded_state(particles: Particles, mass_len: int, n_pad: int, g: float):
     return state, gm, valid
 
 
-def mesh_chips(devices) -> int:
+def mesh_chips(devices, group=None) -> int:
     """The D of "auto"'s per-chip rule: the distinct cards of a CUDA mesh
     (four shards on one card do all the direct work on that card), and
     every shard of a CPU mesh, which stands for nbody_tpu's virtual CPU
-    mesh of D devices."""
+    mesh of D devices. Over a process group (``collective.ShardGroup``)
+    ``devices`` is this rank's, and the count is over every rank: the
+    group's size times this rank's distinct cards, or every shard on the
+    CPU."""
+    size = 1 if group is None else group.size
     if devices[0].type == "cpu":
-        return len(devices)
-    return len(dict.fromkeys(devices))
+        return size * len(devices)
+    return size * len(dict.fromkeys(devices))
 
 
 def resolve_force_backend(force_backend, devices, total_len: int,
-                          mass_len: int, merging: bool = False) -> str:
+                          mass_len: int, merging: bool = False,
+                          group=None) -> str:
     """The backend a sharded world runs: None is the shards' direct backend
     ("cuda" on CUDA shards, "torch" on CPU ones, where nbody_tpu answers
     "pallas" or "jnp"); "auto" is nbody_tpu's per-chip rule
@@ -193,12 +207,13 @@ def resolve_force_backend(force_backend, devices, total_len: int,
     mesh cost repeats on each, so the direct backend at or below
     ``world.AUTO_P3M_MIN_PAIRS`` pairs a chip and "p3m" above ("pm" under
     merging). D is ``mesh_chips``: shards that share a card share its
-    time. "p3m" with merging raises, as in nbody_tpu."""
+    time (over ``group``'s ranks, :func:`mesh_chips`). "p3m" with merging
+    raises, as in nbody_tpu."""
     direct = "cuda" if devices[0].type == "cuda" else "torch"
     if force_backend is None:
         return direct
     if force_backend == "auto":
-        per_chip = (total_len * mass_len) // mesh_chips(devices)
+        per_chip = (total_len * mass_len) // mesh_chips(devices, group)
         far = "pm" if merging else "p3m"
         force_backend = direct if per_chip <= world.AUTO_P3M_MIN_PAIRS else far
     elif force_backend not in FORCE_BACKENDS:
@@ -212,6 +227,30 @@ def resolve_force_backend(force_backend, devices, total_len: int,
     return force_backend
 
 
+def shard_group(pg, devices) -> ShardGroup:
+    """The ``collective.ShardGroup`` of a world over the process group
+    ``pg`` with this rank's ``devices``. NCCL carries CUDA shards and Gloo
+    (or MPI) CPU ones; any other pairing raises. Every rank must hold the
+    same number of shards, and raises if one does not."""
+    import torch.distributed as dist
+
+    backend = str(dist.get_backend(pg)).lower()
+    kind = devices[0].type
+    if (kind == "cuda") != (backend == "nccl"):
+        raise ValueError(
+            f"a world of {kind} shards needs "
+            f"{'nccl' if kind == 'cuda' else 'a CPU backend (gloo)'} "
+            f"collectives, the process group has {backend!r}")
+    group = ShardGroup(pg, len(devices))
+    counts = group._all_gather(torch.tensor([len(devices)],
+                                            device=devices[0]))
+    counts = [int(c) for c in counts]
+    if len(set(counts)) != 1:
+        raise ValueError(f"every rank must hold the same number of shards, "
+                         f"the ranks hold {counts}")
+    return group
+
+
 class ShardedWorld:
     """World sharded over a 1-D mesh of devices. Mirrors
     :class:`nbody_tpu_torch.World`: create, ``update(dt, n)``,
@@ -223,7 +262,13 @@ class ShardedWorld:
     prefix and their gm (``gm_src``, zero past ``mass_len``); on "pm" and
     "p3m" each shard keeps the gm of its own rows (a per-target row, zero
     past ``mass_len``), as in nbody_tpu. Per-shard state is in the lists
-    ``pos``, ``vel``, ``acc``, ``mass``, ``radius`` and ``valid``."""
+    ``pos``, ``vel``, ``acc``, ``mass``, ``radius`` and ``valid``.
+
+    Over a process group (:meth:`from_arrays` with ``group``), ``mesh``
+    and the lists hold this rank's L shards, global shards ``first`` …
+    ``first`` + L − 1 of ``n_devices`` = D; ``particles`` and ``state``
+    raise where the group has more than one rank
+    (``multihost.gather_particles`` gathers the whole state)."""
 
     def __init__(
         self,
@@ -247,19 +292,29 @@ class ShardedWorld:
     def from_arrays(cls, pos, vel, acc, mass, radius, *, total_len: int,
                     mass_len: int, mesh: list,
                     config: SimConfig = DEFAULT_SIM_CONFIG,
-                    force_backend=None) -> "ShardedWorld":
+                    force_backend=None, group=None) -> "ShardedWorld":
         """Rebuild a ShardedWorld around PADDED state (the counterpart of
         ``nbody_tpu``'s ``from_arrays``): each field a tensor of the
         ``n_pad`` rows of :func:`shard_layout` for (total_len, mass_len,
         config, mesh size), or the list of its D shards, on any device
         (e.g. :attr:`state`, or the lists ``pos``, ``vel``, ...). The gm
         and valid rows are made again: gm = g·mass below ``mass_len``,
-        valid = 1 below ``total_len``."""
+        valid = 1 below ``total_len``.
+
+        With ``group`` (a ``torch.distributed`` process group, every rank
+        calling), ``mesh`` is this rank's L devices and each field holds
+        this rank's rows: the L·t_loc rows from global row r·L·t_loc on
+        rank r, for the layout of D = L × the group's size shards."""
         self = cls.__new__(cls)
         devices = make_mesh(devices=mesh)
+        sg = None if group is None else shard_group(group, devices)
+        size, rank = (1, 0) if sg is None else (sg.size, sg.rank)
         backend = resolve_force_backend(force_backend, devices, total_len,
-                                        mass_len, config.merge_collisions)
-        n_pad = shard_layout(total_len, mass_len, config, len(devices))[3]
+                                        mass_len, config.merge_collisions,
+                                        group=sg)
+        t_loc = shard_layout(total_len, mass_len, config,
+                             size * len(devices))[1]
+        rows = len(devices) * t_loc
 
         def whole(x):
             if isinstance(x, (list, tuple)):
@@ -268,25 +323,29 @@ class ShardedWorld:
 
         state = Particles(pos=whole(pos), vel=whole(vel), acc=whole(acc),
                           mass=whole(mass), radius=whole(radius))
-        if tuple(state.pos.shape) != (n_pad, 2):
+        if tuple(state.pos.shape) != (rows, 2):
             raise ValueError(
                 f"restored pos shape {tuple(state.pos.shape)} does not match "
                 f"the layout for n={total_len}, mass_len={mass_len}, "
-                f"D={len(devices)}: ({n_pad}, 2); restore with the same "
-                "config and mesh size as the save")
-        idx = torch.arange(n_pad)
+                f"D={size * len(devices)}: ({rows}, 2) on this process; "
+                "restore with the same config and mesh size as the save")
+        idx = rank * rows + torch.arange(rows)
         gm = torch.where(idx < mass_len, config.g * state.mass, 0.0)
         valid = (idx < total_len).to(DTYPE)
         self._setup(devices, config, backend, total_len, mass_len, state, gm,
-                    valid)
+                    valid, group=sg)
         return self
 
     def _setup(self, devices, config, backend, n, mass_len, state, gm,
-               valid) -> None:
-        """Split the padded CPU state over ``devices`` and build the
-        backend's source layout (the ring, or the mesh solvers' rows)."""
+               valid, group=None) -> None:
+        """Split this process's padded CPU rows over ``devices`` and build
+        the backend's source layout (the ring, or the mesh solvers' rows).
+        ``group``: a ``collective.ShardGroup``, or None for the single
+        controller (whose rows are all the rows)."""
         self.mesh = devices
-        d = self.n_devices = len(devices)
+        self.group = LOCAL if group is None else group
+        d = self.n_devices = self.group.n_shards(len(devices))
+        first = self.first = self.group.first(len(devices))
         self.config = config
         self.force_backend = backend
         s_loc, t_loc, src_len, n_pad = shard_layout(n, mass_len, config, d)
@@ -302,27 +361,49 @@ class ShardedWorld:
                                         (state.pos, state.vel, state.acc))
         self.mass, self.radius = split(state.mass, t_loc), split(state.radius, t_loc)
         self.valid = split(valid, t_loc)
+        # the rows of [0, src_len) that each shard holds as targets: the
+        # merge pass's prefix
+        self._prefix_rows = [min(max(src_len - k * t_loc, 0), t_loc)
+                             for k in range(d)]
         if backend in MESH_BACKENDS:
             # the mesh solvers' sources: the first max(mass_len, 1) rows
             # (World's _mesh_sources), each shard's share of them
             n_src = max(mass_len, 1)
-            self._src_rows = [min(max(n_src - k * t_loc, 0), t_loc)
-                              for k in range(d)]
+            src_rows = [min(max(n_src - k * t_loc, 0), t_loc)
+                        for k in range(d)]
+            self._src_rows = src_rows[first:first + len(devices)]
+            if group is not None:
+                group.src_rows = src_rows
             self._gm_src = split(gm, t_loc)
             self._softening = [world._scalar(config.pm_softening, dev)
                                for dev in devices]
             self.ring = None
         else:
-            self._gm_src = split(gm[:src_len], s_loc)
+            if group is None:
+                self._gm_src = split(gm[:src_len], s_loc)
+            else:
+                # every shard's gm, the same on every rank: gathered once
+                # here, changed only by the merge pass, which every rank
+                # runs on the same gathered rows
+                dev0 = devices[0]
+                mine = self._prefix_rows[first:first + len(devices)]
+                full = torch.cat(group.gather(
+                    [gm[j * t_loc:j * t_loc + r].to(dev0)
+                     for j, r in enumerate(mine)], dev0, self._prefix_rows))
+                self._gm_src = [full[k * s_loc:(k + 1) * s_loc]
+                                for k in range(d)]
             self.ring = Ring(devices, t_loc, s_loc, mass_len, self._gm_src,
-                             n_targets=n)
+                             n_targets=n, group=group)
         self._host_cache: Particles | None = None
 
     @property
     def gm_src(self) -> torch.Tensor:
         """The whole gm row on the CPU: (src_len,) on the ring backends,
-        the per-target (n_pad,) row on "pm" and "p3m", as in nbody_tpu."""
-        return torch.cat([g.cpu() for g in self._gm_src])
+        the per-target (n_pad,) row on "pm" and "p3m", as in nbody_tpu
+        (gathered from every rank over a process group)."""
+        gms = (self._gm_src if self.ring is not None
+               else self.group.gather(self._gm_src, self.mesh[0]))
+        return torch.cat([g.cpu() for g in gms])
 
     def _fork(self):
         return self.ring.fork() if self.ring is not None \
@@ -345,7 +426,7 @@ class ShardedWorld:
             self._mesh_update(float(dt), n, extra_force)
             self._host_cache = None
             return self
-        dts = [float(dt)] * self.n_devices
+        dts = [float(dt)] * len(self.mesh)
         if not self.config.merge_collisions:
             with self.ring.fork():
                 for _ in range(n):
@@ -369,7 +450,9 @@ class ShardedWorld:
         hold acc exactly 0 (masked by ``valid``), a timescale of +inf. A
         substep past the end keeps the old state (under merging its mass,
         radius and gm too: no merge happens there); the priming dt = 0
-        substep merges, as nbody_tpu's does."""
+        substep merges, as nbody_tpu's does. Over a process group the
+        criterion's min runs over every rank's shards, gathered in shard
+        order, so every rank takes the same dt and the same count."""
         dev0 = self.mesh[0]
         merging = self.config.merge_collisions
         knobs = {key: _scalar(v, dev0) for key, v in (
@@ -385,9 +468,9 @@ class ShardedWorld:
         while True:
             for _ in range(world.ADAPTIVE_BATCH):
                 live = t < knobs["t_span"]
-                crit = eta * torch.stack([
-                    diagnostics.timescale(a, r).to(dev0)
-                    for a, r in zip(self.acc, self.radius)]).amin()
+                crit = eta * torch.stack(self.group.gather(
+                    [diagnostics.timescale(a, r)
+                     for a, r in zip(self.acc, self.radius)], dev0)).amin()
                 dt = torch.where(live, diagnostics.clip_dt(
                     crit, t=t, **knobs), 0.0)
                 old = (self.pos, self.vel, self.acc, self.radius, self.mass)
@@ -396,13 +479,13 @@ class ShardedWorld:
                     self._substep([dt.to(dev) for dev in self.mesh],
                                   extra_force)
                     # a substep past the end keeps the old state
-                    for j in range(0 if merging else self.n_devices):
+                    for j in range(0 if merging else len(self.mesh)):
                         with self._on(j):
                             for new, prev in zip(
                                     (self.pos, self.vel, self.acc), old):
                                 new[j] = torch.where(lives[j], new[j], prev[j])
                 if merging:  # masks after the merge, the state's every field
-                    self._merge(lives, old)
+                    self._merge(live, old)
                 t = t + dt
                 k = k + live.to(torch.int32)
             if not world._host(t < knobs["t_span"]):
@@ -412,24 +495,27 @@ class ShardedWorld:
 
     def _merged(self) -> tuple:
         """Per-shard (pos, vel, radius, mass, gm_src) lists after one merge
-        pass over the massive prefix, run once on the first shard's device;
-        the world's own lists are not modified."""
+        pass over the massive prefix, run once on the first shard's device
+        (over a process group: on every rank, from the prefix gathered from
+        every rank, each keeping its own rows); the world's own lists are
+        not modified. On the ring backends the gm list holds every shard's
+        gm."""
         dev0 = self.mesh[0]
-        # (shard k, rows): rows [k·t_loc, k·t_loc + rows) of the src_len
-        # prefix rows lie in shard k
-        pieces = [(k, min(self.t_loc, self.src_len - k * self.t_loc))
-                  for k in range(self.n_devices)
-                  if k * self.t_loc < self.src_len]
+        # rows [k·t_loc, k·t_loc + rows) of the src_len prefix rows lie in
+        # shard k
+        mine = self._prefix_rows[self.first:self.first + len(self.mesh)]
 
         def gather(xs):
-            return torch.cat([xs[k][:rows].to(dev0) for k, rows in pieces])
+            return torch.cat(self.group.gather(
+                [x[:r] for x, r in zip(xs, mine)], dev0, self._prefix_rows))
 
         def scatter(xs, merged):
-            new, lo = list(xs), 0
-            for k, rows in pieces:
-                new[k] = torch.cat([merged[lo:lo + rows].to(self.mesh[k]),
-                                    xs[k][rows:]])
-                lo += rows
+            new = list(xs)
+            for j, rows in enumerate(mine):
+                if rows:
+                    lo = (self.first + j) * self.t_loc
+                    new[j] = torch.cat([merged[lo:lo + rows].to(self.mesh[j]),
+                                        xs[j][rows:]])
             return new
 
         ring = self.ring is not None
@@ -442,22 +528,24 @@ class ShardedWorld:
             (self.pos, self.vel, self.radius, self.mass), out[:4])]
         if ring:
             s = self.s_loc
-            gms = [out[4][k * s:(k + 1) * s].to(dev)
-                   for k, dev in enumerate(self.mesh)]
+            gms = [out[4][k * s:(k + 1) * s].to(g.device)
+                   for k, g in enumerate(self._gm_src)]
         else:
             gms = scatter(self._gm_src, out[4])
         return (*lists, gms)
 
-    def _merge(self, lives=None, old=None) -> None:
-        """Apply one merge pass; with ``lives`` (a 0-dim bool per shard) and
-        ``old`` (the pre-substep pos, vel, acc, radius, mass lists), a shard
-        whose flag is False keeps ``old`` and its gm. The shards' gm tensors
-        are updated in place, where the forces read them."""
+    def _merge(self, live=None, old=None) -> None:
+        """Apply one merge pass; with ``live`` (a 0-dim bool on the first
+        shard's device) and ``old`` (the pre-substep pos, vel, acc, radius,
+        mass lists), where ``live`` is False every shard keeps ``old`` and
+        its gm. The shards' gm tensors are updated in place, where the
+        forces read them."""
         pos, vel, radius, mass, gms = self._merged()
         acc = self.acc
-        if lives is not None:
+        if live is not None:
             def keep(new, prev):
-                return [torch.where(f, a, b) for f, a, b in zip(lives, new, prev)]
+                return [torch.where(live.to(a.device), a, b)
+                        for a, b in zip(new, prev)]
             pos, vel, acc, radius, mass = (
                 keep(a, b) for a, b in zip((pos, vel, acc, radius, mass), old))
             gms = keep(gms, self._gm_src)
@@ -508,11 +596,20 @@ class ShardedWorld:
         stacked = stack_frames(out)
         return stacked.cpu().numpy() if host else stacked
 
+    def _whole(self, what: str) -> None:
+        if self.group.size > 1:
+            raise RuntimeError(
+                f"ShardedWorld.{what} holds only this rank's shards of a "
+                f"world over {self.group.size} processes; call "
+                "parallel.multihost.gather_particles(world) on every rank "
+                "for the whole state")
+
     @property
     def state(self) -> Particles:
         """The padded state (``n_pad`` rows, shard order) gathered onto the
         first shard's device: the same view as ``World.state``, for
-        diagnostics and checks."""
+        diagnostics and checks. Raises over a group of several ranks."""
+        self._whole("state")
         dev0 = self.mesh[0]
 
         def cat(xs):
@@ -541,7 +638,7 @@ class ShardedWorld:
             src, gm = self._sources(ps)
             return self._masked(pm_acc_collective(
                 list(ps), src, gm, self._softening, grid=cfg.pm_grid,
-                tgt_mask=self.valid))
+                tgt_mask=self.valid, group=self.group))
         return force
 
     def _exact_core_bins(self):
@@ -551,7 +648,7 @@ class ShardedWorld:
             return None
         return p3m_exact_core_bins_collective(
             self.radius, exact_targets=self.config.p3m_exact_targets,
-            tgt_mask=self.valid)
+            tgt_mask=self.valid, group=self.group)
 
     def _p3m_bins(self, ps, big) -> dict:
         cfg = self.config
@@ -562,7 +659,7 @@ class ShardedWorld:
                 rc_cells=cfg.p3m_rc_cells,
                 cell_capacity=cfg.p3m_cell_capacity,
                 exact_targets=cfg.p3m_exact_targets, tgt_mask=self.valid,
-                big_bins=big)
+                big_bins=big, group=self.group)
 
     def _p3m_force(self, bins):
         """``force(ps) -> list``: the collective P³M through the frozen
@@ -574,7 +671,8 @@ class ShardedWorld:
             return self._masked(p3m_acc_collective_from_bins(
                 bins, list(ps), self.radius, src, gm, self._softening,
                 grid=cfg.pm_grid, rc_cells=cfg.p3m_rc_cells,
-                cell_capacity=cfg.p3m_cell_capacity, precise=cfg.precise))
+                cell_capacity=cfg.p3m_cell_capacity, precise=cfg.precise,
+                group=self.group))
         return force
 
     def _mesh_update(self, dt: float, n: int, extra_force) -> None:
@@ -649,7 +747,7 @@ class ShardedWorld:
         pos_in = self.pos
         if dkd:
             pos_in = []
-            for k in range(self.n_devices):
+            for k in range(len(self.mesh)):
                 with ring.on(k):
                     pos_in.append(self.pos[k] + (0.5 * dts[k]) * self.vel[k])
         if fused:
@@ -660,7 +758,7 @@ class ShardedWorld:
         acc = ring_force(ring, pos_in, self.radius, self.valid,
                          precise=cfg.precise, backend=self.force_backend)
         pos, vel = [], []
-        for k in range(self.n_devices):
+        for k in range(len(self.mesh)):
             with ring.on(k):
                 if extra_force is not None:
                     acc[k] = acc[k] + forces.checked_extra_acc(
@@ -673,7 +771,9 @@ class ShardedWorld:
     @property
     def particles(self) -> Particles:
         """The first N rows in shard order, as CPU tensors (partitioned
-        order, as ``World.particles``). Cached until the next update."""
+        order, as ``World.particles``). Cached until the next update.
+        Raises over a group of several ranks."""
+        self._whole("particles")
         if self._host_cache is None:
             n = self.total_len
 

@@ -44,11 +44,29 @@ def _world_extra(world, step: int) -> dict:
                 sim_config=_config_json(world.config))
 
 
+def _host_state(world) -> tuple[Particles, bool]:
+    """The world's N real rows on the host, and whether this process
+    writes them: a ShardedWorld over several processes gathers them
+    (``multihost.gather_particles``, every rank joining) and only rank 0
+    writes."""
+    group = getattr(world, "group", None)
+    if group is None or group.size == 1:
+        return world.particles, True
+    from ..parallel.multihost import gather_particles
+
+    return gather_particles(world), group.rank == 0
+
+
 def save_world(path: str, world, step: int = 0) -> None:
     """Checkpoint a World or ShardedWorld: its N real rows (host copy),
     the step counter, ``mass_len`` and the SimConfig, so that a resume
-    rebuilds the same physics without the caller supplying it again."""
-    save_particles(path, world.particles, **_world_extra(world, step))
+    rebuilds the same physics without the caller supplying it again. A
+    ShardedWorld over several processes is gathered from every rank (each
+    must call) and written by rank 0; it restores on a single-process
+    world (:func:`load_world` with ``ShardedWorld`` and a mesh)."""
+    particles, writer = _host_state(world)
+    if writer:
+        save_particles(path, particles, **_world_extra(world, step))
 
 
 def save_world_atomic(path: str, world, step: int = 0) -> None:
@@ -56,14 +74,18 @@ def save_world_atomic(path: str, world, step: int = 0) -> None:
     directory, fsync it, then rename it over ``path`` (POSIX rename), so a
     process killed mid-write never leaves a half-written file in place of
     the last good one. The file gets the mode a plain ``open`` would give
-    it under the current umask."""
+    it under the current umask. Over several processes, as
+    :func:`save_world`."""
+    particles, writer = _host_state(world)
+    if not writer:
+        return
     target = os.path.abspath(path)
     fd, tmp = tempfile.mkstemp(
         suffix=".npz", prefix=".ckpt-", dir=os.path.dirname(target) or ".")
     os.close(fd)
     try:
         os.chmod(tmp, 0o666 & ~_current_umask())
-        save_particles(tmp, world.particles, **_world_extra(world, step))
+        save_particles(tmp, particles, **_world_extra(world, step))
         with open(tmp, "rb+") as f:
             os.fsync(f.fileno())
         os.replace(tmp, target)

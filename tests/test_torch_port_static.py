@@ -60,7 +60,10 @@ def test_port_files_found():
                  "nbody_tpu_torch/utils/_native.py",
                  "nbody_tpu_torch/utils/cpp_oracle.py",
                  "nbody_tpu_torch/utils/cpp_galaxy.py",
-                 "nbody_tpu_torch/utils/profiling.py"):
+                 "nbody_tpu_torch/utils/profiling.py",
+                 "nbody_tpu_torch/parallel/multihost.py",
+                 "nbody_tpu_torch/ops/collective.py",
+                 "nbody_tpu_torch/viewer_sdl.py"):
         assert want in names
     for source in ("direct_vjp.cu", "p3m_pp_vjp.cu"):
         assert (ROOT / "nbody_tpu_torch" / "csrc" / source).is_file()
@@ -72,6 +75,16 @@ def test_no_jax_or_nbody_tpu_import(path):
     bad = [name for name, _ in _imported(tree)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_multihost_worker_imports_no_jax():
+    """The multi-process test's worker runs the port alone: no JAX and no
+    nbody_tpu, in the file or in what it imports from the repo."""
+    path = ROOT / "tests" / "torch_multihost_worker.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [name for name, _ in _imported(tree)]
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+    assert "nbody_tpu_torch.parallel" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
