@@ -72,11 +72,13 @@ Phases, each of which raises on failure:
      CUDA events beside K1's force_acc on the same inputs (and K5a's
      50-substep loop beside World.update), with the four launch counts;
      then K5h at a ragged N=50000 against the plain direct sum;
- 14. the rest of the ablation path, with the three launch counts from 0:
-     K5b's eight micro-variants (each also as a 50-substep loop beside
-     World.update), K5e's seven reductions and K5c's eight op-cost probes
-     (with the SASS length of each pair loop) at N=65536, through the one
-     flavored chunk kernel; K5f's nine expressions at (256, 2048), LO and
+ 14. the rest of the ablation path, with the four launch counts from 0:
+     K5b's eight micro-variants through its own kernel (csrc/v2_forces.cu,
+     after its pair loop's SASS a pair and registers per flavor at P = 1
+     and 2; each also as a 50-substep loop beside World.update), then
+     K5e's seven reductions and K5c's eight op-cost probes (with the SASS
+     length of each pair loop) at N=65536, through the flavored chunk
+     kernel; K5f's nine expressions at (256, 2048), LO and
      HI loops, with the SASS of each loop; K5i's four source broadcasts at
      the script's T=512, S=4096, REPS=2048, on its inputs (NaN where r2 < 0)
      and with the third target row made positive. Each against its plain
@@ -293,9 +295,9 @@ ABLATION_KERNELS = {
             "scripts/ablations/tune_r2d.py:37"),
     "K5h": ("nbody_tpu_torch/csrc/newton_forces.cu",
             "scripts/ablations/tune_r2h.py:49"),
-    "K5b-cols": ("nbody_tpu_torch/csrc/flavor_forces.cu",
+    "K5b-cols": ("nbody_tpu_torch/csrc/v2_forces.cu",
                  "scripts/ablations/tune_r2b.py:48"),
-    "K5b-rows": ("nbody_tpu_torch/csrc/flavor_forces.cu",
+    "K5b-rows": ("nbody_tpu_torch/csrc/v2_forces.cu",
                  "scripts/ablations/tune_r2b.py:85"),
     "K5c": ("nbody_tpu_torch/csrc/flavor_forces.cu",
             "scripts/ablations/tune_r2c.py:35"),
@@ -1581,16 +1583,17 @@ def phase_ablations(nt, df, device) -> dict:
     return out
 
 
-def phase_probes(device) -> dict:
+def phase_probes(device, _build, sass) -> dict:
     """[14]: K5b, K5e and K5c at N=65536, K5f and K5i at their scripts'
-    shapes, with the three launch counts from 0; for each kernel line, the
+    shapes, with the four launch counts from 0; for each kernel line, the
     best configuration (K5c at full, K5f at rsqrt), its plain version's
-    time and its bound."""
+    time and its bound. First K5b's pair loop per flavor and P."""
     from nbody_tpu_torch.ablations import (_scene, tune_r2b, tune_r2c, tune_r2e,
                                            tune_r2f, tune_r4d_bcast_probe)
     from nbody_tpu_torch.ops import bcast_probe as bp
     from nbody_tpu_torch.ops import flavor_forces as ff
     from nbody_tpu_torch.ops import op_probe as op
+    from nbody_tpu_torch.ops import v2_forces as v2
 
     t0 = time.perf_counter()
     log(f"[14] the rest of the ablation path: N={BENCH_N}, 2 galaxies, seed "
@@ -1598,23 +1601,28 @@ def phase_probes(device) -> dict:
     scene = _scene.make_scene(BENCH_N, device=device)
     k1_ms = _scene.header("scene", scene, log)
     n, m, s128 = scene.n, scene.mass_len, scene.s128
-    ff.LAUNCHES = op.LAUNCHES = bp.LAUNCHES = 0
-    log(" K5b: nbody_tpu_torch.ablations.tune_r2b")
+    lib = _build.library_path("v2_forces")
+    tune_r2b.pair_loops(sass.functions(lib), sass.ptxas_usage(
+        lib.with_suffix(".log").read_text()), log)
+    v2.LAUNCHES = ff.LAUNCHES = op.LAUNCHES = bp.LAUNCHES = 0
+    log(" K5b: nbody_tpu_torch.ablations.tune_r2b (csrc/v2_forces.cu)")
     k5b = tune_r2b.run(scene, k1_ms, log)
-    k5b_launches = ff.LAUNCHES
     log(" K5e: nbody_tpu_torch.ablations.tune_r2e")
     k5e = tune_r2e.run(scene, k1_ms, log)
-    k5e_launches = ff.LAUNCHES - k5b_launches
+    k5e_launches = ff.LAUNCHES
     log(" K5c: nbody_tpu_torch.ablations.tune_r2c")
     k5c = tune_r2c.run(scene, k1_ms, log)
-    k5c_launches = ff.LAUNCHES - k5b_launches - k5e_launches
+    k5c_launches = ff.LAUNCHES - k5e_launches
     log(" K5f: nbody_tpu_torch.ablations.tune_r2f")
     k5f = tune_r2f.run(device, log)
     log(" K5i: nbody_tpu_torch.ablations.tune_r4d_bcast_probe")
     k5i = tune_r4d_bcast_probe.run(device, log)
-    launches = {"flavor_forces": ff.LAUNCHES, "op_probe": op.LAUNCHES,
-                "bcast_probe": bp.LAUNCHES}
+    launches = {"v2_forces": v2.LAUNCHES, "flavor_forces": ff.LAUNCHES,
+                "op_probe": op.LAUNCHES, "bcast_probe": bp.LAUNCHES}
     log(f"  launches over the five sweeps: {launches}")
+    if not all(launches.values()):
+        raise SystemExit(f"chip_smoke: a kernel of [14] was not launched: "
+                         f"{launches}")
 
     out = {}
     direct = bound(FLOPS_DIRECT * n * m, 20 * n + 12 * m, MUFU_DIRECT * n * m)
@@ -1636,8 +1644,8 @@ def phase_probes(device) -> dict:
         best = min(mine, key=lambda r: r["ms"])
         c = best["config"]
         tg = tgt if rows else (scene.pos, scene.radius)
-        record(f"K5b-{layout}", best, plain_ms(lambda: ff.flavor_acc_plain(
-            tg, src, flavor=c["flavor"], p=c["p"], chunk=c["chunk"])),
+        record(f"K5b-{layout}", best, plain_ms(lambda: v2.v2_acc_plain(
+            tg, src, flavor=c["flavor"], chunk=c["chunk"])),
             direct, sum(r["launches"] for r in mine))
     best = min(k5e, key=lambda r: r["ms"])
     c = best["config"]
@@ -4092,7 +4100,7 @@ def main() -> int:
     phase_race(nt, sh, rf, df, galaxy_ref, load_hex_dump, scene_bench, device)
     shard = phase_sharded(sh, rf, df, scene_bench, scene_big, device)
     ablation = phase_ablations(nt, df, device)
-    ablation.update(phase_probes(device))
+    ablation.update(phase_probes(device, _build, sass))
     idle = [key for key in ABLATION_KERNELS if not ablation[key]["launches"]]
     if idle:
         raise SystemExit(f"chip_smoke: a kernel of the ablation path was not "

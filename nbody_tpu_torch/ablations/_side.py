@@ -1,4 +1,5 @@
-"""One side of ``tune_direct parent`` and ``tune_p3m parent``: the kernels
+"""One side of ``tune_direct parent``, ``tune_p3m parent`` (and of
+``tune_merge_vjp``, ``tune_pp_vjp`` and ``tune_r2b``'s): the kernels
 of whichever ``nbody_tpu_torch`` comes first on ``sys.path``, driven
 through its public wrappers alone (``create_world``,
 ``direct_forces.fused_substep``, ``ring_forces.ring_hop``, a "cuda_ring"
@@ -11,12 +12,12 @@ gives one.
 
 JOBS.json is a list of jobs, each {"what": "fused" | "hop" | "ring" |
 "pp" | "p3m" | "contacts" | "vjp" | "merging" | "rollout" | "pp_vjp" |
-"p3m_rollout", "n", ...} (the four after "p3m" are tune_merge_vjp's, the
-last two tune_pp_vjp's, below): "fused" is one fused substep
-of the N-particle
-two-galaxy world (seed 11037); "hop" that world's state as the only hop of
-a one-shard ring, with its epilogue; "ring" a profiler window over a
-"cuda_ring" ShardedWorld of ``d`` shards on the card; "pp" the P3M pair
+"p3m_rollout" | "v2", "n", ...} (the four after "p3m" are tune_merge_vjp's,
+the next two tune_pp_vjp's, "v2" tune_r2b's, below): "fused" is one fused
+substep of the N-particle two-galaxy world (seed 11037); "hop" that
+world's state as the only hop of a one-shard ring, with its epilogue;
+"ring" a profiler window over a "cuda_ring" ShardedWorld of ``d`` shards
+on the card; "pp" the P3M pair
 correction (K4) of that world's initial state with ``grid`` and ``cap``,
 the call that world.update(backend="p3m") makes (its output one (x, y) a
 target in cell order, 0 past a cell's cap); "p3m" ``substeps`` p3m
@@ -35,7 +36,12 @@ with a cotangent from seed 3 (its outputs the two row cotangents);
 "p3m_rollout" that world's "p3m" rollout, ``steps`` steps of 0.01 forward
 and backward, the loss sum(pos²); both also give the device ms of one
 call (a profiler window's busy time) and the peak MiB allocated above
-their inputs. A job's outputs go to
+their inputs. "v2" is one K5b configuration (``flavor``, ``rows``,
+``tile_t``, ``chunk``) on that world's scene (``ablations._scene``):
+``v2_forces.v2_acc`` where the tree has it, else
+``flavor_forces.flavor_acc`` with the same flavor, layout, tile and chunk,
+each at its own module's ``shape(tile_t)`` (its output the (N, 2) force,
+its times also its P). A job's outputs go to
 OUT_DIR/<index>.pt, and one
 JSON line a job gives its times (ms; "reps" calls between CUDA events, the
 best of "repeats"; a "p3m" job's ms are a substep's).
@@ -315,8 +321,39 @@ def backward_job(job: dict, device) -> tuple:
                           repeats)}, out
 
 
+def v2_job(job: dict, device, worlds: dict) -> tuple:
+    """(times, [the (N, 2) force]) of a "v2" job."""
+    import importlib.util
+
+    from nbody_tpu_torch.ablations import _scene
+    from nbody_tpu_torch.ops import flavor_forces as ff
+
+    key = ("scene", job["n"])
+    if key not in worlds:
+        worlds.clear()
+        worlds[key] = _scene.make_scene(job["n"], device=device)
+    sc = worlds[key]
+    src = sc.src3(sc.s128)
+    tgt = sc.tgt3() if job["rows"] else (sc.pos, sc.radius)
+    if importlib.util.find_spec("nbody_tpu_torch.ops.v2_forces") is None:
+        mod, acc = ff, ff.flavor_acc
+    else:
+        from nbody_tpu_torch.ops import v2_forces as mod
+        acc = mod.v2_acc
+    p, block = mod.shape(job["tile_t"])
+
+    def fn():
+        return acc(tgt, src, flavor=job["flavor"], p=p, block=block,
+                   chunk=job["chunk"])
+    out = [ff.as_acc(fn()).cpu()]
+    ms = best_ms(fn, job["reps"], job.get("repeats", 3)) if job.get("reps") else None
+    return {"ms": ms, "p": p}, out
+
+
 def run_job(job: dict, device, worlds: dict) -> tuple:
     """(times, output tensors or None) of one job."""
+    if job["what"] == "v2":
+        return v2_job(job, device, worlds)
     if job["what"] in ("contacts", "vjp", "merging", "rollout"):
         worlds.clear()
         return backward_job(job, device)

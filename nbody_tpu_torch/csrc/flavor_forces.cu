@@ -1,40 +1,37 @@
 // Force-only flavors of the chunked resident-source kernel, for NVIDIA
-// Hopper (sm_90a): the build-time variants that three TPU scripts compare.
+// Hopper (sm_90a): the build-time variants that two TPU scripts compare.
 //
 // Replaces the TPU kernels
-//   scripts/ablations/tune_r2b.py::make_v2 -> kernel_cols, kernel_rows (K5b)
 //   scripts/ablations/tune_r2e.py::make_v3 -> kernel (K5e)
 //   scripts/ablations/tune_r2c.py::make_probe -> kernel (K5c)
 // Each was K5a's kernel (a grid over target tiles, the (3, S) source row
 // resident in VMEM, a fori_loop over source chunks and a static tail) with
-// one thing changed: the target layout, the loop's unroll, the reduction
-// (a per-chunk sum, a (tile, 128) lane-partial carry, an FMA k-loop), the
-// association of f, or (K5c, a timing probe with wrong physics) one piece
-// of the pair math left out. Here each is source_tiles.cuh's chunk_body
-// with a pair policy, a sum policy and an unroll, P targets per thread,
-// block threads per block: the script's tile_t is P * block.
+// one thing changed: the reduction (a per-chunk sum, a (tile, 128)
+// lane-partial carry, an FMA k-loop), the association of f, the loop's
+// unroll, or (K5c, a timing probe with wrong physics) one piece of the pair
+// math left out. Here each is source_tiles.cuh's chunk_body with a pair
+// policy, a sum policy and an unroll, P targets per thread, block threads
+// per block: the script's tile_t is P * block. K5b (tune_r2b.py::make_v2)
+// has a kernel of its own, v2_forces.cu.
 //
-// Variants (the Python wrapper ops/flavor_forces.py names them):
-//   0 base: per-chunk run (the script's per-chunk jnp.sum), one chain
-//   1 unroll2: base, two 8-source batches per pass of the pair loop
-//   2 static: base, four batches per pass (the script unrolled its chunk
-//     loop at trace time; a runtime chunk count cannot be, so the pair
-//     loop is unrolled further instead)
-//   3 partial: K chains per chunk folded into K lane sums carried to the
-//     end (the (tile, 128) carry; no thread can hold 128 lanes)
+// Variants (the Python wrapper ops/flavor_forces.py names them; 1 and 2
+// were K5b's and are gone, the others keep their numbers):
+//   0 control, full: per-chunk run (the script's per-chunk jnp.sum), one
+//     chain
+//   3 partial_jnp: K chains per chunk folded into K lane sums carried to
+//     the end (the (tile, 128) carry; no thread can hold 128 lanes)
 //   4 fma_kloop: K chains fed straight by the pair's FFMAs, folded into
 //     the total every kRun sources (one level; a chain of S/K terms over
 //     the whole sweep rounds past 5e-6 at K <= 4)
-//   5 f_assoc: base with f = (gm * inv) * (inv * inv)
-//   6 unroll16: base, sixteen batches per pass
+//   5 f_assoc: 0 with f = (gm * inv) * (inv * inv)
+//   6 unroll16: 0, sixteen batches per pass
 //   7 skeleton: ax += dx only, ay stays 0
 //   8 no_rsqrt: f = r2          9 no_cube: f = inv     10 no_gm: f = inv^3
-//   11 one_axis: base without ay
+//   11 one_axis: 0 without ay
 //   12 no_reduce: only the first source of each staged chunk counts
 // K = 8 chains at P <= 2, 4 at P = 4, 2 at P = 8 (the registers of 512
-// threads). Variants 0-5 take (3, T) rows at P = 1, 2, 4, 8; 0-3 also
-// (T, 2) positions and a (T,) radius (the script's kernel_cols); 6-12 take
-// rows at P = 1 (the script's TILE_T 512). Source splits as K5g's.
+// threads). Targets are (3, T) rows. Variants 0 and 3-5 run at P = 1, 2, 4,
+// 8; 6-12 at P = 1 (the script's TILE_T 512). Source splits as K5g's.
 //
 // What bounds it on an H100: per pair about ten fp32 instructions, one
 // MUFU rsqrt and a shared-memory read served to P targets, as K5a; the
@@ -111,8 +108,6 @@ constexpr int chains() { return P <= 2 ? 8 : 16 / P; }
 // Variant V's policies at P targets per thread.
 template <int V, int P> struct Variant;
 template <int P> struct Variant<0, P> { using Pair = DirectPair<false>; using Sum = ChunkSum; static constexpr int kUnroll = 1; };
-template <int P> struct Variant<1, P> : Variant<0, P> { static constexpr int kUnroll = 2; };
-template <int P> struct Variant<2, P> : Variant<0, P> { static constexpr int kUnroll = 4; };
 template <int P> struct Variant<3, P> : Variant<0, P> { using Sum = SumPolicy<0, chains<P>(), true>; };
 template <int P> struct Variant<4, P> : Variant<0, P> { using Sum = SumPolicy<kRun, chains<P>(), false>; };
 template <int P> struct Variant<5, P> : Variant<0, P> { using Pair = AssocPair; };
@@ -124,10 +119,6 @@ template <int P> struct Variant<10, P> : Variant<0, P> { using Pair = NoGmPair; 
 template <int P> struct Variant<11, P> : Variant<0, P> { using Pair = OneAxisPair; };
 template <int P> struct Variant<12, P> : Variant<0, P> { using Pair = FirstOnlyPair; };
 
-constexpr int kVariants = 13;
-constexpr int kRowVariants = 6;   // 0-5 at every P
-constexpr int kColVariants = 4;   // 0-3 on (T, 2) targets
-
 template <int P, class Targets, int V>
 __global__ void __launch_bounds__(kMaxBlock)
 flavor_kernel(Targets targets, const float* __restrict__ src, int n_tgt,
@@ -138,73 +129,58 @@ flavor_kernel(Targets targets, const float* __restrict__ src, int n_tgt,
       targets, src, n_tgt, n_src, chunk, chunks_per_split, out);
 }
 
-// Variant `variant` of the first N, by a chain of compile-time tests (only
-// those N are instantiated).
-template <int P, class Targets, int N, int V = 0>
-cudaError_t launch_variant(int variant, Targets t, const float* s, int n_tgt,
-                           int n_src, int block, int chunk, int n_split,
-                           float* part, float* out, cudaStream_t st) {
-  if constexpr (V >= N) {
+// Variant `variant` of the list V, Rest... (only those are instantiated,
+// each on row targets; the kernel keeps its Targets parameter, so that its
+// name is the same in every build).
+template <int P, int V, int... Rest>
+cudaError_t launch_variant(int variant, const float* t, const float* s,
+                           int n_tgt, int n_src, int block, int chunk,
+                           int n_split, float* part, float* out,
+                           cudaStream_t st) {
+  if (variant == V)
+    return launch_chunks<P>(flavor_kernel<P, RowTargets, V>, RowTargets{t},
+                            s, n_tgt, n_src, block, chunk, n_split, part, out,
+                            st);
+  if constexpr (sizeof...(Rest) > 0)
+    return launch_variant<P, Rest...>(variant, t, s, n_tgt, n_src, block,
+                                      chunk, n_split, part, out, st);
+  else
     return cudaErrorInvalidValue;
-  } else {
-    if (variant == V)
-      return launch_chunks<P>(flavor_kernel<P, Targets, V>, t, s, n_tgt,
-                              n_src, block, chunk, n_split, part, out, st);
-    return launch_variant<P, Targets, N, V + 1>(variant, t, s, n_tgt, n_src,
-                                                block, chunk, n_split, part,
-                                                out, st);
-  }
 }
 
-// P = 1 takes the first N1 variants, wider P the first N.
-template <class Targets, int N1, int N>
-cudaError_t launch_p(int p, int variant, Targets t, const float* s,
+// P = 1 takes every variant, wider P 0 and 3-5.
+cudaError_t launch_p(int p, int variant, const float* t, const float* s,
                      int n_tgt, int n_src, int block, int chunk, int n_split,
                      float* part, float* out, cudaStream_t st) {
   switch (p) {
-    case 1: return launch_variant<1, Targets, N1>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
-    case 2: return launch_variant<2, Targets, N>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
-    case 4: return launch_variant<4, Targets, N>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
-    case 8: return launch_variant<8, Targets, N>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
+    case 1: return launch_variant<1, 0, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
+    case 2: return launch_variant<2, 0, 3, 4, 5>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
+    case 4: return launch_variant<4, 0, 3, 4, 5>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
+    case 8: return launch_variant<8, 0, 3, 4, 5>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Force of the (3, n_src) sources x; y; gm at `src` on n_tgt targets, by
-// variant `variant` (above) at p targets per thread. rows = 1: tgt_a is
-// the (3, n_tgt) rows x; y; r, tgt_b unused, out (2, n_tgt); rows = 0:
-// tgt_a the (n_tgt, 2) positions, tgt_b the (n_tgt,) radius, out
-// (n_tgt, 2). block: a multiple of 32 up to 512; chunk: a multiple of 8
-// up to 12288; n_split >= 1 source ranges of whole chunks, whose
-// (n_split, ...) partials go to `part` (unused when n_split = 1). Device
-// pointers to contiguous fp32 arrays. Returns the cudaError_t of the
-// launches (0 on success).
-extern "C" int nbody_flavor_forces(const void* tgt_a, const void* tgt_b,
-                                   const void* src, int n_tgt, int n_src,
-                                   int rows, int variant, int p, int block,
-                                   int chunk, int n_split, void* part,
-                                   void* out, void* stream) {
+// Force of the (3, n_src) sources x; y; gm at `src` on the (3, n_tgt)
+// target rows x; y; r at `tgt`, by variant `variant` (above) at p targets
+// per thread, into the (2, n_tgt) rows at `out`. block: a multiple of 32 up
+// to 512; chunk: a multiple of 8 up to 12288; n_split >= 1 source ranges of
+// whole chunks, whose (n_split, 2, n_tgt) partials go to `part` (unused
+// when n_split = 1). Device pointers to contiguous fp32 arrays. Returns the
+// cudaError_t of the launches (0 on success).
+extern "C" int nbody_flavor_forces(const void* tgt, const void* src,
+                                   int n_tgt, int n_src, int variant, int p,
+                                   int block, int chunk, int n_split,
+                                   void* part, void* out, void* stream) {
   if (n_tgt <= 0) return static_cast<int>(cudaSuccess);
   if (block < 32 || block > kMaxBlock || block % 32 || chunk < 8 ||
-      chunk > 12288 || chunk % 8 || n_split < 1 || n_split > 65535 ||
-      variant < 0)
+      chunk > 12288 || chunk % 8 || n_split < 1 || n_split > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* s = static_cast<const float*>(src);
-  auto* pt = static_cast<float*>(part);
-  auto* o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (rows) {
-    const RowTargets t{static_cast<const float*>(tgt_a)};
-    err = launch_p<RowTargets, kVariants, kRowVariants>(
-        p, variant, t, s, n_tgt, n_src, block, chunk, n_split, pt, o, st);
-  } else {
-    const PairTargets t{static_cast<const float2*>(tgt_a),
-                        static_cast<const float*>(tgt_b)};
-    err = launch_p<PairTargets, kColVariants, kColVariants>(
-        p, variant, t, s, n_tgt, n_src, block, chunk, n_split, pt, o, st);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_p(
+      p, variant, static_cast<const float*>(tgt),
+      static_cast<const float*>(src), n_tgt, n_src, block, chunk, n_split,
+      static_cast<float*>(part), static_cast<float*>(out),
+      static_cast<cudaStream_t>(stream)));
 }

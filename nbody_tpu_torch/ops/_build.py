@@ -93,6 +93,14 @@ SIGNATURES = {
     },
     "flavor_forces": {
         "nbody_flavor_forces": [
+            _vp, _vp,                  # tgt (3, T), src (3, S)
+            _i32, _i32,                # n_tgt, n_src
+            _i32, _i32, _i32,          # variant, p, block
+            _i32, _i32,                # chunk, n_split
+            _vp, _vp, _vp],            # partials, out (2, T), stream
+    },
+    "v2_forces": {
+        "nbody_v2_forces": [
             _vp, _vp, _vp,             # tgt rows or pos, radius, src (3, S)
             _i32, _i32,                # n_tgt, n_src
             _i32, _i32, _i32, _i32,    # rows, variant, p, block

@@ -1,8 +1,7 @@
-"""Build-time flavors of the chunked force (K5b, K5e, K5c): the CUDA kernel's
+"""Build-time flavors of the chunked force (K5e, K5c): the CUDA kernel's
 wrapper and a plain PyTorch version of each flavor.
 
-Counterparts of ``make_v2`` in ``scripts/ablations/tune_r2b.py`` (its
-``kernel_cols`` and ``kernel_rows``), ``make_v3`` in ``tune_r2e.py`` and
+Counterparts of ``make_v3`` in ``scripts/ablations/tune_r2e.py`` and
 ``make_probe`` in ``tune_r2c.py``. The kernel is ``csrc/flavor_forces.cu``:
 ``source_tiles.cuh``'s chunked force (K5a and K5g's) with a pair policy, a
 sum policy and an unroll chosen at build time, P targets per thread and
@@ -12,13 +11,10 @@ block``. Each script flavor maps to one variant:
 ======================  ===========================================  =====
 script flavor           Hopper variant                               P
 ======================  ===========================================  =====
-K5b base, rows; K5e     per-chunk run (the script's per-chunk        any
-control; K5c full       ``jnp.sum``), one chain
-K5b ``unroll=2``        ``unroll2``: two 8-source batches per pass   any
-K5b static              ``static``: four batches per pass (a         any
-                        runtime chunk count cannot be unrolled)
-K5b partial, K5e        ``partial``: K chains per chunk folded into  any
-partial_jnp             K lane sums, summed in lane order at the end
+K5e control; K5c full   per-chunk run (the script's per-chunk        any
+                        ``jnp.sum``), one chain
+K5e partial_jnp         ``partial``: K chains per chunk folded into  any
+                        K lane sums, summed in lane order at the end
 K5e fma_kloop           K chains fed straight by the FFMAs, folded   any
                         into the total every 256 sources
 K5e f_assoc             f = (gm·inv)·(inv·inv), per-chunk run        any
@@ -30,12 +26,11 @@ one_axis, no_reduce     no_reduce adds the first source of each
 ======================  ===========================================  =====
 
 K (:func:`chains`) is 8 at P <= 2, 4 at P = 4 and 2 at P = 8: the TPU's 128
-lane partials, as many as a thread's registers hold at 512 threads. The
-column layout (``tgt`` a pair (pos (T, 2), radius (T,)), result (T, 2)) is
-the script's ``kernel_cols`` and takes variants 0-3 (K5b's); the row layout
-(``tgt`` (3, T) rows x; y; r, result ((1, T), (1, T))) takes every flavor.
-When the target blocks cannot fill the card, the source sum is split into
-ranges of whole chunks as K5g's (:func:`~.ptile_forces.split_plan`).
+lane partials, as many as a thread's registers hold at 512 threads. Targets
+are (3, T) rows x; y; r, results ((1, T), (1, T)). K5b (``make_v2``, with
+its column layout) has a kernel of its own, :mod:`.v2_forces`. When the
+target blocks cannot fill the card, the source sum is split into ranges of
+whole chunks as K5g's (:func:`~.ptile_forces.split_plan`).
 
 Each plain version follows the kernel's association: the per-chunk sums
 added in chunk order, the chains and the lane sums folded in order, the
@@ -54,13 +49,8 @@ from .ptile_forces import PS, split_plan
 
 # name: (variant of csrc/flavor_forces.cu, pair math, sum)
 FLAVORS = {
-    "base": (0, "direct", "chunk"),
-    "rows": (0, "direct", "chunk"),
     "control": (0, "direct", "chunk"),
     "full": (0, "direct", "chunk"),
-    "unroll2": (1, "direct", "chunk"),
-    "static": (2, "direct", "chunk"),
-    "partial": (3, "direct", "lanes"),
     "partial_jnp": (3, "direct", "lanes"),
     "fma_kloop": (4, "direct", "chains"),
     "f_assoc": (5, "assoc", "chunk"),
@@ -72,7 +62,6 @@ FLAVORS = {
     "one_axis": (11, "one_axis", "chunk"),
     "no_reduce": (12, "direct", "first"),
 }
-COL_VARIANTS = 4           # variants 0-3 (K5b's) also take the column layout
 WIDE_VARIANTS = 6          # variants 0-5 run at every P, the others at P = 1
 RUN = 256                  # csrc/source_tiles.cuh kRun: fma_kloop's close
 MAX_BLOCK = 512
@@ -109,13 +98,13 @@ def plain_key(flavor: str, p: int, chunk: int) -> tuple:
 
 
 def as_acc(out) -> torch.Tensor:
-    """(T, 2) from either layout's result."""
+    """(T, 2) from a (T, 2) result or a ((1, T), (1, T)) row pair."""
     if isinstance(out, torch.Tensor):
         return out
     return torch.stack([out[0][0], out[1][0]], dim=-1)
 
 
-def _check_flavor(flavor: str, p: int, block: int, chunk: int, rows: bool):
+def _check_flavor(flavor: str, p: int, block: int, chunk: int):
     if flavor not in FLAVORS:
         raise ValueError(f"flavor must be one of {sorted(FLAVORS)}, got {flavor!r}")
     if p not in PS:
@@ -126,8 +115,6 @@ def _check_flavor(flavor: str, p: int, block: int, chunk: int, rows: bool):
         raise ValueError(f"chunk must be a multiple of 8 in [8, 12288], got {chunk}")
     if FLAVORS[flavor][0] >= WIDE_VARIANTS and p != 1:
         raise ValueError(f"flavor {flavor!r} runs at p = 1 only, got {p}")
-    if not rows and FLAVORS[flavor][0] >= COL_VARIANTS:
-        raise ValueError(f"flavor {flavor!r} takes (3, T) target rows only")
 
 
 def _terms(pair: str, tx, ty, soft, sx, sy, gm):
@@ -196,20 +183,15 @@ def _reduce(e, how: str, chunk: int, k: int):
     return _fold(runs)
 
 
-def flavor_acc_plain(tgt, src, *, flavor: str = "base", p: int = 1,
-                     chunk: int = 2048):
-    """Plain version of :func:`flavor_acc`, in the same layout, over blocks
-    of targets (2**25 pair terms a block on the card, 2**22 on the CPU)."""
-    rows = isinstance(tgt, torch.Tensor)
-    _, pair, how = FLAVORS[flavor]
-    if rows:
-        tx, ty, tr = tgt[0], tgt[1], tgt[2]
-    else:
-        pos, radius = tgt
-        tx, ty, tr = pos[:, 0], pos[:, 1], radius
+def chunked_sum_plain(tgt, src, *, pair: str = "direct", how: str = "chunk",
+                      chunk: int = 2048, k: int = 1):
+    """The force on (3, T) target rows by pair math ``pair`` (:func:`_terms`)
+    and sum ``how`` over chunks of ``chunk`` with ``k`` chains
+    (:func:`_reduce`), ((1, T), (1, T)), over blocks of targets (2**25 pair
+    terms a block on the card, 2**22 on the CPU)."""
+    tx, ty, tr = tgt[0], tgt[1], tgt[2]
     t, s = tx.shape[0], src.shape[-1]
     soft = tr + SOFTENING_FLOOR
-    k = chains(p)
     elems = 1 << (25 if src.device.type == "cuda" else 22)
     step = max(1, elems // max(s, 1))
     ax, ay = torch.zeros_like(tx), torch.zeros_like(tx)
@@ -220,53 +202,50 @@ def flavor_acc_plain(tgt, src, *, flavor: str = "base", p: int = 1,
         ax[sl] = _reduce(ex, how, chunk, k)
         if ey is not None:
             ay[sl] = _reduce(ey, how, chunk, k)
-    if rows:
-        return ax[None], ay[None]
-    return torch.stack([ax, ay], dim=-1)
+    return ax[None], ay[None]
+
+
+def flavor_acc_plain(tgt, src, *, flavor: str = "control", p: int = 1,
+                     chunk: int = 2048):
+    """Plain version of :func:`flavor_acc`."""
+    _, pair, how = FLAVORS[flavor]
+    return chunked_sum_plain(tgt, src, pair=pair, how=how, chunk=chunk,
+                             k=chains(p))
 
 
 def flavor_acc(
-    tgt,                # (3, T) rows x; y; r, or (pos (T, 2), radius (T,))
+    tgt: torch.Tensor,  # (3, T) rows x; y; r
     src: torch.Tensor,  # (3, S) rows x; y; gm
     *,
-    flavor: str = "base",
+    flavor: str = "control",
     p: int = 1,
     block: int = 512,
     chunk: int = 2048,
 ):
-    """The force by one flavor (module docstring): ((1, T), (1, T)) for
-    (3, T) rows, (T, 2) for a (pos, radius) pair, over K5g's source split
-    plan in one counted launch."""
-    rows = isinstance(tgt, torch.Tensor)
+    """(ax, ay), each (1, T), by one flavor (module docstring), over K5g's
+    source split plan in one counted launch."""
+    if not isinstance(tgt, torch.Tensor):
+        raise ValueError("flavor_acc takes (3, T) target rows; K5b's column "
+                         "layout is ops.v2_forces.v2_acc's")
     src_dev = _device_of(src)
-    if rows:
-        t = tgt.shape[-1]
-        _check("tgt", tgt, (3, t), src_dev)
-        ptrs = (tgt.data_ptr(), None)
-    else:
-        pos, radius = tgt
-        t = pos.shape[0]
-        _check("tgt_pos", pos, (t, 2), src_dev)
-        _check("tgt_radius", radius, (t,), src_dev)
-        ptrs = (pos.data_ptr(), radius.data_ptr())
-    s = src.shape[-1]
+    t, s = tgt.shape[-1], src.shape[-1]
+    _check("tgt", tgt, (3, t), src_dev)
     _check("src", src, (3, s), src_dev)
-    _check_flavor(flavor, p, block, chunk, rows)
+    _check_flavor(flavor, p, block, chunk)
     if src_dev.type == "cpu":
         return flavor_acc_plain(tgt, src, flavor=flavor, p=p, chunk=chunk)
     n_split = split_plan(t, s, p, block, chunk, sm_count(
         src_dev.index if src_dev.index is not None
         else torch.cuda.current_device()))
     global LAUNCHES
-    out = torch.empty((2, t) if rows else (t, 2), dtype=torch.float32,
-                      device=src_dev)
-    part = (torch.empty((n_split, *out.shape), dtype=torch.float32,
-                        device=src_dev) if n_split > 1 else out)
+    out = torch.empty((2, t), dtype=torch.float32, device=src_dev)
+    part = (torch.empty((n_split, 2, t), dtype=torch.float32, device=src_dev)
+            if n_split > 1 else out)
     with torch.cuda.device(src_dev):
         err = _lib().nbody_flavor_forces(
-            *ptrs, src.data_ptr(), t, s, int(rows), FLAVORS[flavor][0], p,
+            tgt.data_ptr(), src.data_ptr(), t, s, FLAVORS[flavor][0], p,
             block, chunk, n_split, part.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, f"flavor_forces ({flavor})")
     LAUNCHES += 1
-    return (out[0:1], out[1:2]) if rows else out
+    return out[0:1], out[1:2]

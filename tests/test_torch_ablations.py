@@ -1,5 +1,5 @@
-"""The ablation path's plain versions (K5a, K5g, K5d, K5h, and the flavors
-of K5b, K5e and K5c) against the TPU scripts' Pallas kernels in
+"""The ablation path's plain versions (K5a, K5g, K5d, K5h, K5b's flavors,
+and the flavors of K5e and K5c) against the TPU scripts' Pallas kernels in
 scripts/ablations/, run in Pallas interpret mode on the CPU, on the same
 numpy inputs: the two-galaxy scene, seed 11037, at N=2048, 4096 and 8192
 (mass_len 1004, 2012 and 4070; S128 1024, 2048 and 4096). The K5b, K5e and
@@ -43,6 +43,7 @@ from nbody_tpu_torch.ops import op_probe as op
 from nbody_tpu_torch.ops import ptile_forces as ptf
 from nbody_tpu_torch.ops import resident_forces as rsf
 from nbody_tpu_torch.ops import stationary_forces as stf
+from nbody_tpu_torch.ops import v2_forces as v2
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts" / "ablations"
 TOL = 5e-6
@@ -256,16 +257,60 @@ K5B = {("base", 1): "base", ("base", 2): "unroll2", ("partial", 1): "partial",
 @pytest.mark.parametrize("flavor,unroll", list(K5B))
 @pytest.mark.parametrize("n", [4096, 8192])
 def test_k5b_plain_matches_script(interpret, n, flavor, unroll):
-    """Tile 512 (P = 1 at block 512), chunk 1024. Bound 5e-6 (TOL)."""
+    """Tile 512 (P = 2 at block 256), chunk 1024, through ``v2_forces``.
+    Bound 5e-6 (TOL)."""
     sc, pos, radius, gm, m = _scene_np(n)
     src = sc.src3(sc.s128)
     want = np.asarray(_script("tune_r2b").make_v2(flavor, 512, 1024, unroll)(
         jnp.asarray(pos), jnp.asarray(radius), jnp.asarray(src.numpy())))
     tgt = sc.tgt3() if flavor == "rows" else (sc.pos, sc.radius)
-    got = ff.as_acc(ff.flavor_acc(tgt, src, flavor=K5B[flavor, unroll],
-                                  p=1, block=512, chunk=1024))
+    p, block = v2.shape(512)
+    got = ff.as_acc(v2.v2_acc(tgt, src, flavor=K5B[flavor, unroll], p=p,
+                              block=block, chunk=1024))
     assert got.shape == (n, 2)
     assert rel_err(got, want) < TOL
+
+
+def test_v2_plain_follows_the_kernels_sums():
+    """K5b's plain version, term by term on a small case (3 targets, 40
+    sources, chunks of 16): each chunk's terms summed, the sums added in
+    chunk order; partial: chain c of a chunk (sources c, c + 8, ...)
+    added to lane c across chunks, the lanes folded in order. Both layouts
+    give the same bits."""
+    rng = np.random.default_rng(0)
+    tgt = torch.from_numpy(np.stack([rng.normal(size=3), rng.normal(size=3),
+                                     rng.uniform(1, 2, 3)]).astype(np.float32))
+    src = torch.from_numpy(np.stack([rng.normal(size=40), rng.normal(size=40),
+                                     rng.uniform(1, 9, 40)]).astype(np.float32))
+    dx = src[0][None] - tgt[0][:, None]
+    dy = src[1][None] - tgt[1][:, None]
+    inv = torch.rsqrt(dx * dx + dy * dy + (tgt[2] + 1e-18)[:, None])
+    f = src[2][None] * (inv * inv * inv)
+    fold = ff._fold
+    for e, got_row in zip((dx * f, dy * f), range(2)):
+        base = fold([e[:, a:a + 16].sum(1) for a in (0, 16, 32)])
+        lanes = fold([torch.stack([e[:, a + c:a + 16:8].sum(1)
+                                   for c in range(8)], 1)
+                      for a in (0, 16, 32)])
+        partial = fold(list(lanes.unbind(1)))
+        for flavor, want in (("base", base), ("static", base),
+                             ("partial", partial)):
+            rows = v2.v2_acc_plain(tgt, src, flavor=flavor, chunk=16)
+            cols = v2.v2_acc_plain((tgt[:2].T.contiguous(), tgt[2]), src,
+                                   flavor=flavor, chunk=16)
+            assert torch.equal(rows[got_row][0], want)
+            assert torch.equal(cols[:, got_row], want)
+
+
+@pytest.mark.parametrize("flavor,rows", [
+    *((f, True) for f in ("base", "rows", "unroll2", "static", "partial")),
+    ("control", False)])
+def test_flavor_forces_refuses_k5b(flavor, rows):
+    """K5b's flavors and its column layout moved to ``v2_forces``."""
+    sc, *_ = _scene_np(2048)
+    tgt = sc.tgt3() if rows else (sc.pos, sc.radius)
+    with pytest.raises(ValueError):
+        ff.flavor_acc(tgt, sc.src3(sc.s128), flavor=flavor)
 
 
 # --- K5e: tune_r2e.py::make_v3 ---
@@ -328,14 +373,15 @@ def test_flavor_plain_follows_the_kernels_sums():
 
 def test_cpu_wrappers_make_no_launch():
     sc, *_ = _scene_np(2048)
-    counters = (rsf, ptf, stf, nwf, ff, op, bp)
+    counters = (rsf, ptf, stf, nwf, ff, v2, op, bp)
     before = tuple(c.LAUNCHES for c in counters)
     rsf.v2_acc(sc.pos, sc.radius, sc.src3(sc.s128))
     ptf.ptile_acc(sc.tgt3(), sc.src3(sc.s128))
     stf.stationary_acc(sc.tgt3(), sc.src3(1024), chunk=512)
     nwf.newton_acc(sc.tgt4(), sc.src4(sc.s128), sc.mass_len)
     ff.flavor_acc(sc.tgt3(), sc.src3(sc.s128), flavor="fma_kloop", p=4)
-    ff.flavor_acc((sc.pos, sc.radius), sc.src3(sc.s128), flavor="partial")
+    v2.v2_acc((sc.pos, sc.radius), sc.src3(sc.s128), flavor="partial")
+    v2.v2_acc(sc.tgt3(), sc.src3(sc.s128), flavor="static", p=1, block=512)
     op.op_probe(sc.pos, sc.pos, expr="rsqrt", loops=3)
     bp.bcast_acc(sc.tgt3(), sc.src3(1024), reps=2)
     assert tuple(c.LAUNCHES for c in counters) == before
@@ -357,6 +403,11 @@ def test_cpu_wrappers_make_no_launch():
     (lambda sc: ff.flavor_acc(sc.tgt3(), sc.src3(128), block=1024), ValueError),
     (lambda sc: ff.flavor_acc(sc.tgt3(), sc.src3(128), chunk=100), ValueError),
     (lambda sc: ff.flavor_acc(sc.tgt3().double(), sc.src3(128)), TypeError),
+    (lambda sc: v2.v2_acc(sc.tgt3(), sc.src3(128), flavor="control"), ValueError),
+    (lambda sc: v2.v2_acc(sc.tgt3(), sc.src3(128), p=4), ValueError),
+    (lambda sc: v2.v2_acc(sc.tgt3(), sc.src3(128), block=1024), ValueError),
+    (lambda sc: v2.v2_acc(sc.tgt3(), sc.src3(128), chunk=v2.MAX_CHUNK + 8), ValueError),
+    (lambda sc: v2.v2_acc((sc.pos, sc.radius[:5]), sc.src3(128)), ValueError),
     (lambda sc: op.op_probe(sc.pos, sc.radius, expr="add", loops=3), ValueError),
     (lambda sc: op.op_probe(sc.pos, sc.pos, expr="exp", loops=3), ValueError),
     (lambda sc: op.op_probe(sc.pos, sc.pos, expr="add", loops=-1), ValueError),
@@ -458,14 +509,38 @@ def test_parent_side_pp_job_gives_rows_in_cell_order(route, monkeypatch):
 
 @pytest.mark.parametrize("module", [tune_r2b, tune_r2e])
 def test_flavor_sweeps_are_launchable(module):
-    """Every configuration of K5b's and K5e's sweeps passes the flavor
-    wrapper's checks, with tile_t = P * block."""
+    """Every configuration of K5b's sweep passes ``v2_forces``' checks, and
+    of K5e's the flavor wrapper's, with tile_t = P * block; K5b runs two
+    targets a thread at every tile of its sweep (256 and up)."""
     for cfg in module.SWEEP:
-        flavor, tile_t, chunk = (cfg[1], cfg[3], cfg[4]) if module is tune_r2b else cfg
-        rows = module is tune_r2e or cfg[2]
-        p, block = ff.shape(tile_t)
+        if module is tune_r2b:
+            _, flavor, _, tile_t, chunk = cfg
+            p, block = v2.shape(tile_t)
+            assert p == 2
+            v2._check_v2(flavor, p, block, chunk)
+        else:
+            flavor, tile_t, chunk = cfg
+            p, block = ff.shape(tile_t)
+            ff._check_flavor(flavor, p, block, chunk)
         assert p * block == tile_t
-        ff._check_flavor(flavor, p, block, chunk, rows)
+
+
+@pytest.mark.parametrize("rows", [False, True])
+def test_parent_side_v2_job_runs_the_v2_wrapper(rows):
+    """``tune_r2b parent``'s job drives ``v2_forces.v2_acc`` in a tree that
+    has it; on CPU tensors that is the plain version, in (N, 2) form."""
+    from nbody_tpu_torch.ablations import _side
+
+    job = {"what": "v2", "n": 2048, "flavor": "partial", "rows": rows,
+           "tile_t": 512, "chunk": 1024}
+    times, (got,) = _side.run_job(job, torch.device("cpu"), {})
+    assert times == {"ms": None, "p": 2}
+    sc, *_ = _scene_np(2048)
+    tgt = sc.tgt3() if rows else (sc.pos, sc.radius)
+    want = ff.as_acc(v2.v2_acc_plain(tgt, sc.src3(sc.s128), flavor="partial",
+                                     chunk=1024))
+    assert torch.equal(got, want)
+    assert [j["what"] for j in tune_r2b.jobs()] == ["v2"] * len(tune_r2b.SWEEP)
 
 
 @pytest.mark.parametrize("module", [tune_r2, tune_r2g, tune_r2d, tune_r2h])

@@ -30,6 +30,7 @@ from nbody_tpu_torch.ops import newton_forces as nwf
 from nbody_tpu_torch.ops import ptile_forces as ptf
 from nbody_tpu_torch.ops import resident_forces as rsf
 from nbody_tpu_torch.ops import stationary_forces as stf
+from nbody_tpu_torch.ops import v2_forces as v2
 from nbody_tpu_torch.ops import p3m_forces, p3m_pp
 from nbody_tpu_torch.ops import ring_forces as rf
 from nbody_tpu_torch.parallel import ShardedWorld, make_mesh
@@ -565,33 +566,73 @@ def test_newton_acc_matches_plain_and_direct_sum(cuda, n, tile):
     assert rel_err(got.T.cpu(), sc.control().cpu()) < TOL
 
 
-# --- K5b, K5e, K5c, K5f, K5i: the flavored chunk kernel and the probes ---
+# --- K5b: its own kernel ---
+
+@pytest.mark.parametrize("flavor", ["base", "unroll2", "static", "partial"])
+@pytest.mark.parametrize("p", v2.PS)
+@pytest.mark.parametrize("rows", [False, True])
+@pytest.mark.parametrize("extra", [37, None])
+def test_k5b_v2_acc_matches_plain(cuda, flavor, p, rows, extra):
+    """Every flavor at P = 1 and 2 in both layouts against its plain
+    version on the N=4096 scene, chunks of 1024: 2049 source rows (a last
+    chunk of one source, 4-byte copies) or S128 = 2048 (16-byte copies),
+    twice bit-equal, one launch a call. Bound TOL: the plain version
+    follows the kernel's association but sums each chunk in its own
+    order."""
+    sc = _scene(cuda, 4096)
+    tgt = sc.tgt3() if rows else (sc.pos, sc.radius)
+    src = sc.src3(sc.s128 if extra is None else sc.mass_len + extra)
+    before = v2.LAUNCHES
+    got, same = _twice(lambda: v2.v2_acc(tgt, src, flavor=flavor, p=p,
+                                         block=256, chunk=1024))
+    assert v2.LAUNCHES == before + 2 and same
+    want = v2.v2_acc_plain(tgt, src, flavor=flavor, chunk=1024)
+    want = torch.cat(want) if rows else want
+    assert got.shape == want.shape
+    assert torch.isfinite(got).all()
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+def test_k5b_v2_acc_launch_error_raises(cuda, monkeypatch):
+    """A failed launch on CUDA tensors raises; the wrapper never takes its
+    plain version there."""
+    sc = _scene(cuda, 4096)
+
+    class Failing:
+        def nbody_v2_forces(self, *args):
+            return 1   # cudaErrorInvalidValue
+
+    monkeypatch.setattr(v2, "_lib", Failing)
+    before = v2.LAUNCHES
+    with pytest.raises(RuntimeError, match="v2_forces"):
+        v2.v2_acc(sc.tgt3(), sc.src3(sc.s128))
+    assert v2.LAUNCHES == before
+
+
+# --- K5e, K5c, K5f, K5i: the flavored chunk kernel and the probes ---
 
 def _bits_equal(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-@pytest.mark.parametrize("flavor,p,rows", [
-    *((f, 1, True) for f in ff.FLAVORS if f not in ("rows", "control", "full")),
-    *((f, p, False) for f in ("base", "unroll2", "static", "partial")
-      for p in (1, 2)),
-    *((f, p, True) for f in ("partial", "fma_kloop", "f_assoc", "static")
-      for p in (4, 8)),
+@pytest.mark.parametrize("flavor,p", [
+    *((f, 1) for f in ff.FLAVORS if f not in ("control", "full")),
+    *((f, p) for f in ("partial_jnp", "fma_kloop", "f_assoc") for p in (4, 8)),
 ])
-def test_flavor_acc_matches_plain(cuda, flavor, p, rows):
+def test_flavor_acc_matches_plain(cuda, flavor, p):
     """Every variant against its plain version on the N=4096 scene with
     2049 source rows in chunks of 1024 (a last chunk of one source), twice
     bit-equal. Bound TOL: the plain version follows the kernel's
     association but sums each run in its own order."""
     sc = _scene(cuda, 4096)
-    tgt = sc.tgt3() if rows else (sc.pos, sc.radius)
+    tgt = sc.tgt3()
     src = sc.src3(sc.mass_len + 37)
     before = ff.LAUNCHES
     got, same = _twice(lambda: ff.flavor_acc(tgt, src, flavor=flavor, p=p,
                                              block=256, chunk=1024))
     assert ff.LAUNCHES == before + 2 and same
-    want = ff.flavor_acc_plain(tgt, src, flavor=flavor, p=p, chunk=1024)
-    want = torch.cat(want) if rows else want
+    want = torch.cat(ff.flavor_acc_plain(tgt, src, flavor=flavor, p=p,
+                                         chunk=1024))
     assert torch.isfinite(got).all()
     assert rel_err(got.cpu(), want.cpu()) < TOL
 

@@ -63,9 +63,10 @@ def test_port_files_found():
                  "nbody_tpu_torch/utils/profiling.py",
                  "nbody_tpu_torch/parallel/multihost.py",
                  "nbody_tpu_torch/ops/collective.py",
-                 "nbody_tpu_torch/viewer_sdl.py"):
+                 "nbody_tpu_torch/viewer_sdl.py",
+                 "nbody_tpu_torch/ops/v2_forces.py"):
         assert want in names
-    for source in ("direct_vjp.cu", "p3m_pp_vjp.cu"):
+    for source in ("direct_vjp.cu", "p3m_pp_vjp.cu", "v2_forces.cu"):
         assert (ROOT / "nbody_tpu_torch" / "csrc" / source).is_file()
 
 
