@@ -66,7 +66,8 @@ Phases, each of which raises on failure:
      that sums the hop kernel's device time; the "torch" backend timed
      beside them;
  13. the ablation path of the direct force at N=65536 (two galaxies, seed
-     11037): each of K5a, K5g, K5d and K5h through its module in
+     11037): each of K5a (on K5b's kernel, csrc/v2_forces.cu, its rsqrt
+     and precise paths), K5g, K5d and K5h through its module in
      nbody_tpu_torch.ablations at the module's sweep, every configuration
      against its plain version and run twice for bit-equality, timed with
      CUDA events beside K1's force_acc on the same inputs (and K5a's
@@ -81,7 +82,9 @@ Phases, each of which raises on failure:
      kernel; K5f's nine expressions at (256, 2048), LO and
      HI loops, with the SASS of each loop; K5i's four source broadcasts at
      the script's T=512, S=4096, REPS=2048, on its inputs (NaN where r2 < 0)
-     and with the third target row made positive. Each against its plain
+     and with the third target row made positive, after each one's pair
+     loop (SASS a pair); whether the four are bit-equal to each other and
+     the pairs with 0 < r2 < FLT_MIN are recorded. Each against its plain
      version, twice bit-equal; its wall time printed.
  15. force hooks, adaptive dt and diagnostics: at N=65536 a hooked World
      ("cuda": force_acc, the hook and the integration in PyTorch, one
@@ -287,7 +290,7 @@ MUFU_PP = 3
 # replace, and a ragged N for K5h (mass_len 24807: neither it nor N is a
 # whole number of tiles).
 ABLATION_KERNELS = {
-    "K5a": ("nbody_tpu_torch/csrc/resident_forces.cu",
+    "K5a": ("nbody_tpu_torch/csrc/v2_forces.cu",
             "scripts/ablations/tune_r2.py:40"),
     "K5g": ("nbody_tpu_torch/csrc/ptile_forces.cu",
             "scripts/ablations/tune_r2g.py:34"),
@@ -1587,7 +1590,8 @@ def phase_probes(device, _build, sass) -> dict:
     """[14]: K5b, K5e and K5c at N=65536, K5f and K5i at their scripts'
     shapes, with the four launch counts from 0; for each kernel line, the
     best configuration (K5c at full, K5f at rsqrt), its plain version's
-    time and its bound. First K5b's pair loop per flavor and P."""
+    time and its bound. First K5b's pair loop per flavor and P, and K5i's
+    per variant."""
     from nbody_tpu_torch.ablations import (_scene, tune_r2b, tune_r2c, tune_r2e,
                                            tune_r2f, tune_r4d_bcast_probe)
     from nbody_tpu_torch.ops import bcast_probe as bp
@@ -1604,6 +1608,8 @@ def phase_probes(device, _build, sass) -> dict:
     lib = _build.library_path("v2_forces")
     tune_r2b.pair_loops(sass.functions(lib), sass.ptxas_usage(
         lib.with_suffix(".log").read_text()), log)
+    k5i_sass = tune_r4d_bcast_probe.pair_loops(_build.library_path("bcast_probe"),
+                                               log)
     v2.LAUNCHES = ff.LAUNCHES = op.LAUNCHES = bp.LAUNCHES = 0
     log(" K5b: nbody_tpu_torch.ablations.tune_r2b (csrc/v2_forces.cu)")
     k5b = tune_r2b.run(scene, k1_ms, log)
@@ -1680,6 +1686,11 @@ def phase_probes(device, _build, sass) -> dict:
                  f"{tune_r2f.LO} to {tune_r2f.HI} loops)")
     mine = [r for r in k5i if r["inputs"] == "script"]
     best = min(mine, key=lambda r: r["ms"])
+    same = all(r["equal_to_first"] for r in mine)
+    log(f"  K5i: the four variants bit-equal to each other on the script's "
+        f"inputs: {same}; pairs with 0 < r2 < FLT_MIN: "
+        f"{mine[0]['subnormal_pairs']}; SASS a pair "
+        + ", ".join(f"{v} {x:.2f}" for v, x in k5i_sass.items()))
     t_i, s_i = tune_r4d_bcast_probe.inputs(device)
     pairs = tune_r4d_bcast_probe.T * tune_r4d_bcast_probe.S * tune_r4d_bcast_probe.REPS
     record("K5i", best, plain_ms(lambda: bp.bcast_acc_plain(
@@ -1690,6 +1701,7 @@ def phase_probes(device, _build, sass) -> dict:
         label=f"K5i {best['name']}, T={tune_r4d_bcast_probe.T} "
               f"S={tune_r4d_bcast_probe.S} REPS={tune_r4d_bcast_probe.REPS} "
               f"(fastest of the four broadcasts)")
+    out["K5i"].update(variants_equal=same, sass_a_pair=k5i_sass)
     log(f"  [14] took {time.perf_counter() - t0:.1f} s")
     return out
 

@@ -12,8 +12,10 @@ gives one.
 
 JOBS.json is a list of jobs, each {"what": "fused" | "hop" | "ring" |
 "pp" | "p3m" | "contacts" | "vjp" | "merging" | "rollout" | "pp_vjp" |
-"p3m_rollout" | "v2", "n", ...} (the four after "p3m" are tune_merge_vjp's,
-the next two tune_pp_vjp's, "v2" tune_r2b's, below): "fused" is one fused
+"p3m_rollout" | "v2" | "k5a" | "k5i" | "build", "n", ...} (the four after
+"p3m" are tune_merge_vjp's, the next two tune_pp_vjp's, "v2" tune_r2b's,
+"k5a" and "build" tune_r2's, "k5i" tune_r4d_bcast_probe's, below):
+"fused" is one fused
 substep of the N-particle two-galaxy world (seed 11037); "hop" that
 world's state as the only hop of a one-shard ring, with its epilogue;
 "ring" a profiler window over a "cuda_ring" ShardedWorld of ``d`` shards
@@ -41,7 +43,14 @@ their inputs. "v2" is one K5b configuration (``flavor``, ``rows``,
 ``v2_forces.v2_acc`` where the tree has it, else
 ``flavor_forces.flavor_acc`` with the same flavor, layout, tile and chunk,
 each at its own module's ``shape(tile_t)`` (its output the (N, 2) force,
-its times also its P). A job's outputs go to
+its times also its P). "k5a" is ``resident_forces.v2_acc`` on that scene
+at ``block`` (targets a block), ``chunk`` and ``precise``, and at
+``n_split`` where the job gives one (its output the (N, 2) force). "k5i"
+is ``bcast_probe.bcast_acc`` at the probe's shape on its inputs
+(``abs_row2``: the third target row made positive) by ``variant``, at
+``n_split`` ranges (absent: the tree's own plan, its times also that
+plan; its output the (2, T) result). "build" builds the kernels ``names``
+and runs nothing. A job's outputs go to
 OUT_DIR/<index>.pt, and one
 JSON line a job gives its times (ms; "reps" calls between CUDA events, the
 best of "repeats"; a "p3m" job's ms are a substep's).
@@ -350,10 +359,55 @@ def v2_job(job: dict, device, worlds: dict) -> tuple:
     return {"ms": ms, "p": p}, out
 
 
+def k5_job(job: dict, device, worlds: dict) -> tuple:
+    """(times, [output]) of a "k5a" or "k5i" job."""
+    from nbody_tpu_torch.ablations import _scene
+
+    if job["what"] == "k5a":
+        from nbody_tpu_torch.ops import resident_forces as rsf
+
+        key = ("scene", job["n"])
+        if key not in worlds:
+            worlds.clear()
+            worlds[key] = _scene.make_scene(job["n"], device=device)
+        sc = worlds[key]
+        src = sc.src3(sc.s128)
+        kw = {"n_split": job["n_split"]} if job.get("n_split") else {}
+
+        def fn():
+            return rsf.v2_acc(sc.pos, sc.radius, src, block=job["block"],
+                              chunk=job["chunk"], precise=job["precise"], **kw)
+        times = {}
+    else:
+        from nbody_tpu_torch.ablations import tune_r4d_bcast_probe as k5i
+        from nbody_tpu_torch.ops import bcast_probe as bp
+        from nbody_tpu_torch.ops.direct_forces import sm_count
+
+        tgt, src = k5i.inputs(device, job["abs_row2"])
+        plan = (bp.split_plan(k5i.T, k5i.REPS, sm_count(device.index or 0))
+                if device.type == "cuda" else 1)
+        n_split = job.get("n_split") or plan
+
+        def fn():
+            return bp.bcast_acc(tgt, src, variant=job["variant"],
+                                reps=k5i.REPS, n_split=n_split)
+        times = {"plan": plan, "n_split": n_split}
+    out = [fn().cpu()]
+    ms = best_ms(fn, job["reps"], job.get("repeats", 3)) if job.get("reps") else None
+    return {"ms": ms, **times}, out
+
+
 def run_job(job: dict, device, worlds: dict) -> tuple:
     """(times, output tensors or None) of one job."""
     if job["what"] == "v2":
         return v2_job(job, device, worlds)
+    if job["what"] in ("k5a", "k5i"):
+        return k5_job(job, device, worlds)
+    if job["what"] == "build":
+        from nbody_tpu_torch.ops import _build
+
+        _build.build_all(job["names"])
+        return {}, None
     if job["what"] in ("contacts", "vjp", "merging", "rollout"):
         worlds.clear()
         return backward_job(job, device)

@@ -1,10 +1,10 @@
 // Pieces shared by every direct-force kernel: the block and run sizes, the
 // softening floor and the pair factor; the run loop over a staged source
-// chunk and the chunked force kernel of the ablation path
-// (resident_forces.cu, ptile_forces.cu, stationary_forces.cu,
-// newton_forces.cu, flavor_forces.cu); and the fixed-order sum of
-// per-range partials. The main-path kernels (direct_forces.cu,
-// ring_forces.cu) run their own pair loop, direct_tiles.cuh.
+// chunk and the chunked force kernel of the ablation path (ptile_forces.cu,
+// stationary_forces.cu, newton_forces.cu, flavor_forces.cu); and the
+// fixed-order sum of per-range partials. The main-path kernels
+// (direct_forces.cu, ring_forces.cu) run their own pair loop,
+// direct_tiles.cuh; K5a, K5b and K5i theirs, pair_step.cuh.
 //
 // Math, per target i over sources j < n_src:
 //   dx = sx_j - x_i;  dy = sy_j - y_i
@@ -269,7 +269,7 @@ __device__ __forceinline__ void chunk_body(Targets targets,
   }
 }
 
-// chunk_body with the default policies (K5a, K5g); flavor_forces.cu has a
+// chunk_body with the default policies (K5g); flavor_forces.cu has a
 // kernel of its own for the others.
 template <int P, bool kPrecise, class Targets>
 __global__ void chunk_kernel(Targets targets, const float* __restrict__ src,

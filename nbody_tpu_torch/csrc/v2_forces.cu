@@ -1,7 +1,10 @@
-// K5b for NVIDIA Hopper (sm_90a): the resident-source force of make_v2, its
-// two target layouts and its sweep's flavors, in a kernel of its own.
+// K5a and K5b for NVIDIA Hopper (sm_90a): the resident-source force of
+// tune_r2.py's v2_acc and of make_v2, its two target layouts and its
+// sweep's flavors, in a kernel of their own.
 //
 // Replaces the TPU kernels
+//   scripts/ablations/tune_r2.py::_v2_kernel (K5a: make_v2's kernel_cols
+//     with a `precise` switch, gm / (sqrt(r2) * r2)): variants 4 and 5
 //   scripts/ablations/tune_r2b.py::make_v2 -> kernel_cols (targets as (T, 1)
 //     columns of x, y and r, result (T, 2))
 //   scripts/ablations/tune_r2b.py::make_v2 -> kernel_rows (targets as a
@@ -12,7 +15,7 @@
 // pairs; the row layout takes (3, T) rows and writes (2, T) rows. Per target
 // i over sources j < n_src, as source_tiles.cuh states it:
 //   dx = sx_j - x_i;  dy = sy_j - y_i;  r2 = dx*dx + dy*dy + (r_i + 1e-18)
-//   f = gm_j * inv*inv*inv, inv = rsqrt(r2)
+//   f = gm_j * inv*inv*inv, inv = rsqrt(r2)   (pair_step.cuh)
 // Variants (the Python wrapper ops/v2_forces.py names them):
 //   0 base, rows: each chunk's terms in one chain, added to the total in
 //     chunk order
@@ -23,6 +26,10 @@
 //   3 partial: kChains chains a chunk (source k of a chunk on chain
 //     k % kChains) added to kChains lane sums, folded in lane order at the
 //     end (the script's (tile, 128) lane-partial carry)
+//   4, 5 K5a, rsqrt and precise (f = gm_j / (sqrtf(r2) * r2), IEEE sqrt
+//     and divide), column layout only: runs of kRun = 256 sources summed
+//     into fresh registers, each added to the total in order (add_runs),
+//     static's four batches a pass
 // The script's tile_t is P * block: P = 2 targets a thread from tile 256
 // on, 1 below.
 //
@@ -61,22 +68,18 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
+#include "pair_step.cuh"     // kBatch, Pairs, stage_at
 #include "source_tiles.cuh"  // kSofteningFloor, RowTargets, PairTargets,
                              // allow_smem, launch_sum_partials
 
 namespace {
 
 constexpr int kMaxBlock = 512;
-constexpr int kBatch = 8;       // sources read into registers together
 constexpr int kChains = 8;      // chains (lane sums) of the partial variant
+constexpr int kRunUnroll = 4;   // batches a pass of K5a's run loop (static's)
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
-
-__device__ __forceinline__ float rsqrt_ftz(float x) {
-  float y;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int kBytes>
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
@@ -88,12 +91,6 @@ __device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Where source k of a stage and row r (x, y, gm) lie: batch k / 8 holds
-// rows of 8.
-__device__ __forceinline__ int stage_at(int k, int r) {
-  return (k / kBatch) * (3 * kBatch) + r * kBatch + k % kBatch;
 }
 
 // Issues the copies of sources [base, base + len) of the (3, n_src) rows at
@@ -120,51 +117,14 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// The P targets of one thread and their chains: target q, chain c.
-template <int P, int K>
-struct Pairs {
-  float x[P], y[P], soft[P];
-  float tx[P][K], ty[P][K];
-
-  __device__ __forceinline__ void add(float sx, float sy, float gm, int c) {
-#pragma unroll
-    for (int q = 0; q < P; ++q) {
-      const float dx = sx - x[q];
-      const float dy = sy - y[q];
-      const float inv = rsqrt_ftz(dx * dx + dy * dy + soft[q]);
-      const float f = gm * (inv * inv * inv);
-      tx[q][c] += dx * f;
-      ty[q][c] += dy * f;
-    }
-  }
-
-  // The 8 sources of the staged batch at `batch` (x, y and gm rows of 8),
-  // read into registers first, then their pairs in source order, source b
-  // of the batch on chain b % K.
-  __device__ __forceinline__ void add_batch(const float* batch) {
-    const float4* v = reinterpret_cast<const float4*>(batch);
-    float xs[kBatch], ys[kBatch], gs[kBatch];
-#pragma unroll
-    for (int h = 0; h < kBatch / 4; ++h) {
-      const float4 a = v[h];
-      const float4 b = v[2 + h];
-      const float4 g = v[4 + h];
-      xs[4 * h] = a.x; xs[4 * h + 1] = a.y; xs[4 * h + 2] = a.z; xs[4 * h + 3] = a.w;
-      ys[4 * h] = b.x; ys[4 * h + 1] = b.y; ys[4 * h + 2] = b.z; ys[4 * h + 3] = b.w;
-      gs[4 * h] = g.x; gs[4 * h + 1] = g.y; gs[4 * h + 2] = g.z; gs[4 * h + 3] = g.w;
-    }
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) add(xs[b], ys[b], gs[b], b % K);
-  }
-};
-
 // Adds the `len` sources staged at st to the L sums (ax[q * L + c],
 // ay[q * L + c]) of the thread's P targets: the chunk's terms on K chains,
 // kUnroll batches a pass, then each chain joins lane c (kLanes) or the
 // chains join the one total in chain order.
-template <int P, int kUnroll, bool kLanes>
+template <int P, int kUnroll, bool kLanes, bool kPrecise>
 __device__ __forceinline__ void add_chunk(const float* st, int len,
-                                          Pairs<P, kLanes ? kChains : 1>& t,
+                                          Pairs<P, kLanes ? kChains : 1,
+                                                kPrecise>& t,
                                           float* ax, float* ay) {
   constexpr int K = kLanes ? kChains : 1;
   constexpr int L = kLanes ? kChains : 1;
@@ -201,21 +161,63 @@ __device__ __forceinline__ void add_chunk(const float* st, int len,
   }
 }
 
+// K5a's sums: adds the `len` sources staged at st to the totals (ax[q],
+// ay[q]) of the thread's P targets run by run, kRun sources a run (the last
+// run of a chunk may be shorter) summed into fresh registers, kRunUnroll
+// batches a pass, each run then added to the total: the association of
+// source_tiles.cuh's RunSum, which K5a had before it ran here. (One chain a
+// chunk, variant 0, drifts with the chunk: 5.5e-6 of the force's max
+// against the direct sum at chunk 4096, PERF.md §6.)
+template <int P, bool kPrecise>
+__device__ __forceinline__ void add_runs(const float* st, int len,
+                                         Pairs<P, 1, kPrecise>& t, float* ax,
+                                         float* ay) {
+  constexpr int kPass = kBatch * kRunUnroll;
+  constexpr int kStride = 3 * kBatch;  // floats of a staged batch
+  for (int run = 0; run < len; run += kRun) {
+    const int end = min(run + kRun, len);
+#pragma unroll
+    for (int q = 0; q < P; ++q) t.tx[q][0] = t.ty[q][0] = 0.f;
+    int k = run;
+    const float* batch = st + 3 * run;  // run is a whole number of batches
+#pragma unroll 1
+    for (; k + kPass <= end; k += kPass, batch += kRunUnroll * kStride) {
+#pragma unroll
+      for (int u = 0; u < kRunUnroll; ++u) t.add_batch(batch + u * kStride);
+    }
+#pragma unroll 1
+    for (; k + kBatch <= end; k += kBatch, batch += kStride)
+      t.add_batch(batch);
+#pragma unroll
+    for (int b = 0; b < kBatch - 1; ++b)
+      if (k + b < end)
+        t.add(batch[b], batch[kBatch + b], batch[2 * kBatch + b], 0);
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      ax[q] += t.tx[q][0];
+      ay[q] += t.ty[q][0];
+    }
+  }
+}
+
 // Block (x, y) holds P * blockDim.x targets, P a thread (i, i + blockDim.x,
 // ...), and sums the sources of the y-th of gridDim.y ranges of
 // chunks_per_split whole chunks into out + y * 2 n_tgt, in the Targets'
 // result layout. Dynamic shared memory: two stages of chunk sources (3 chunk
-// floats each).
-template <int P, class Targets, int kUnroll, bool kLanes>
-__global__ void __launch_bounds__(kMaxBlock)
-v2_kernel(Targets targets, const float* __restrict__ src, int n_tgt,
-          int n_src, int chunk, int chunks_per_split, int vec16,
-          float* __restrict__ out) {
+// floats each). The body of v2_kernel (add_chunk's sums) and of
+// v2_resident_kernel (kRuns: add_runs').
+template <int P, class Targets, int kUnroll, bool kLanes, bool kPrecise,
+          bool kRuns>
+__device__ __forceinline__ void v2_body(Targets targets,
+                                        const float* __restrict__ src,
+                                        int n_tgt, int n_src, int chunk,
+                                        int chunks_per_split, int vec16,
+                                        float* __restrict__ out) {
   constexpr int L = kLanes ? kChains : 1;
   extern __shared__ float4 v2_smem[];
   float* const stage = reinterpret_cast<float*>(v2_smem);
   const int first = blockIdx.x * (P * blockDim.x) + threadIdx.x;
-  Pairs<P, kLanes ? kChains : 1> t;
+  Pairs<P, kLanes ? kChains : 1, kPrecise> t;
   float ax[P * L], ay[P * L];
 #pragma unroll
   for (int q = 0; q < P; ++q) {
@@ -245,8 +247,12 @@ v2_kernel(Targets targets, const float* __restrict__ src, int n_tgt,
     if (c + 1 < c_end)
       stage_rows(src, n_src, next, min(chunk, n_src - next), stage + other,
                  vec16);
-    add_chunk<P, kUnroll, kLanes>(stage + at, min(chunk, n_src - c * chunk),
-                                  t, ax, ay);
+    if constexpr (kRuns)
+      add_runs<P, kPrecise>(stage + at, min(chunk, n_src - c * chunk), t, ax,
+                            ay);
+    else
+      add_chunk<P, kUnroll, kLanes, kPrecise>(
+          stage + at, min(chunk, n_src - c * chunk), t, ax, ay);
     at = other;
   }
   const int comp = Targets::kComp < 0 ? n_tgt : Targets::kComp;
@@ -267,6 +273,26 @@ v2_kernel(Targets targets, const float* __restrict__ src, int n_tgt,
   }
 }
 
+// Variants 0-3: K5b's flavors.
+template <int P, class Targets, int kUnroll, bool kLanes>
+__global__ void __launch_bounds__(kMaxBlock)
+v2_kernel(Targets targets, const float* __restrict__ src, int n_tgt,
+          int n_src, int chunk, int chunks_per_split, int vec16,
+          float* __restrict__ out) {
+  v2_body<P, Targets, kUnroll, kLanes, false, false>(
+      targets, src, n_tgt, n_src, chunk, chunks_per_split, vec16, out);
+}
+
+// Variants 4 and 5: K5a, rsqrt and precise, column layout.
+template <int P, bool kPrecise>
+__global__ void __launch_bounds__(kMaxBlock)
+v2_resident_kernel(PairTargets targets, const float* __restrict__ src,
+                   int n_tgt, int n_src, int chunk, int chunks_per_split,
+                   int vec16, float* __restrict__ out) {
+  v2_body<P, PairTargets, 1, false, kPrecise, true>(
+      targets, src, n_tgt, n_src, chunk, chunks_per_split, vec16, out);
+}
+
 // What every launch of one call shares.
 struct Launch {
   const float* src;
@@ -278,9 +304,8 @@ struct Launch {
 
 // The kernel over n_split ranges of whole chunks: straight into out when
 // n_split = 1, else into the partials, summed in range order into out.
-template <int P, class Targets, int kUnroll, bool kLanes>
-cudaError_t launch(Targets targets, const Launch& a) {
-  auto* kernel = v2_kernel<P, Targets, kUnroll, kLanes>;
+template <int P, class Targets, class Kernel>
+cudaError_t launch(Kernel kernel, Targets targets, const Launch& a) {
   const size_t smem = static_cast<size_t>(6) * a.chunk * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -300,10 +325,18 @@ cudaError_t launch(Targets targets, const Launch& a) {
 template <int P, class Targets>
 cudaError_t launch_variant(int variant, Targets targets, const Launch& a) {
   switch (variant) {
-    case 0: return launch<P, Targets, 1, false>(targets, a);
-    case 1: return launch<P, Targets, 2, false>(targets, a);
-    case 2: return launch<P, Targets, 4, false>(targets, a);
-    case 3: return launch<P, Targets, 1, true>(targets, a);
+    case 0: return launch<P>(v2_kernel<P, Targets, 1, false>, targets, a);
+    case 1: return launch<P>(v2_kernel<P, Targets, 2, false>, targets, a);
+    case 2: return launch<P>(v2_kernel<P, Targets, 4, false>, targets, a);
+    case 3: return launch<P>(v2_kernel<P, Targets, 1, true>, targets, a);
+    case 4:
+    case 5:
+      if constexpr (std::is_same_v<Targets, PairTargets>)
+        return variant == 4
+                   ? launch<P>(v2_resident_kernel<P, false>, targets, a)
+                   : launch<P>(v2_resident_kernel<P, true>, targets, a);
+      else
+        return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -320,7 +353,8 @@ cudaError_t launch_p(int p, int variant, Targets targets, const Launch& a) {
 }  // namespace
 
 // Force of the (3, n_src) sources x; y; gm at `src` on n_tgt targets, by
-// variant `variant` (above) at p (1 or 2) targets per thread. rows = 1:
+// variant `variant` (above; 4 and 5 with rows = 0 only) at p (1 or 2) targets per
+// thread. rows = 1:
 // tgt_a is the (3, n_tgt) rows x; y; r, tgt_b unused, out (2, n_tgt);
 // rows = 0: tgt_a the (n_tgt, 2) positions, tgt_b the (n_tgt,) radius, out
 // (n_tgt, 2). block: a multiple of 32 up to 512; chunk: a multiple of 8

@@ -65,12 +65,6 @@ SIGNATURES = {
             _i32, _i32,                # plan: p, n_split
             _vp, _vp, _vp, _vp],       # acc/pos/vel out, stream
     },
-    "resident_forces": {
-        "nbody_resident_forces": [
-            _vp, _vp, _vp,             # tgt pos (T, 2), radius, src (3, S)
-            _i32, _i32, _i32, _i32,    # n_tgt, n_src, block, chunk
-            _i32, _vp, _vp],           # precise, acc out (T, 2), stream
-    },
     "ptile_forces": {
         "nbody_ptile_forces": [
             _vp, _vp,                  # tgt (3, T), src (3, S)

@@ -6,13 +6,19 @@ Counterpart of ``run(tgt, src, variant=...)`` in
 S sources past T targets REPS times and compares four Mosaic layouts of
 the source broadcast. The kernel is ``csrc/bcast_probe.cu``; its four
 variants (``VARIANTS``: shared memory, ``__shfl_sync``, ``__ldg`` of one
-address, the constant bank) compute the same function,
+address, the constant bank) compute the same function, P = 2 targets a
+thread (each source read serves both) with an unguarded
+``rsqrt.approx.ftz``,
 
     ax_i, ay_i = reps * sum_j (dx, dy) * gm_j * inv**3,
     inv = rsqrt(dx*dx + dy*dy + r_i),
 
 with each target's third row added to r2 as the script adds it (no
-softening floor: where r2 < 0 the sum is NaN, on the TPU as here). The sum
+softening floor: where r2 < 0 the sum is NaN, on the TPU as here; where
+0 < r2 < FLT_MIN the ftz rsqrt would differ from ``rsqrtf``, and
+:func:`subnormal_pairs` counts such pairs). The shared-memory variant
+stages the sources as ``csrc/pair_step.cuh``'s batches (x, y and gm rows of
+8 side by side, 12 bytes a source) rather than a float4 a source. The sum
 has a fixed order: a sweep sums runs of 256 sources, then the runs in
 order; each of ``n_split`` blocks adds its share of the sweeps in order,
 and the blocks' partials are added in block order. The plain version
@@ -28,7 +34,8 @@ import torch
 from .direct_forces import _check, _device_of, _raise_on, sm_count, split_ranges
 
 VARIANTS = ("smem", "shfl", "ldg", "const")
-THREADS = 256     # csrc/bcast_probe.cu kThreads: targets per block
+THREADS = 256     # csrc/bcast_probe.cu kThreads: threads per block
+P = 2             # csrc/bcast_probe.cu kP: targets per thread
 RUN = 256         # sources per run of a sweep
 MAX_SRC = 4096    # the constant bank holds 4096 sources
 
@@ -44,8 +51,23 @@ def _lib():
 
 
 def split_plan(t: int, reps: int, sms: int) -> int:
-    """Ranges of whole sweeps for T targets on a card of ``sms`` SMs."""
-    return split_ranges(-(-t // THREADS), reps, sms)
+    """Ranges of whole sweeps for T targets, in blocks of P * THREADS, on a
+    card of ``sms`` SMs."""
+    return split_ranges(-(-t // (P * THREADS)), reps, sms)
+
+
+def subnormal_pairs(tgt: torch.Tensor, src: torch.Tensor) -> tuple[int, float]:
+    """(pairs with 0 < r2 < FLT_MIN, the smallest positive r2) of one
+    sweep, r2 = dx*dx + dy*dy + r as the kernel adds it (without its FMA):
+    where the count is 0, the ftz rsqrt and ``rsqrtf`` agree on every
+    pair."""
+    dx = src[0][None] - tgt[0][:, None]
+    dy = src[1][None] - tgt[1][:, None]
+    r2 = dx * dx + dy * dy + tgt[2][:, None]
+    tiny = torch.finfo(torch.float32).tiny
+    pos = r2[r2 > 0]
+    return (int(((r2 > 0) & (r2 < tiny)).sum()),
+            float(pos.min()) if pos.numel() else float("nan"))
 
 
 def sweep_plain(tgt: torch.Tensor, src: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """K5b: the resident-source force of ``make_v2`` in its two target layouts
 and its sweep's flavors, the CUDA kernel's wrapper and its plain PyTorch
-version.
+version. The kernel also runs K5a (``resident_forces.v2_acc``: variants
+``K5A[precise]``, the column layout summed in runs of 256 sources).
 
 Counterpart of ``make_v2`` in ``scripts/ablations/tune_r2b.py`` (its
 ``kernel_cols`` and ``kernel_rows``). The kernel is ``csrc/v2_forces.cu``,
@@ -48,6 +49,7 @@ from .ptile_forces import split_plan
 
 # name: variant of csrc/v2_forces.cu
 FLAVORS = {"base": 0, "rows": 0, "unroll2": 1, "static": 2, "partial": 3}
+K5A = {False: 4, True: 5}  # K5a's variants (rsqrt, precise), columns only
 PS = (1, 2)
 CHAINS = 8                 # csrc/v2_forces.cu kChains: partial's lane sums
 MAX_BLOCK = 512
@@ -130,22 +132,35 @@ def v2_acc(
     _check_v2(flavor, p, block, chunk)
     if src_dev.type == "cpu":
         return v2_acc_plain(tgt, src, flavor=flavor, chunk=chunk)
+    out = _launch(ptrs, src, t, rows, FLAVORS[flavor], p, block, chunk,
+                  n_split, f"v2_forces ({flavor})")
+    global LAUNCHES
+    LAUNCHES += 1
+    return (out[0:1], out[1:2]) if rows else out
+
+
+def _launch(ptrs: tuple, src: torch.Tensor, t: int, rows: bool, variant: int,
+            p: int, block: int, chunk: int, n_split: int | None,
+            what: str) -> torch.Tensor:
+    """One call of ``nbody_v2_forces`` on the card of ``src``: the
+    (2, T) or (T, 2) result over ``n_split`` source ranges (None: K5g's
+    split plan); raises if the launch failed. Counts nothing: each caller
+    counts its own launches."""
+    dev, s = src.device, src.shape[-1]
     if n_split is None:
         n_split = split_plan(t, s, p, block, chunk, sm_count(
-            src_dev.index if src_dev.index is not None
+            dev.index if dev.index is not None
             else torch.cuda.current_device()))
     if not 1 <= n_split <= 65535:
         raise ValueError(f"n_split must be in [1, 65535], got {n_split}")
-    global LAUNCHES
     out = torch.empty((2, t) if rows else (t, 2), dtype=torch.float32,
-                      device=src_dev)
+                      device=dev)
     part = (torch.empty((n_split, *out.shape), dtype=torch.float32,
-                        device=src_dev) if n_split > 1 else out)
-    with torch.cuda.device(src_dev):
+                        device=dev) if n_split > 1 else out)
+    with torch.cuda.device(dev):
         err = _lib().nbody_v2_forces(
-            *ptrs, src.data_ptr(), t, s, int(rows), FLAVORS[flavor], p, block,
-            chunk, n_split, part.data_ptr(), out.data_ptr(),
+            *ptrs, src.data_ptr(), t, s, int(rows), variant, p, block, chunk,
+            n_split, part.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, f"v2_forces ({flavor})")
-    LAUNCHES += 1
-    return (out[0:1], out[1:2]) if rows else out
+    _raise_on(err, what)
+    return out

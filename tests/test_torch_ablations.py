@@ -116,9 +116,36 @@ def test_k5a_plain_matches_script(interpret, n, tile_t, chunk):
     want = np.asarray(_script("tune_r2").v2_acc(
         jnp.asarray(pos), jnp.asarray(radius), jnp.asarray(src),
         tile_t=tile_t, chunk=chunk))
-    got = rsf.v2_acc(_t(pos), _t(radius), _t(src), block=tile_t // 2,
+    got = rsf.v2_acc(_t(pos), _t(radius), _t(src), block=tile_t,
                      chunk=chunk)
     assert rel_err(got, want) < TOL
+
+
+@pytest.mark.parametrize("precise", [False, True])
+@pytest.mark.parametrize("tile,chunk,s,want", [
+    (128, 512, 1024, (1, 128, 512)), (256, 2048, 1024, (2, 128, 1024)),
+    (512, 4096, 4096, (2, 256, 4096)), (1024, 1024, 1003, (2, 512, 1008)),
+    (64, 8, 0, (1, 64, 8))])
+def test_k5a_maps_block_to_v2_shape(monkeypatch, tile, chunk, s, want, precise):
+    """K5a's wrapper launches ``v2_forces.cu`` in the column layout, its
+    rsqrt or precise variant, at ``v2_forces.shape(block)`` (the script's
+    tile_t as P targets a thread), the chunk cut to S rounded up to 8 (the
+    script's ``min(chunk, S)``: one chunk), the split left to the plan, and
+    counts the launch as K5a's alone. The card is stood in for by a spy on
+    the launch."""
+    calls = []
+    monkeypatch.setattr(rsf, "_device_of", lambda t: torch.device("cuda"))
+    monkeypatch.setattr(rsf, "_check", lambda *a: None)
+    monkeypatch.setattr(v2, "_launch", lambda *a: calls.append(a) or "acc")
+    pos, radius = torch.zeros((300, 2)), torch.ones(300)
+    before = (rsf.LAUNCHES, v2.LAUNCHES)
+    assert rsf.v2_acc(pos, radius, torch.zeros((3, s)), block=tile,
+                      chunk=chunk, precise=precise) == "acc"
+    (_, src, t, rows, variant, p, threads, ch, n_split, _),  = calls
+    assert (t, rows, n_split, src.shape) == (300, False, None, (3, s))
+    assert (p, threads, ch) == want and (p, threads) == v2.shape(tile)
+    assert variant == v2.K5A[precise] and variant not in v2.FLAVORS.values()
+    assert (rsf.LAUNCHES, v2.LAUNCHES) == (before[0] + 1, before[1])
 
 
 # --- K5g: tune_r2g.py::make_ptile ---
@@ -391,6 +418,12 @@ def test_cpu_wrappers_make_no_launch():
     (lambda sc: rsf.v2_acc(sc.pos, sc.radius, sc.src3(128)[:2]), ValueError),
     (lambda sc: rsf.v2_acc(sc.pos.double(), sc.radius, sc.src3(128)), TypeError),
     (lambda sc: rsf.v2_acc(sc.pos, sc.radius, sc.src3(128), block=100), ValueError),
+    (lambda sc: rsf.v2_acc(sc.pos, sc.radius, sc.src3(128), block=300), ValueError),
+    (lambda sc: rsf.v2_acc(sc.pos, sc.radius, sc.src3(128), block=2048), ValueError),
+    (lambda sc: rsf.v2_acc(sc.pos, sc.radius, sc.src3(128), chunk=0), ValueError),
+    (lambda sc: rsf.v2_acc(sc.pos, sc.radius, sc.src3(128), chunk=12), ValueError),
+    (lambda sc: rsf.v2_acc(sc.pos, sc.radius, sc.src3(128),
+                           chunk=v2.MAX_CHUNK + 8), ValueError),
     (lambda sc: ptf.ptile_acc(sc.tgt3(), sc.src3(128), p=3), ValueError),
     (lambda sc: ptf.ptile_acc(sc.tgt3().T, sc.src3(128)), ValueError),
     (lambda sc: stf.stationary_acc(sc.tgt3(), sc.src3(1000), chunk=512), ValueError),
@@ -543,6 +576,49 @@ def test_parent_side_v2_job_runs_the_v2_wrapper(rows):
     assert [j["what"] for j in tune_r2b.jobs()] == ["v2"] * len(tune_r2b.SWEEP)
 
 
+@pytest.mark.parametrize("job", [
+    {"what": "k5a", "n": 2048, "block": 512, "chunk": 1024, "precise": False},
+    {"what": "k5a", "n": 2048, "block": 256, "chunk": 512, "precise": True},
+    {"what": "k5i", "variant": "ldg", "abs_row2": False},
+    {"what": "k5i", "variant": "smem", "abs_row2": True, "n_split": 3}])
+def test_parent_side_k5_jobs_run_the_public_wrappers(job):
+    """``tune_r2 parent``'s and ``tune_r4d_bcast_probe parent``'s jobs drive
+    ``resident_forces.v2_acc`` and ``bcast_probe.bcast_acc``; on CPU
+    tensors those are the plain versions (one split where none is
+    given)."""
+    from nbody_tpu_torch.ablations import _side
+
+    times, (got,) = _side.run_job(job, torch.device("cpu"), {})
+    if job["what"] == "k5a":
+        assert times == {"ms": None}
+        sc, *_ = _scene_np(2048)
+        want = rsf.v2_acc_plain(sc.pos, sc.radius, sc.src3(sc.s128),
+                                precise=job["precise"])
+    else:
+        split = job.get("n_split", 1)
+        assert times == {"ms": None, "plan": 1, "n_split": split}
+        tgt, src = tune_r4d_bcast_probe.inputs("cpu", job["abs_row2"])
+        want = bp.bcast_acc_plain(tgt, src, reps=tune_r4d_bcast_probe.REPS,
+                                  n_split=split)
+    assert _scene.bit_equal(got, want)
+
+
+def test_k5_parent_jobs_cover_both_sweeps():
+    """``tune_r2 parent`` runs each side's tiles on both paths, this tree
+    also the parent's; ``tune_r4d_bcast_probe parent`` every variant on
+    both input sets."""
+    old, new = tune_r2.jobs(tune_r2.PARENT_TILES), tune_r2.jobs(tune_r2.TILES)
+    assert len(old) == len(new) == 2 * 12
+    for jobs in (old, new):
+        assert {(j["block"], j["chunk"]) for j in jobs if j["precise"]} == \
+            {(j["block"], j["chunk"]) for j in jobs if not j["precise"]}
+    assert {(j["block"], j["chunk"]) for j in new} == set(tune_r2.SWEEP)
+    k5i = tune_r4d_bcast_probe.jobs(7, reps=None)
+    assert {(j["variant"], j["abs_row2"]) for j in k5i} == {
+        (v, a) for v in bp.VARIANTS for a in (False, True)}
+    assert all(j["n_split"] == 7 and j["reps"] is None for j in k5i)
+
+
 @pytest.mark.parametrize("module", [tune_r2, tune_r2g, tune_r2d, tune_r2h])
 def test_ablation_sweeps_are_launchable(module):
     """Every configuration of a module's sweep passes its wrapper's checks
@@ -550,7 +626,8 @@ def test_ablation_sweeps_are_launchable(module):
     sc, *_ = _scene_np(2048)
     for cfg in module.SWEEP:
         if module is tune_r2:
-            rsf._check_launch(*cfg)
+            p, threads = rsf.shape(*cfg)
+            assert p == 2 and p * threads == cfg[0]
         elif module is tune_r2g:
             p, block, chunk, _ = cfg
             assert p in ptf.PS

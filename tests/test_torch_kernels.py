@@ -508,16 +508,44 @@ def _twice(call):
 
 
 @pytest.mark.parametrize("precise", [False, True])
-@pytest.mark.parametrize("block,chunk", [(256, 2048), (128, 512), (512, 4096)])
-def test_v2_acc_matches_plain(cuda, block, chunk, precise):
+@pytest.mark.parametrize("extra", [None, 37])
+@pytest.mark.parametrize("block,chunk", [(256, 2048), (128, 512), (512, 4096),
+                                         (1024, 1024), (512, 8192)])
+def test_v2_acc_matches_plain(cuda, block, chunk, precise, extra):
+    """K5a (``csrc/v2_forces.cu``, column layout) at tiles of one and two
+    targets a thread, both paths, against the plain direct sum: S128 rows
+    (16-byte copies) or mass_len + 37 (4-byte copies, a ragged chunk and
+    run), chunk 8192 longer than S (one chunk), twice bit-equal, one K5a
+    launch a call and none of K5b's; unsplit, the same bits whatever the
+    chunk (runs of 256 restart at each chunk, and every chunk here is a
+    whole number of runs)."""
     sc = _scene(cuda, 4096)
-    src = sc.src3(sc.s128)
-    before = rsf.LAUNCHES
+    src = sc.src3(sc.s128 if extra is None else sc.mass_len + extra)
+    before = (rsf.LAUNCHES, v2.LAUNCHES)
     got, same = _twice(lambda: rsf.v2_acc(sc.pos, sc.radius, src, block=block,
                                           chunk=chunk, precise=precise))
-    assert rsf.LAUNCHES == before + 2 and same
+    assert (rsf.LAUNCHES, v2.LAUNCHES) == (before[0] + 2, before[1]) and same
     want = rsf.v2_acc_plain(sc.pos, sc.radius, src, precise=precise)
+    assert torch.isfinite(got).all()
     assert rel_err(got.cpu(), want.cpu()) < TOL
+    one, other = (rsf.v2_acc(sc.pos, sc.radius, src, block=block, chunk=c,
+                             precise=precise, n_split=1) for c in (chunk, 256))
+    assert torch.equal(one, other)
+
+
+def test_v2_acc_launch_error_raises(cuda, monkeypatch):
+    """A failed K5a launch on CUDA tensors raises and counts nothing."""
+    sc = _scene(cuda, 4096)
+
+    class Failing:
+        def nbody_v2_forces(self, *args):
+            return 1   # cudaErrorInvalidValue
+
+    monkeypatch.setattr(v2, "_lib", Failing)
+    before = rsf.LAUNCHES
+    with pytest.raises(RuntimeError, match="K5a"):
+        rsf.v2_acc(sc.pos, sc.radius, sc.src3(sc.s128), precise=True)
+    assert rsf.LAUNCHES == before
 
 
 @pytest.mark.parametrize("p,block,chunk,n_split", [
@@ -593,6 +621,34 @@ def test_k5b_v2_acc_matches_plain(cuda, flavor, p, rows, extra):
     assert rel_err(got.cpu(), want.cpu()) < TOL
 
 
+# SASS a pair of K5b's pair loops (row kernels) per flavor and P, as they
+# were measured before K5a's kernels joined csrc/v2_forces.cu and the pair
+# step moved into csrc/pair_step.cuh (CUDA 12.8 on the card, PERF.md §6):
+# neither change may alter them.
+K5B_SASS_A_PAIR = {("base", 1): 12.38, ("base", 2): 11.69,
+                   ("unroll2", 1): 12.06, ("unroll2", 2): 11.53,
+                   ("static", 1): 11.91, ("static", 2): 11.45,
+                   ("partial", 1): 12.38, ("partial", 2): 11.69}
+
+
+def test_k5b_pair_loops_keep_their_sass(cuda):
+    """K5b's sixteen kernels and K5a's four (P = 1, 2; rsqrt, precise)
+    are all that ``v2_forces.cu`` builds, and K5b's pair loops keep their
+    SASS a pair."""
+    from nbody_tpu_torch.ablations import tune_r2b
+    from nbody_tpu_torch.ops import _build, sass
+
+    lib = _build.build_all(["v2_forces"])["v2_forces"][0]
+    funcs = sass.functions(lib)
+    names = [n for n in funcs if "v2_kernel" in n or "v2_resident_kernel" in n]
+    assert len(names) == 20
+    assert sum("v2_resident_kernel" in n and "PairTargets" in n
+               for n in names) == 4
+    loops = tune_r2b.pair_loops(funcs, sass.ptxas_usage(
+        lib.with_suffix(".log").read_text()), log=lambda *a: None)
+    assert {k: round(v[0], 2) for k, v in loops.items()} == K5B_SASS_A_PAIR
+
+
 def test_k5b_v2_acc_launch_error_raises(cuda, monkeypatch):
     """A failed launch on CUDA tensors raises; the wrapper never takes its
     plain version there."""
@@ -658,16 +714,19 @@ def test_op_probe_matches_plain(cuda, expr):
         assert rel_err(got[fin].cpu(), want[fin].cpu()) < tune_r2f.BOUNDS[expr]
 
 
+@pytest.mark.parametrize("t", [300, 1100])
 @pytest.mark.parametrize("n_split", [None, 1, 3])
 @pytest.mark.parametrize("variant", bp.VARIANTS)
-def test_bcast_acc_matches_plain(cuda, variant, n_split):
-    """Each broadcast on 300 targets (a ragged block) and 1024 sources,
-    5 sweeps, with the script's NaN-making third row: NaN where the plain
-    version has NaN, the finite entries within 5e-6, twice bit-equal."""
+def test_bcast_acc_matches_plain(cuda, variant, n_split, t):
+    """Each broadcast on 300 targets (one block of 256 threads, two
+    targets a thread: the second target of threads 44-255 lies past T) or
+    1100 (three blocks, the last ragged) and 1024 sources, 5 sweeps, with
+    the script's NaN-making third row: NaN where the plain version has
+    NaN, the finite entries within 5e-6, twice bit-equal."""
     rng = np.random.RandomState(0)
-    tgt = torch.from_numpy(rng.randn(3, 300).astype(np.float32)).to(cuda)
+    tgt = torch.from_numpy(rng.randn(3, t).astype(np.float32)).to(cuda)
     src = torch.from_numpy(rng.randn(3, 1024).astype(np.float32)).to(cuda)
-    splits = n_split or bp.split_plan(300, 5, df.sm_count(cuda.index or 0))
+    splits = n_split or bp.split_plan(t, 5, df.sm_count(cuda.index or 0))
     before = bp.LAUNCHES
     got, again = (bp.bcast_acc(tgt, src, variant=variant, reps=5,
                                n_split=n_split) for _ in range(2))

@@ -132,3 +132,25 @@ def test_direct_tiles_is_the_main_path_kernels_own():
     users = sorted(p.name for p in csrc.glob("*.cu*")
                    if '#include "direct_tiles.cuh"' in p.read_text())
     assert users == ["direct_forces.cu", "ring_forces.cu"]
+
+
+def test_k5a_runs_on_k5b_kernel():
+    """K5a's own kernel source is gone: its wrapper, the build and
+    ``chip_smoke.py``'s kernels line name ``csrc/v2_forces.cu``, and the
+    pair step of K5a, K5b and K5i is ``csrc/pair_step.cuh``'s."""
+    from nbody_tpu_torch.ops import _build
+
+    csrc = ROOT / "nbody_tpu_torch" / "csrc"
+    assert not (csrc / "resident_forces.cu").exists()
+    assert "resident_forces" not in _build.SIGNATURES
+    assert "v2_forces" in (ROOT / "nbody_tpu_torch" / "ops" /
+                           "resident_forces.py").read_text()
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    kernels = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and getattr(node.targets[0], "id", None) == "ABLATION_KERNELS")
+    assert kernels["K5a"] == ("nbody_tpu_torch/csrc/v2_forces.cu",
+                              "scripts/ablations/tune_r2.py:40")
+    users = sorted(p.name for p in csrc.glob("*.cu*")
+                   if '#include "pair_step.cuh"' in p.read_text())
+    assert users == ["bcast_probe.cu", "v2_forces.cu"]

@@ -149,6 +149,34 @@ def test_k5i_plain_is_reps_sweeps(reps, n_split):
         assert rel_err(got, reps * sweep) < 1e-6
 
 
+@pytest.mark.parametrize("t,blocks", [(1, 1), (300, 1), (512, 1), (513, 2),
+                                      (1100, 3)])
+@pytest.mark.parametrize("reps,sms", [(2048, 132), (5, 132), (2048, 78)])
+def test_k5i_split_plan_counts_blocks_of_two_targets_a_thread(t, blocks, reps, sms):
+    """A block holds P = 2 targets a thread, P * 256 in all: the script's
+    T = 512 is one block, and the sweeps are split to fill the card from
+    it (256 ranges of 8 sweeps on 132 SMs)."""
+    from nbody_tpu_torch.ops.direct_forces import split_ranges
+
+    assert bp.P * bp.THREADS == 512
+    assert bp.split_plan(t, reps, sms) == split_ranges(blocks, reps, sms)
+    assert bp.split_plan(512, 2048, 132) == 256
+
+
+def test_k5i_counts_pairs_where_the_ftz_rsqrt_differs():
+    """``subnormal_pairs`` counts 0 < r2 < FLT_MIN: none on either input
+    set at the script's shape (where the ftz rsqrt and rsqrtf agree), one
+    where a target with a subnormal third row sits on a source."""
+    for abs_row2 in (False, True):
+        count, least = bp.subnormal_pairs(*tune_r4d_bcast_probe.inputs(
+            "cpu", abs_row2))
+        assert count == 0 and least >= torch.finfo(torch.float32).tiny
+    tgt = torch.tensor([[0.5, 2.0], [0.5, 0.0], [1e-39, 1.0]])
+    src = torch.tensor([[0.5, 4.0], [0.5, 4.0], [1.0, 1.0]])
+    count, least = bp.subnormal_pairs(tgt, src)
+    assert count == 1 and least == pytest.approx(1e-39, rel=1e-3)
+
+
 # --- reading SASS (ops/sass.py), on cuobjdump's text format ---
 
 SASS_TEXT = """
@@ -175,6 +203,25 @@ def test_sass_loops_and_pair_loop():
     assert sass.loops(code) == [(0x10, 0x40, 4), (0x10, 0x50, 5), (0x70, 0x70, 1)]
     assert sass.innermost(sass.loops(code)) == [(0x10, 0x40, 4), (0x70, 0x70, 1)]
     assert sass.pair_loop(code) == (4, 2)
+
+
+def test_k5i_pair_loops_read_each_variants_kernel(monkeypatch):
+    """``tune_r4d_bcast_probe.pair_loops`` takes each variant's kernel by
+    its template argument and divides its pair loop by the MUFU count."""
+    from nbody_tpu_torch.ops import sass
+
+    body = """
+        /*0000*/                   LDS.128 R4, [R2] ;
+        /*0010*/                   MUFU.RSQ R5, R4 ;
+        /*0020*/                   MUFU.RSQ R6, R4 ;
+        /*0030*/                   FADD R0, R4, R8 ;
+        /*0040*/              @!P0 BRA 0x0 ;
+"""
+    text = "".join(f"\t\tFunction : _ZN12_GLOBAL__N_112bcast_kernelILi{v}EEEvPKf\n"
+                   + body.replace("FADD", "FADD" if v else "FMUL") for v in range(4))
+    monkeypatch.setattr(sass, "functions", lambda lib: sass.parse(text))
+    assert tune_r4d_bcast_probe.pair_loops("lib", log=lambda *a: None) == {
+        v: 2.5 for v in bp.VARIANTS}
 
 
 def test_sass_diff_ignores_the_anonymous_namespace_tag(monkeypatch):
