@@ -68,8 +68,9 @@ Phases, each of which raises on failure:
  13. the ablation path of the direct force at N=65536 (two galaxies, seed
      11037): each of K5a (on K5b's kernel, csrc/v2_forces.cu, its rsqrt
      and precise paths), K5g, K5d and K5h through its module in
-     nbody_tpu_torch.ablations at the module's sweep, every configuration
-     against its plain version and run twice for bit-equality, timed with
+     nbody_tpu_torch.ablations at the module's sweep (K5d on K5b's pair
+     step, csrc/pair_step.cuh), every configuration against its plain
+     version and run twice for bit-equality, timed with
      CUDA events beside K1's force_acc on the same inputs (and K5a's
      50-substep loop beside World.update), with the four launch counts;
      then K5h at a ragged N=50000 against the plain direct sum;
@@ -77,10 +78,11 @@ Phases, each of which raises on failure:
      K5b's eight micro-variants through its own kernel (csrc/v2_forces.cu,
      after its pair loop's SASS a pair and registers per flavor at P = 1
      and 2; each also as a 50-substep loop beside World.update), then
-     K5e's seven reductions and K5c's eight op-cost probes (with the SASS
-     length of each pair loop) at N=65536, through the flavored chunk
-     kernel; K5f's nine expressions at (256, 2048), LO and
-     HI loops, with the SASS of each loop; K5i's four source broadcasts at
+     K5e's seven reductions at N=65536 through the flavored chunk kernel,
+     and K5c's eight op-cost probes through K5b's kernel as row variants
+     (with each pair loop's SASS a pair at P = 1 and 2), K5b's, K5c's and
+     K5e's launch counts kept apart; K5f's nine expressions at (256,
+     2048), LO and HI loops, with the SASS of each loop; K5i's four source broadcasts at
      the script's T=512, S=4096, REPS=2048, on its inputs (NaN where r2 < 0)
      and with the third target row made positive, after each one's pair
      loop (SASS a pair); whether the four are bit-equal to each other and
@@ -302,7 +304,7 @@ ABLATION_KERNELS = {
                  "scripts/ablations/tune_r2b.py:48"),
     "K5b-rows": ("nbody_tpu_torch/csrc/v2_forces.cu",
                  "scripts/ablations/tune_r2b.py:85"),
-    "K5c": ("nbody_tpu_torch/csrc/flavor_forces.cu",
+    "K5c": ("nbody_tpu_torch/csrc/v2_forces.cu",
             "scripts/ablations/tune_r2c.py:35"),
     "K5e": ("nbody_tpu_torch/csrc/flavor_forces.cu",
             "scripts/ablations/tune_r2e.py:40"),
@@ -1613,18 +1615,19 @@ def phase_probes(device, _build, sass) -> dict:
     v2.LAUNCHES = ff.LAUNCHES = op.LAUNCHES = bp.LAUNCHES = 0
     log(" K5b: nbody_tpu_torch.ablations.tune_r2b (csrc/v2_forces.cu)")
     k5b = tune_r2b.run(scene, k1_ms, log)
+    k5b_launches = v2.LAUNCHES
     log(" K5e: nbody_tpu_torch.ablations.tune_r2e")
     k5e = tune_r2e.run(scene, k1_ms, log)
-    k5e_launches = ff.LAUNCHES
-    log(" K5c: nbody_tpu_torch.ablations.tune_r2c")
+    log(" K5c: nbody_tpu_torch.ablations.tune_r2c (csrc/v2_forces.cu)")
     k5c = tune_r2c.run(scene, k1_ms, log)
-    k5c_launches = ff.LAUNCHES - k5e_launches
+    k5c_launches = v2.LAUNCHES - k5b_launches
     log(" K5f: nbody_tpu_torch.ablations.tune_r2f")
     k5f = tune_r2f.run(device, log)
     log(" K5i: nbody_tpu_torch.ablations.tune_r4d_bcast_probe")
     k5i = tune_r4d_bcast_probe.run(device, log)
-    launches = {"v2_forces": v2.LAUNCHES, "flavor_forces": ff.LAUNCHES,
-                "op_probe": op.LAUNCHES, "bcast_probe": bp.LAUNCHES}
+    launches = {"v2_forces K5b": k5b_launches, "v2_forces K5c": k5c_launches,
+                "flavor_forces K5e": ff.LAUNCHES, "op_probe": op.LAUNCHES,
+                "bcast_probe": bp.LAUNCHES}
     log(f"  launches over the five sweeps: {launches}")
     if not all(launches.values()):
         raise SystemExit(f"chip_smoke: a kernel of [14] was not launched: "
@@ -1657,7 +1660,10 @@ def phase_probes(device, _build, sass) -> dict:
     c = best["config"]
     record("K5e", best, plain_ms(lambda: ff.flavor_acc_plain(
         tgt, src, flavor=c["flavor"], p=c["p"], chunk=c["chunk"])),
-        direct, k5e_launches)
+        direct, launches["flavor_forces K5e"])
+    # The pairs each probe's function needs (tune_r2c.pairs): N x mass_len
+    # where its terms carry gm, N x S128 where the gm = 0 padding rows
+    # count too.
     for r in k5c:
         flops, mufu = tune_r2c.OPS[r["name"]]
         pairs = r["config"]["pairs"]
@@ -1665,7 +1671,7 @@ def phase_probes(device, _build, sass) -> dict:
         log(f"  K5c {r['name']:>9}: bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]}), {r['bound'][0] / r['ms']:.1%} of it")
     full = next(r for r in k5c if r["name"] == "full")
-    record("K5c", full, plain_ms(lambda: ff.flavor_acc_plain(
+    record("K5c", full, plain_ms(lambda: v2.v2_acc_plain(
         tgt, src, flavor="full", chunk=tune_r2c.CHUNK)), full["bound"],
         k5c_launches)
     elems = tune_r2f.TT * tune_r2f.CC

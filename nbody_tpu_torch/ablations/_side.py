@@ -12,9 +12,10 @@ gives one.
 
 JOBS.json is a list of jobs, each {"what": "fused" | "hop" | "ring" |
 "pp" | "p3m" | "contacts" | "vjp" | "merging" | "rollout" | "pp_vjp" |
-"p3m_rollout" | "v2" | "k5a" | "k5i" | "build", "n", ...} (the four after
-"p3m" are tune_merge_vjp's, the next two tune_pp_vjp's, "v2" tune_r2b's,
-"k5a" and "build" tune_r2's, "k5i" tune_r4d_bcast_probe's, below):
+"p3m_rollout" | "v2" | "k5a" | "k5i" | "k5d" | "k5c" | "build", "n", ...}
+(the four after "p3m" are tune_merge_vjp's, the next two tune_pp_vjp's,
+"v2" tune_r2b's, "k5a" and "build" tune_r2's, "k5i"
+tune_r4d_bcast_probe's, "k5d" tune_r2d's, "k5c" tune_r2c's, below):
 "fused" is one fused
 substep of the N-particle two-galaxy world (seed 11037); "hop" that
 world's state as the only hop of a one-shard ring, with its epilogue;
@@ -49,9 +50,16 @@ at ``block`` (targets a block), ``chunk`` and ``precise``, and at
 is ``bcast_probe.bcast_acc`` at the probe's shape on its inputs
 (``abs_row2``: the third target row made positive) by ``variant``, at
 ``n_split`` ranges (absent: the tree's own plan, its times also that
-plan; its output the (2, T) result). "build" builds the kernels ``names``
-and runs nothing. A job's outputs go to
-OUT_DIR/<index>.pt, and one
+plan; its output the (2, T) result). "k5d" is
+``stationary_forces.stationary_acc`` on that scene's (3, N) targets and
+its sources padded to a whole number of chunks, at ``block`` (targets a
+tile), ``chunk``, ``slabs`` (None: the tree's slab plan, its times also
+the slabs) and ``precise`` (its output the (2, N) force). "k5c" is the
+probe ``flavor`` on that scene's rows, chunk 2048: ``v2_forces.v2_acc``
+at ``p`` and a tile of 512 where the tree's ``v2_forces`` has K5c's
+flavors, else ``flavor_forces.flavor_acc`` at P = 1 in blocks of 512 (its
+output the (N, 2) force, its times also its P). "build" builds the kernels
+``names`` and runs nothing. A job's outputs go to OUT_DIR/<index>.pt, and one
 JSON line a job gives its times (ms; "reps" calls between CUDA events, the
 best of "repeats"; a "p3m" job's ms are a substep's).
 """
@@ -397,12 +405,63 @@ def k5_job(job: dict, device, worlds: dict) -> tuple:
     return {"ms": ms, **times}, out
 
 
+def stationary_probe_job(job: dict, device, worlds: dict) -> tuple:
+    """(times, [output]) of a "k5d" or "k5c" job."""
+    from nbody_tpu_torch.ablations import _scene
+
+    key = ("scene", job["n"])
+    if key not in worlds:
+        worlds.clear()
+        worlds[key] = _scene.make_scene(job["n"], device=device)
+    sc = worlds[key]
+    tgt = sc.tgt3()
+    if job["what"] == "k5d":
+        from nbody_tpu_torch.ops import stationary_forces as stf
+        from nbody_tpu_torch.ops.direct_forces import sm_count
+
+        chunk = job["chunk"]
+        src = sc.src3(-(-sc.mass_len // chunk) * chunk)
+        slabs = job.get("slabs")
+        if slabs is None and device.type == "cuda":
+            slabs = stf.slab_plan(sc.n, src.shape[-1], job["block"], chunk,
+                                  sm_count(device.index or 0))
+
+        def fn():
+            return stf.stationary_acc(tgt, src, block=job["block"],
+                                      chunk=chunk, slabs=slabs,
+                                      precise=job["precise"])
+        times = {"slabs": slabs}
+    else:
+        from nbody_tpu_torch.ops import flavor_forces as ff
+        from nbody_tpu_torch.ops import v2_forces as v2
+
+        src = sc.src3(sc.s128)
+        if "skeleton" in v2.FLAVORS:
+            p = job["p"]
+
+            def fn():
+                return ff.as_acc(v2.v2_acc(tgt, src, flavor=job["flavor"],
+                                           p=p, block=512 // p, chunk=2048))
+        else:
+            p = 1
+
+            def fn():
+                return ff.as_acc(ff.flavor_acc(tgt, src, flavor=job["flavor"],
+                                               p=1, block=512, chunk=2048))
+        times = {"p": p}
+    out = [fn().cpu()]
+    ms = best_ms(fn, job["reps"], job.get("repeats", 3)) if job.get("reps") else None
+    return {"ms": ms, **times}, out
+
+
 def run_job(job: dict, device, worlds: dict) -> tuple:
     """(times, output tensors or None) of one job."""
     if job["what"] == "v2":
         return v2_job(job, device, worlds)
     if job["what"] in ("k5a", "k5i"):
         return k5_job(job, device, worlds)
+    if job["what"] in ("k5d", "k5c"):
+        return stationary_probe_job(job, device, worlds)
     if job["what"] == "build":
         from nbody_tpu_torch.ops import _build
 

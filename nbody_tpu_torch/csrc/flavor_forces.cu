@@ -1,42 +1,34 @@
 // Force-only flavors of the chunked resident-source kernel, for NVIDIA
-// Hopper (sm_90a): the build-time variants that two TPU scripts compare.
+// Hopper (sm_90a): the build-time variants that a TPU script compares.
 //
-// Replaces the TPU kernels
+// Replaces the TPU kernel
 //   scripts/ablations/tune_r2e.py::make_v3 -> kernel (K5e)
-//   scripts/ablations/tune_r2c.py::make_probe -> kernel (K5c)
-// Each was K5a's kernel (a grid over target tiles, the (3, S) source row
+// It was K5a's kernel (a grid over target tiles, the (3, S) source row
 // resident in VMEM, a fori_loop over source chunks and a static tail) with
 // one thing changed: the reduction (a per-chunk sum, a (tile, 128)
-// lane-partial carry, an FMA k-loop), the association of f, the loop's
-// unroll, or (K5c, a timing probe with wrong physics) one piece of the pair
-// math left out. Here each is source_tiles.cuh's chunk_body with a pair
-// policy, a sum policy and an unroll, P targets per thread, block threads
-// per block: the script's tile_t is P * block. K5b (tune_r2b.py::make_v2)
-// has a kernel of its own, v2_forces.cu.
+// lane-partial carry, an FMA k-loop) or the association of f. Here each is
+// source_tiles.cuh's chunk_body with a pair policy and a sum policy, P
+// targets per thread, block threads per block: the script's tile_t is
+// P * block. K5b (tune_r2b.py::make_v2) and K5c (tune_r2c.py::make_probe)
+// run in a kernel of their own, v2_forces.cu.
 //
 // Variants (the Python wrapper ops/flavor_forces.py names them; 1 and 2
-// were K5b's and are gone, the others keep their numbers):
-//   0 control, full: per-chunk run (the script's per-chunk jnp.sum), one
-//     chain
+// were K5b's, 6-12 K5c's, and are gone; the others keep their numbers):
+//   0 control: per-chunk run (the script's per-chunk jnp.sum), one chain
 //   3 partial_jnp: K chains per chunk folded into K lane sums carried to
 //     the end (the (tile, 128) carry; no thread can hold 128 lanes)
 //   4 fma_kloop: K chains fed straight by the pair's FFMAs, folded into
 //     the total every kRun sources (one level; a chain of S/K terms over
 //     the whole sweep rounds past 5e-6 at K <= 4)
 //   5 f_assoc: 0 with f = (gm * inv) * (inv * inv)
-//   6 unroll16: 0, sixteen batches per pass
-//   7 skeleton: ax += dx only, ay stays 0
-//   8 no_rsqrt: f = r2          9 no_cube: f = inv     10 no_gm: f = inv^3
-//   11 one_axis: 0 without ay
-//   12 no_reduce: only the first source of each staged chunk counts
 // K = 8 chains at P <= 2, 4 at P = 4, 2 at P = 8 (the registers of 512
-// threads). Targets are (3, T) rows. Variants 0 and 3-5 run at P = 1, 2, 4,
-// 8; 6-12 at P = 1 (the script's TILE_T 512). Source splits as K5g's.
+// threads). Targets are (3, T) rows. Every variant runs at P = 1, 2, 4 and
+// 8. Source splits as K5g's.
 //
 // What bounds it on an H100: per pair about ten fp32 instructions, one
-// MUFU rsqrt and a shared-memory read served to P targets, as K5a; the
-// probes drop one of those. __launch_bounds__(512): at most 128 registers
-// a thread, so that 512-thread blocks launch at P = 8.
+// MUFU rsqrt and a shared-memory read served to P targets, as K5a.
+// __launch_bounds__(512): at most 128 registers a thread, so that
+// 512-thread blocks launch at P = 8.
 //
 // The C entry point launches on the stream it is handed, does not
 // synchronise, allocates nothing, and returns cudaGetLastError().
@@ -51,53 +43,11 @@ constexpr int kMaxBlock = 512;
 
 // f = (gm * inv) * (inv * inv)
 struct AssocPair {
-  static constexpr bool kY = true, kFirstOnly = false;
   static __device__ __forceinline__ float factor(float gm, float dx, float dy,
                                                  float soft) {
     const float inv = rsqrtf(dx * dx + dy * dy + soft);
     return (gm * inv) * (inv * inv);
   }
-};
-
-// The loop and the broadcasts only: ax += dx.
-struct SkeletonPair {
-  static constexpr bool kY = false, kFirstOnly = false;
-  static __device__ __forceinline__ float factor(float, float, float, float) {
-    return 1.f;
-  }
-};
-
-struct NoRsqrtPair {
-  static constexpr bool kY = true, kFirstOnly = false;
-  static __device__ __forceinline__ float factor(float, float dx, float dy,
-                                                 float soft) {
-    return dx * dx + dy * dy + soft;
-  }
-};
-
-struct NoCubePair {
-  static constexpr bool kY = true, kFirstOnly = false;
-  static __device__ __forceinline__ float factor(float, float dx, float dy,
-                                                 float soft) {
-    return rsqrtf(dx * dx + dy * dy + soft);
-  }
-};
-
-struct NoGmPair {
-  static constexpr bool kY = true, kFirstOnly = false;
-  static __device__ __forceinline__ float factor(float, float dx, float dy,
-                                                 float soft) {
-    const float inv = rsqrtf(dx * dx + dy * dy + soft);
-    return inv * inv * inv;
-  }
-};
-
-struct OneAxisPair : DirectPair<false> {
-  static constexpr bool kY = false;
-};
-
-struct FirstOnlyPair : DirectPair<false> {
-  static constexpr bool kFirstOnly = true;
 };
 
 using ChunkSum = SumPolicy<0, 1, false>;
@@ -107,17 +57,10 @@ constexpr int chains() { return P <= 2 ? 8 : 16 / P; }
 
 // Variant V's policies at P targets per thread.
 template <int V, int P> struct Variant;
-template <int P> struct Variant<0, P> { using Pair = DirectPair<false>; using Sum = ChunkSum; static constexpr int kUnroll = 1; };
+template <int P> struct Variant<0, P> { using Pair = DirectPair<false>; using Sum = ChunkSum; };
 template <int P> struct Variant<3, P> : Variant<0, P> { using Sum = SumPolicy<0, chains<P>(), true>; };
 template <int P> struct Variant<4, P> : Variant<0, P> { using Sum = SumPolicy<kRun, chains<P>(), false>; };
 template <int P> struct Variant<5, P> : Variant<0, P> { using Pair = AssocPair; };
-template <int P> struct Variant<6, P> : Variant<0, P> { static constexpr int kUnroll = 16; };
-template <int P> struct Variant<7, P> : Variant<0, P> { using Pair = SkeletonPair; };
-template <int P> struct Variant<8, P> : Variant<0, P> { using Pair = NoRsqrtPair; };
-template <int P> struct Variant<9, P> : Variant<0, P> { using Pair = NoCubePair; };
-template <int P> struct Variant<10, P> : Variant<0, P> { using Pair = NoGmPair; };
-template <int P> struct Variant<11, P> : Variant<0, P> { using Pair = OneAxisPair; };
-template <int P> struct Variant<12, P> : Variant<0, P> { using Pair = FirstOnlyPair; };
 
 template <int P, class Targets, int V>
 __global__ void __launch_bounds__(kMaxBlock)
@@ -125,7 +68,7 @@ flavor_kernel(Targets targets, const float* __restrict__ src, int n_tgt,
               int n_src, int chunk, int chunks_per_split,
               float* __restrict__ out) {
   using F = Variant<V, P>;
-  chunk_body<P, false, Targets, typename F::Pair, typename F::Sum, F::kUnroll>(
+  chunk_body<P, false, Targets, typename F::Pair, typename F::Sum>(
       targets, src, n_tgt, n_src, chunk, chunks_per_split, out);
 }
 
@@ -148,12 +91,11 @@ cudaError_t launch_variant(int variant, const float* t, const float* s,
     return cudaErrorInvalidValue;
 }
 
-// P = 1 takes every variant, wider P 0 and 3-5.
 cudaError_t launch_p(int p, int variant, const float* t, const float* s,
                      int n_tgt, int n_src, int block, int chunk, int n_split,
                      float* part, float* out, cudaStream_t st) {
   switch (p) {
-    case 1: return launch_variant<1, 0, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
+    case 1: return launch_variant<1, 0, 3, 4, 5>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
     case 2: return launch_variant<2, 0, 3, 4, 5>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
     case 4: return launch_variant<4, 0, 3, 4, 5>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);
     case 8: return launch_variant<8, 0, 3, 4, 5>(variant, t, s, n_tgt, n_src, block, chunk, n_split, part, out, st);

@@ -1,6 +1,7 @@
-// The pair step of the ablation kernels redesigned for Hopper (K5a and K5b,
-// v2_forces.cu; K5i, bcast_probe.cu): P targets a thread, each source value
-// that reaches the thread serving all P of them, and an unguarded rsqrt.
+// The pair step of the ablation kernels redesigned for Hopper (K5a, K5b and
+// K5c, v2_forces.cu; K5d, stationary_forces.cu; K5i, bcast_probe.cu): P
+// targets a thread, each source value that reaches the thread serving all P
+// of them, and an unguarded rsqrt.
 //
 // Per target q and source (sx, sy, gm), on chain c:
 //   dx = sx - x_q;  dy = sy - y_q;  r2 = dx*dx + dy*dy + soft_q
@@ -12,20 +13,30 @@
 // denormal guard (FSETP and two predicated FMUL a pair). The two give the
 // same bits wherever r2 is a normal float or r2 <= 0 or NaN (both +inf at
 // 0, NaN below); they differ only for 0 < r2 < FLT_MIN, which the ftz form
-// flushes to 0. v2_forces.cu's r2 >= 1e-18 is normal; bcast_probe.cu's r2
-// takes the target's raw third row and counts such pairs on its inputs
-// (none).
+// flushes to 0. v2_forces.cu's and stationary_forces.cu's r2 >= 1e-18 is
+// normal; bcast_probe.cu's r2 takes the target's raw third row and counts
+// such pairs on its inputs (none).
+//
+// The math is a policy of Pairs (StepMath, the above, by default): the
+// factor f, whether ty is summed, and whether only the first source of a
+// staged range counts (K5c's op-cost probes, v2_forces.cu, change one of
+// these at a time).
 //
 // A staged batch holds the x, y and gm rows of kBatch sources side by side
 // (24 floats), read into registers as six 16-byte loads off one address.
+// add_runs sums a staged range in runs of kRun sources, each into fresh
+// registers before it joins the total (K5a, K5d).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "source_tiles.cuh"  // kRun
+
 namespace {
 
-constexpr int kBatch = 8;  // sources read into registers together
+constexpr int kBatch = 8;      // sources read into registers together
+constexpr int kRunUnroll = 4;  // batches a pass of add_runs' loop
 
 __device__ __forceinline__ float rsqrt_ftz(float x) {
   float y;
@@ -33,8 +44,26 @@ __device__ __forceinline__ float rsqrt_ftz(float x) {
   return y;
 }
 
+// The default math: f = gm * inv^3 with the unguarded rsqrt, or (kPrecise)
+// gm / (sqrtf(r2) * r2); both axes; every source.
+template <bool kPrecise>
+struct StepMath {
+  static constexpr bool kY = true;           // ty is summed
+  static constexpr bool kFirstOnly = false;  // only a range's first source
+  static __device__ __forceinline__ float factor(float gm, float dx, float dy,
+                                                 float soft) {
+    if constexpr (kPrecise) {
+      const float r2 = dx * dx + dy * dy + soft;
+      return gm / (sqrtf(r2) * r2);
+    } else {
+      const float inv = rsqrt_ftz(dx * dx + dy * dy + soft);
+      return gm * (inv * inv * inv);
+    }
+  }
+};
+
 // The P targets of one thread and their chains: target q, chain c.
-template <int P, int K, bool kPrecise = false>
+template <int P, int K, bool kPrecise = false, class Math = StepMath<kPrecise>>
 struct Pairs {
   float x[P], y[P], soft[P];
   float tx[P][K], ty[P][K];
@@ -44,16 +73,9 @@ struct Pairs {
     for (int q = 0; q < P; ++q) {
       const float dx = sx - x[q];
       const float dy = sy - y[q];
-      float f;
-      if constexpr (kPrecise) {
-        const float r2 = dx * dx + dy * dy + soft[q];
-        f = gm / (sqrtf(r2) * r2);
-      } else {
-        const float inv = rsqrt_ftz(dx * dx + dy * dy + soft[q]);
-        f = gm * (inv * inv * inv);
-      }
+      const float f = Math::factor(gm, dx, dy, soft[q]);
       tx[q][c] += dx * f;
-      ty[q][c] += dy * f;
+      if constexpr (Math::kY) ty[q][c] += dy * f;
     }
   }
 
@@ -81,6 +103,47 @@ struct Pairs {
 // holds rows of 8.
 __device__ __forceinline__ int stage_at(int k, int r) {
   return (k / kBatch) * (3 * kBatch) + r * kBatch + k % kBatch;
+}
+
+// Adds the `len` sources staged at st (stage_at's layout, from a whole
+// batch) to the totals (ax[q], ay[q]) of the thread's P targets run by run,
+// kRun sources a run (the last run of a range may be shorter) summed into
+// fresh registers, kRunUnroll batches a pass, each run then added to the
+// total: the association of source_tiles.cuh's RunSum, which K5a and K5d
+// had before they ran here. (One chain a chunk, v2_forces.cu's variant 0,
+// drifts with the chunk: 5.5e-6 of the force's max against the direct sum
+// at chunk 4096, PERF.md §6.) A ragged last batch (len not a multiple of
+// 8) is read source by source.
+template <int P, bool kPrecise>
+__device__ __forceinline__ void add_runs(const float* st, int len,
+                                         Pairs<P, 1, kPrecise>& t, float* ax,
+                                         float* ay) {
+  constexpr int kPass = kBatch * kRunUnroll;
+  constexpr int kStride = 3 * kBatch;  // floats of a staged batch
+  for (int run = 0; run < len; run += kRun) {
+    const int end = min(run + kRun, len);
+#pragma unroll
+    for (int q = 0; q < P; ++q) t.tx[q][0] = t.ty[q][0] = 0.f;
+    int k = run;
+    const float* batch = st + 3 * run;  // run is a whole number of batches
+#pragma unroll 1
+    for (; k + kPass <= end; k += kPass, batch += kRunUnroll * kStride) {
+#pragma unroll
+      for (int u = 0; u < kRunUnroll; ++u) t.add_batch(batch + u * kStride);
+    }
+#pragma unroll 1
+    for (; k + kBatch <= end; k += kBatch, batch += kStride)
+      t.add_batch(batch);
+#pragma unroll
+    for (int b = 0; b < kBatch - 1; ++b)
+      if (k + b < end)
+        t.add(batch[b], batch[kBatch + b], batch[2 * kBatch + b], 0);
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      ax[q] += t.tx[q][0];
+      ay[q] += t.ty[q][0];
+    }
+  }
 }
 
 }  // namespace

@@ -1,10 +1,10 @@
 // Pieces shared by every direct-force kernel: the block and run sizes, the
 // softening floor and the pair factor; the run loop over a staged source
 // chunk and the chunked force kernel of the ablation path (ptile_forces.cu,
-// stationary_forces.cu, newton_forces.cu, flavor_forces.cu); and the
-// fixed-order sum of per-range partials. The main-path kernels
-// (direct_forces.cu, ring_forces.cu) run their own pair loop,
-// direct_tiles.cuh; K5a, K5b and K5i theirs, pair_step.cuh.
+// newton_forces.cu, flavor_forces.cu); and the fixed-order sum of
+// per-range partials. The main-path kernels (direct_forces.cu,
+// ring_forces.cu) run their own pair loop, direct_tiles.cuh; K5a, K5b,
+// K5c, K5d and K5i theirs, pair_step.cuh.
 //
 // Math, per target i over sources j < n_src:
 //   dx = sx_j - x_i;  dy = sy_j - y_i
@@ -15,12 +15,10 @@
 // The floor keeps a zero-radius target on a gm = 0 padding row at its own
 // position finite.
 //
-// The run loop and the chunked kernel take three policies, whose defaults
-// are the kernels above: a pair policy (the factor f, whether ay is summed,
-// whether only the first source of each staged range counts), a sum policy
+// The run loop and the chunked kernel take two policies, whose defaults
+// are the kernels above: a pair policy (the factor f) and a sum policy
 // (where a run closes, how many independent chains a target keeps, and
-// whether the chains carry over as lanes to the end), and the number of
-// 8-source batches per pass of the pair loop. flavor_forces.cu
+// whether the chains carry over as lanes to the end). flavor_forces.cu
 // instantiates the others.
 
 #pragma once
@@ -43,11 +41,9 @@ __device__ __forceinline__ float pair_factor(float gm, float r2) {
   return gm * (inv * inv * inv);
 }
 
-// The default pair policy: f = pair_factor, both axes, every source.
+// The default pair policy: f = pair_factor.
 template <bool kPrecise>
 struct DirectPair {
-  static constexpr bool kY = true;          // ay is summed
-  static constexpr bool kFirstOnly = false;  // only the first source counts
   static __device__ __forceinline__ float factor(float gm, float dx, float dy,
                                                  float soft) {
     return pair_factor<kPrecise>(gm, dx * dx + dy * dy + soft);
@@ -93,7 +89,7 @@ using RunSum = SumPolicy<kRun, 1, false>;  // the default
 // keep the source order. (Left to ptxas, the same loop ran 2-8% slower or
 // faster from one kernel to the next on an H100; PERF.md.)
 template <int P, bool kPrecise, class Pair = DirectPair<kPrecise>,
-          class Sum = RunSum, int kUnroll = 1>
+          class Sum = RunSum>
 __device__ __forceinline__ void accumulate_staged(
     const float4* stage, int len, const float (&px)[P], const float (&py)[P],
     const float (&soft)[P], float (&ax)[P * Sum::kLaneCount],
@@ -117,37 +113,22 @@ __device__ __forceinline__ void accumulate_staged(
         const float dy = s.y - py[q];
         const float f = Pair::factor(s.z, dx, dy, soft[q]);
         tx[q][c] += dx * f;
-        if constexpr (Pair::kY) ty[q][c] += dy * f;
+        ty[q][c] += dy * f;
       }
     };
-    if constexpr (Pair::kFirstOnly) {
-      add(stage[run], 0);
+    int k = run;
+    for (; k + kBatch <= end; k += kBatch) {
+      // No pragma on this loop: nvcc would unroll the batch loop around it
+      // instead (32 batches of a run), and the kernels' code would change.
+      ADD_BATCH(k);
+    }
+    if constexpr (K == 1) {
+      for (; k < end; ++k) add(stage[k], 0);
     } else {
-      int k = run;
-      for (; k + kBatch * kUnroll <= end; k += kBatch * kUnroll) {
-        // No pragma on a loop of one pass: nvcc would unroll the batch
-        // loop around it instead (32 batches of a run), and the default
-        // kernels' code would change.
-        if constexpr (kUnroll == 1) {
-          ADD_BATCH(k);
-        } else {
+      // k - run is a multiple of kBatch: source k + b is on chain b % K
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u)
-            ADD_BATCH(k + u * kBatch);
-        }
-      }
-      if constexpr (kUnroll > 1) {
-        for (; k + kBatch <= end; k += kBatch)
-          ADD_BATCH(k);
-      }
-      if constexpr (K == 1) {
-        for (; k < end; ++k) add(stage[k], 0);
-      } else {
-        // k - run is a multiple of kBatch: source k + b is on chain b % K
-#pragma unroll
-        for (int b = 0; b < kBatch - 1; ++b)
-          if (k + b < end) add(stage[k + b], b % K);
-      }
+      for (int b = 0; b < kBatch - 1; ++b)
+        if (k + b < end) add(stage[k + b], b % K);
     }
 #pragma unroll
     for (int q = 0; q < P; ++q) {
@@ -217,7 +198,7 @@ struct RowTargets {
 // writes the sums to out + y * 2 * n_tgt in the Targets' result layout.
 // Lane sums (Sum::kLanes) are folded in lane order before the write.
 template <int P, bool kPrecise, class Targets, class Pair = DirectPair<kPrecise>,
-          class Sum = RunSum, int kUnroll = 1>
+          class Sum = RunSum>
 __device__ __forceinline__ void chunk_body(Targets targets,
                                            const float* __restrict__ src,
                                            int n_tgt, int n_src, int chunk,
@@ -247,8 +228,8 @@ __device__ __forceinline__ void chunk_body(Targets targets,
     const int len = min(chunk, n_src - base);
     stage_sources(src, n_src, base, len, stage);
     __syncthreads();
-    accumulate_staged<P, kPrecise, Pair, Sum, kUnroll>(stage, len, px, py,
-                                                       soft, ax, ay);
+    accumulate_staged<P, kPrecise, Pair, Sum>(stage, len, px, py, soft, ax,
+                                              ay);
     __syncthreads();
   }
   const int comp = Targets::kComp < 0 ? n_tgt : Targets::kComp;

@@ -1,6 +1,7 @@
-// K5a and K5b for NVIDIA Hopper (sm_90a): the resident-source force of
+// K5a, K5b and K5c for NVIDIA Hopper (sm_90a): the resident-source force of
 // tune_r2.py's v2_acc and of make_v2, its two target layouts and its
-// sweep's flavors, in a kernel of their own.
+// sweep's flavors, and tune_r2c.py's op-cost probes, in a kernel of their
+// own.
 //
 // Replaces the TPU kernels
 //   scripts/ablations/tune_r2.py::_v2_kernel (K5a: make_v2's kernel_cols
@@ -9,6 +10,9 @@
 //     columns of x, y and r, result (T, 2))
 //   scripts/ablations/tune_r2b.py::make_v2 -> kernel_rows (targets as a
 //     (3, tile_t) row block, result two (1, T) rows)
+//   scripts/ablations/tune_r2c.py::make_probe -> kernel (K5c: kernel_rows at
+//     tile 512 and chunk 2048 with one piece of the pair math left out, a
+//     timing probe with wrong physics): variants 6-12
 // Both sweep the resident (3, S) sources x; y; gm in chunks, each chunk's
 // terms summed (jnp.sum) before they join the target's total. Here the
 // column layout takes (T, 2) positions and a (T,) radius and writes (T, 2)
@@ -30,6 +34,11 @@
 //     and divide), column layout only: runs of kRun = 256 sources summed
 //     into fresh registers, each added to the total in order (add_runs),
 //     static's four batches a pass
+//   6-12 K5c's probes, row layout only, each 0 with one change: 6 unroll16
+//     (sixteen batches a pass); a pair math (pair_step.cuh's policy):
+//     7 skeleton (tx += dx only, ay stays 0), 8 no_rsqrt (f = r2),
+//     9 no_cube (f = inv), 10 no_gm (f = inv^3), 11 one_axis (0 without
+//     ay); 12 no_reduce (only the first source of each staged chunk)
 // The script's tile_t is P * block: P = 2 targets a thread from tile 256
 // on, 1 below.
 //
@@ -70,7 +79,7 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "pair_step.cuh"     // kBatch, Pairs, stage_at
+#include "pair_step.cuh"     // kBatch, Pairs, StepMath, stage_at, add_runs
 #include "source_tiles.cuh"  // kSofteningFloor, RowTargets, PairTargets,
                              // allow_smem, launch_sum_partials
 
@@ -78,7 +87,6 @@ namespace {
 
 constexpr int kMaxBlock = 512;
 constexpr int kChains = 8;      // chains (lane sums) of the partial variant
-constexpr int kRunUnroll = 4;   // batches a pass of K5a's run loop (static's)
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
 
 template <int kBytes>
@@ -119,12 +127,13 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src,
 
 // Adds the `len` sources staged at st to the L sums (ax[q * L + c],
 // ay[q * L + c]) of the thread's P targets: the chunk's terms on K chains,
-// kUnroll batches a pass, then each chain joins lane c (kLanes) or the
-// chains join the one total in chain order.
-template <int P, int kUnroll, bool kLanes, bool kPrecise>
+// kUnroll batches a pass (or the chunk's first source alone, where the math
+// says so), then each chain joins lane c (kLanes) or the chains join the
+// one total in chain order.
+template <int P, int kUnroll, bool kLanes, bool kPrecise, class Math>
 __device__ __forceinline__ void add_chunk(const float* st, int len,
                                           Pairs<P, kLanes ? kChains : 1,
-                                                kPrecise>& t,
+                                                kPrecise, Math>& t,
                                           float* ax, float* ay) {
   constexpr int K = kLanes ? kChains : 1;
   constexpr int L = kLanes ? kChains : 1;
@@ -134,23 +143,27 @@ __device__ __forceinline__ void add_chunk(const float* st, int len,
   for (int q = 0; q < P; ++q)
 #pragma unroll
     for (int c = 0; c < K; ++c) t.tx[q][c] = t.ty[q][c] = 0.f;
-  int k = 0;
-  const float* batch = st;
+  if constexpr (Math::kFirstOnly) {
+    t.add(st[0], st[kBatch], st[2 * kBatch], 0);
+  } else {
+    int k = 0;
+    const float* batch = st;
 #pragma unroll 1
-  for (; k + kPass <= len; k += kPass, batch += kUnroll * kStride) {
+    for (; k + kPass <= len; k += kPass, batch += kUnroll * kStride) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) t.add_batch(batch + u * kStride);
-  }
-  if constexpr (kUnroll > 1) {
+      for (int u = 0; u < kUnroll; ++u) t.add_batch(batch + u * kStride);
+    }
+    if constexpr (kUnroll > 1) {
 #pragma unroll 1
-    for (; k + kBatch <= len; k += kBatch, batch += kStride)
-      t.add_batch(batch);
-  }
-  // the ragged end: k is a multiple of kBatch, source k + b on chain b % K
+      for (; k + kBatch <= len; k += kBatch, batch += kStride)
+        t.add_batch(batch);
+    }
+    // the ragged end: k is a multiple of kBatch, source k + b on chain b % K
 #pragma unroll
-  for (int b = 0; b < kBatch - 1; ++b)
-    if (k + b < len)
-      t.add(batch[b], batch[kBatch + b], batch[2 * kBatch + b], b % K);
+    for (int b = 0; b < kBatch - 1; ++b)
+      if (k + b < len)
+        t.add(batch[b], batch[kBatch + b], batch[2 * kBatch + b], b % K);
+  }
 #pragma unroll
   for (int q = 0; q < P; ++q) {
 #pragma unroll
@@ -161,53 +174,14 @@ __device__ __forceinline__ void add_chunk(const float* st, int len,
   }
 }
 
-// K5a's sums: adds the `len` sources staged at st to the totals (ax[q],
-// ay[q]) of the thread's P targets run by run, kRun sources a run (the last
-// run of a chunk may be shorter) summed into fresh registers, kRunUnroll
-// batches a pass, each run then added to the total: the association of
-// source_tiles.cuh's RunSum, which K5a had before it ran here. (One chain a
-// chunk, variant 0, drifts with the chunk: 5.5e-6 of the force's max
-// against the direct sum at chunk 4096, PERF.md §6.)
-template <int P, bool kPrecise>
-__device__ __forceinline__ void add_runs(const float* st, int len,
-                                         Pairs<P, 1, kPrecise>& t, float* ax,
-                                         float* ay) {
-  constexpr int kPass = kBatch * kRunUnroll;
-  constexpr int kStride = 3 * kBatch;  // floats of a staged batch
-  for (int run = 0; run < len; run += kRun) {
-    const int end = min(run + kRun, len);
-#pragma unroll
-    for (int q = 0; q < P; ++q) t.tx[q][0] = t.ty[q][0] = 0.f;
-    int k = run;
-    const float* batch = st + 3 * run;  // run is a whole number of batches
-#pragma unroll 1
-    for (; k + kPass <= end; k += kPass, batch += kRunUnroll * kStride) {
-#pragma unroll
-      for (int u = 0; u < kRunUnroll; ++u) t.add_batch(batch + u * kStride);
-    }
-#pragma unroll 1
-    for (; k + kBatch <= end; k += kBatch, batch += kStride)
-      t.add_batch(batch);
-#pragma unroll
-    for (int b = 0; b < kBatch - 1; ++b)
-      if (k + b < end)
-        t.add(batch[b], batch[kBatch + b], batch[2 * kBatch + b], 0);
-#pragma unroll
-    for (int q = 0; q < P; ++q) {
-      ax[q] += t.tx[q][0];
-      ay[q] += t.ty[q][0];
-    }
-  }
-}
-
 // Block (x, y) holds P * blockDim.x targets, P a thread (i, i + blockDim.x,
 // ...), and sums the sources of the y-th of gridDim.y ranges of
 // chunks_per_split whole chunks into out + y * 2 n_tgt, in the Targets'
 // result layout. Dynamic shared memory: two stages of chunk sources (3 chunk
-// floats each). The body of v2_kernel (add_chunk's sums) and of
-// v2_resident_kernel (kRuns: add_runs').
+// floats each). The body of v2_kernel and v2_probe_kernel (add_chunk's sums,
+// by the pair math Math) and of v2_resident_kernel (kRuns: add_runs').
 template <int P, class Targets, int kUnroll, bool kLanes, bool kPrecise,
-          bool kRuns>
+          bool kRuns, class Math = StepMath<kPrecise>>
 __device__ __forceinline__ void v2_body(Targets targets,
                                         const float* __restrict__ src,
                                         int n_tgt, int n_src, int chunk,
@@ -217,7 +191,7 @@ __device__ __forceinline__ void v2_body(Targets targets,
   extern __shared__ float4 v2_smem[];
   float* const stage = reinterpret_cast<float*>(v2_smem);
   const int first = blockIdx.x * (P * blockDim.x) + threadIdx.x;
-  Pairs<P, kLanes ? kChains : 1, kPrecise> t;
+  Pairs<P, kLanes ? kChains : 1, kPrecise, Math> t;
   float ax[P * L], ay[P * L];
 #pragma unroll
   for (int q = 0; q < P; ++q) {
@@ -251,7 +225,7 @@ __device__ __forceinline__ void v2_body(Targets targets,
       add_runs<P, kPrecise>(stage + at, min(chunk, n_src - c * chunk), t, ax,
                             ay);
     else
-      add_chunk<P, kUnroll, kLanes, kPrecise>(
+      add_chunk<P, kUnroll, kLanes, kPrecise, Math>(
           stage + at, min(chunk, n_src - c * chunk), t, ax, ay);
     at = other;
   }
@@ -290,6 +264,55 @@ v2_resident_kernel(PairTargets targets, const float* __restrict__ src,
                    int n_tgt, int n_src, int chunk, int chunks_per_split,
                    int vec16, float* __restrict__ out) {
   v2_body<P, PairTargets, 1, false, kPrecise, true>(
+      targets, src, n_tgt, n_src, chunk, chunks_per_split, vec16, out);
+}
+
+// K5c's pair maths, each the default (StepMath<false>) with one piece left
+// out.
+struct SkeletonMath : StepMath<false> {  // the loop and the reads: tx += dx
+  static constexpr bool kY = false;
+  static __device__ __forceinline__ float factor(float, float, float, float) {
+    return 1.f;
+  }
+};
+
+struct NoRsqrtMath : StepMath<false> {  // f = r2
+  static __device__ __forceinline__ float factor(float, float dx, float dy,
+                                                 float soft) {
+    return dx * dx + dy * dy + soft;
+  }
+};
+
+struct NoCubeMath : StepMath<false> {  // f = inv
+  static __device__ __forceinline__ float factor(float, float dx, float dy,
+                                                 float soft) {
+    return rsqrt_ftz(dx * dx + dy * dy + soft);
+  }
+};
+
+struct NoGmMath : StepMath<false> {  // f = inv^3
+  static __device__ __forceinline__ float factor(float, float dx, float dy,
+                                                 float soft) {
+    const float inv = rsqrt_ftz(dx * dx + dy * dy + soft);
+    return inv * inv * inv;
+  }
+};
+
+struct OneAxisMath : StepMath<false> {  // ay stays 0
+  static constexpr bool kY = false;
+};
+
+struct FirstOnlyMath : StepMath<false> {  // a chunk's first source alone
+  static constexpr bool kFirstOnly = true;
+};
+
+// Variants 7-12: K5c's probes on row targets.
+template <int P, class Math>
+__global__ void __launch_bounds__(kMaxBlock)
+v2_probe_kernel(RowTargets targets, const float* __restrict__ src, int n_tgt,
+                int n_src, int chunk, int chunks_per_split, int vec16,
+                float* __restrict__ out) {
+  v2_body<P, RowTargets, 1, false, false, false, Math>(
       targets, src, n_tgt, n_src, chunk, chunks_per_split, vec16, out);
 }
 
@@ -337,8 +360,21 @@ cudaError_t launch_variant(int variant, Targets targets, const Launch& a) {
                    : launch<P>(v2_resident_kernel<P, true>, targets, a);
       else
         return cudaErrorInvalidValue;
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (std::is_same_v<Targets, RowTargets>) {
+    switch (variant) {
+      case 6: return launch<P>(v2_kernel<P, Targets, 16, false>, targets, a);
+      case 7: return launch<P>(v2_probe_kernel<P, SkeletonMath>, targets, a);
+      case 8: return launch<P>(v2_probe_kernel<P, NoRsqrtMath>, targets, a);
+      case 9: return launch<P>(v2_probe_kernel<P, NoCubeMath>, targets, a);
+      case 10: return launch<P>(v2_probe_kernel<P, NoGmMath>, targets, a);
+      case 11: return launch<P>(v2_probe_kernel<P, OneAxisMath>, targets, a);
+      case 12: return launch<P>(v2_probe_kernel<P, FirstOnlyMath>, targets, a);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <class Targets>
@@ -353,8 +389,8 @@ cudaError_t launch_p(int p, int variant, Targets targets, const Launch& a) {
 }  // namespace
 
 // Force of the (3, n_src) sources x; y; gm at `src` on n_tgt targets, by
-// variant `variant` (above; 4 and 5 with rows = 0 only) at p (1 or 2) targets per
-// thread. rows = 1:
+// variant `variant` (above; 4 and 5 with rows = 0 only, 6-12 with rows = 1
+// only) at p (1 or 2) targets per thread. rows = 1:
 // tgt_a is the (3, n_tgt) rows x; y; r, tgt_b unused, out (2, n_tgt);
 // rows = 0: tgt_a the (n_tgt, 2) positions, tgt_b the (n_tgt,) radius, out
 // (n_tgt, 2). block: a multiple of 32 up to 512; chunk: a multiple of 8

@@ -75,8 +75,8 @@ SIGNATURES = {
     "stationary_forces": {
         "nbody_stationary_forces": [
             _vp, _vp,                  # tgt (3, T), src (3, S)
-            _i32, _i32, _i32, _i32,    # n_tgt, n_src, block, chunk
-            _i32, _i32,                # n_slabs, precise
+            _i32, _i32, _i32, _i32,    # n_tgt, n_src, p, threads
+            _i32, _i32, _i32,          # chunk, n_slabs, precise
             _vp, _vp, _vp],            # partials, out (2, T), stream
     },
     "newton_forces": {

@@ -1,42 +1,40 @@
-"""Build-time flavors of the chunked force (K5e, K5c): the CUDA kernel's
-wrapper and a plain PyTorch version of each flavor.
+"""Build-time flavors of the chunked force (K5e): the CUDA kernel's wrapper
+and a plain PyTorch version of each flavor, and the plain sums that K5b's
+and K5c's (:mod:`.v2_forces`) share.
 
-Counterparts of ``make_v3`` in ``scripts/ablations/tune_r2e.py`` and
-``make_probe`` in ``tune_r2c.py``. The kernel is ``csrc/flavor_forces.cu``:
-``source_tiles.cuh``'s chunked force (K5a and K5g's) with a pair policy, a
-sum policy and an unroll chosen at build time, P targets per thread and
-``block`` threads per block, so that the script's ``tile_t`` is ``p *
-block``. Each script flavor maps to one variant:
+Counterpart of ``make_v3`` in ``scripts/ablations/tune_r2e.py``. The
+kernel is ``csrc/flavor_forces.cu``: ``source_tiles.cuh``'s chunked force
+(K5g's) with a pair policy and a sum policy chosen at build time, P
+targets per thread and ``block`` threads per block, so that the script's
+``tile_t`` is ``p * block``. Each script flavor maps to one variant:
 
 ======================  ===========================================  =====
 script flavor           Hopper variant                               P
 ======================  ===========================================  =====
-K5e control; K5c full   per-chunk run (the script's per-chunk        any
+control                 per-chunk run (the script's per-chunk        any
                         ``jnp.sum``), one chain
-K5e partial_jnp         ``partial``: K chains per chunk folded into  any
+partial_jnp             ``partial``: K chains per chunk folded into  any
                         K lane sums, summed in lane order at the end
-K5e fma_kloop           K chains fed straight by the FFMAs, folded   any
+fma_kloop               K chains fed straight by the FFMAs, folded   any
                         into the total every 256 sources
-K5e f_assoc             f = (gm·inv)·(inv·inv), per-chunk run        any
-K5c unroll16            16 batches per pass                          1
-K5c skeleton, no_rsqrt,  the script's pair math with one piece gone   1
-no_cube, no_gm,         (skeleton and one_axis leave ay at 0;
-one_axis, no_reduce     no_reduce adds the first source of each
-                        staged chunk only)
+f_assoc                 f = (gm·inv)·(inv·inv), per-chunk run        any
 ======================  ===========================================  =====
 
 K (:func:`chains`) is 8 at P <= 2, 4 at P = 4 and 2 at P = 8: the TPU's 128
 lane partials, as many as a thread's registers hold at 512 threads. Targets
 are (3, T) rows x; y; r, results ((1, T), (1, T)). K5b (``make_v2``, with
-its column layout) has a kernel of its own, :mod:`.v2_forces`. When the
-target blocks cannot fill the card, the source sum is split into ranges of
-whole chunks as K5g's (:func:`~.ptile_forces.split_plan`).
+its column layout) and K5c (``tune_r2c.py``'s op-cost probes) run in a
+kernel of their own, :mod:`.v2_forces`. When the target blocks cannot fill
+the card, the source sum is split into ranges of whole chunks as K5g's
+(:func:`~.ptile_forces.split_plan`).
 
 Each plain version follows the kernel's association: the per-chunk sums
-added in chunk order, the chains and the lane sums folded in order, the
-probes' dropped terms. It does not follow a source split (a different
-grouping of whole-chunk sums). CPU tensors take the plain version; CUDA
-tensors launch the kernel, and anything wrong there raises.
+added in chunk order, the chains and the lane sums folded in order.
+:func:`chunked_sum_plain` also gives K5c's probes' math (their dropped
+terms, or the first source of each chunk). It does not follow a source
+split (a different grouping of whole-chunk sums). CPU tensors take the
+plain version; CUDA tensors launch the kernel, and anything wrong there
+raises.
 """
 
 from __future__ import annotations
@@ -50,19 +48,10 @@ from .ptile_forces import PS, split_plan
 # name: (variant of csrc/flavor_forces.cu, pair math, sum)
 FLAVORS = {
     "control": (0, "direct", "chunk"),
-    "full": (0, "direct", "chunk"),
     "partial_jnp": (3, "direct", "lanes"),
     "fma_kloop": (4, "direct", "chains"),
     "f_assoc": (5, "assoc", "chunk"),
-    "unroll16": (6, "direct", "chunk"),
-    "skeleton": (7, "skeleton", "chunk"),
-    "no_rsqrt": (8, "no_rsqrt", "chunk"),
-    "no_cube": (9, "no_cube", "chunk"),
-    "no_gm": (10, "no_gm", "chunk"),
-    "one_axis": (11, "one_axis", "chunk"),
-    "no_reduce": (12, "direct", "first"),
 }
-WIDE_VARIANTS = 6          # variants 0-5 run at every P, the others at P = 1
 RUN = 256                  # csrc/source_tiles.cuh kRun: fma_kloop's close
 MAX_BLOCK = 512
 
@@ -113,8 +102,6 @@ def _check_flavor(flavor: str, p: int, block: int, chunk: int):
         raise ValueError(f"block must be a multiple of 32 in [32, {MAX_BLOCK}], got {block}")
     if not (8 <= chunk <= 12288 and chunk % 8 == 0):
         raise ValueError(f"chunk must be a multiple of 8 in [8, 12288], got {chunk}")
-    if FLAVORS[flavor][0] >= WIDE_VARIANTS and p != 1:
-        raise ValueError(f"flavor {flavor!r} runs at p = 1 only, got {p}")
 
 
 def _terms(pair: str, tx, ty, soft, sx, sy, gm):

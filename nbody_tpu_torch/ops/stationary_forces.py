@@ -6,11 +6,15 @@ Counterpart of ``make_k3(tile_t, chunk, manual_reduce)`` in
 in a sequential grid and revisits one (2, T) accumulator; the kernel is
 ``csrc/stationary_forces.cu``, where each block keeps one chunk in shared
 memory, walks target tiles, and writes per-chunk partials that a second
-pass sums in chunk order. The plain version follows the same schedule: a
-(2, T) partial per chunk, summed in chunk order. ``manual_reduce`` only
-chose how the TPU's lanes reduce; it has no counterpart. CPU tensors take
-the plain version; CUDA tensors launch the kernel, and anything wrong
-there raises.
+pass sums in chunk order. Its pair step is K5a's and K5b's
+(``csrc/pair_step.cuh``): two targets a thread from tiles of 64 targets
+on (:func:`shape`), an unguarded ``rsqrt.approx.ftz``, and each target's
+sources summed in runs of 256 within a chunk. The plain version follows
+the same schedule: a (2, T) partial per chunk, its runs of 256 summed in
+order, the partials summed in chunk order. ``manual_reduce`` only chose
+how the TPU's lanes reduce; it has no counterpart. CPU tensors take the
+plain version; CUDA tensors launch the kernel, and anything wrong there
+raises.
 """
 
 from __future__ import annotations
@@ -19,7 +23,11 @@ import torch
 
 from .. import forces
 from .direct_forces import _check, _device_of, _raise_on, sm_count
-from .resident_forces import _check_launch
+
+MAX_THREADS = 512   # csrc/stationary_forces.cu kMaxThreads
+MAX_CHUNK = 12288
+RUN = 256           # csrc/source_tiles.cuh kRun: sources a run of add_runs
+BLOCKS_PER_SM = 64  # the slab plan's target
 
 # Kernel launches made by the wrapper in this process (plain-version calls
 # are not counted).
@@ -32,25 +40,44 @@ def _lib():
     return _build.load("stationary_forces")
 
 
+def shape(block: int) -> tuple[int, int]:
+    """(P, threads) of a tile of ``block`` targets: two targets a thread from
+    64 on, one below; the threads a multiple of 32 up to MAX_THREADS."""
+    p = 2 if block >= 64 else 1
+    threads = block // p
+    if not (32 <= threads <= MAX_THREADS and threads % 32 == 0
+            and p * threads == block):
+        raise ValueError(f"block (targets a tile) must be 32 or a multiple of "
+                         f"64 in [64, {2 * MAX_THREADS}], got {block}")
+    return p, threads
+
+
 def slab_plan(t: int, s: int, block: int, chunk: int, sms: int) -> int:
-    """Slabs of whole target tiles per source chunk: 1 (each block walks
-    every tile) when the chunks alone give two blocks per SM; else enough
-    for about two blocks per SM, at most one per tile."""
+    """Slabs of whole target tiles of ``block`` targets per source chunk:
+    enough for about BLOCKS_PER_SM blocks an SM, at most one a tile, at
+    least one (each block walks every tile). Many short blocks, run in
+    waves, keep every SM busy to the end; the precise path, whose IEEE
+    divide is latency-bound, needs them most (``ablations.tune_r2d
+    slabs``; PERF.md §6)."""
     chunks, tiles = s // chunk, -(-t // block)
-    if chunks == 0 or chunks >= 2 * sms:
+    if chunks == 0:
         return 1
-    return max(1, min(tiles, -(-2 * sms // chunks)))
+    return max(1, min(tiles, -(-BLOCKS_PER_SM * sms // chunks)))
 
 
 def stationary_acc_plain(tgt, src, *, chunk: int, precise: bool = False):
-    """Plain version of :func:`stationary_acc`: each chunk's (2, T) force,
+    """Plain version of :func:`stationary_acc`: within each chunk, runs of
+    RUN sources each summed and added in order; the chunks' (2, T) partials
     summed in chunk order."""
-    out = torch.zeros((2, tgt.shape[-1]), dtype=torch.float32,
-                      device=tgt.device)
-    for lo in range(0, src.shape[-1], chunk):
-        part = forces.direct_sum_acc(tgt[:2].T, tgt[2], src[:2, lo:lo + chunk].T,
-                                     src[2, lo:lo + chunk], precise=precise)
-        out += part.T
+    t, s = tgt.shape[-1], src.shape[-1]
+    out = torch.zeros((2, t), dtype=torch.float32, device=tgt.device)
+    for lo in range(0, s, chunk):
+        part = torch.zeros_like(out)
+        for a in range(lo, min(lo + chunk, s), RUN):
+            b = min(a + RUN, lo + chunk, s)
+            part += forces.direct_sum_acc(tgt[:2].T, tgt[2], src[:2, a:b].T,
+                                          src[2, a:b], precise=precise).T
+        out += part
     return out
 
 
@@ -64,14 +91,17 @@ def stationary_acc(
     precise: bool = False,
 ) -> torch.Tensor:
     """(2, T) fp32 accelerations: one block per (source chunk, slab of
-    target tiles of ``block`` targets); ``slabs`` None is
-    :func:`slab_plan`. S must be a whole number of chunks (pad with gm = 0
-    rows, as the script does). Two launches on the card, counted as one."""
+    target tiles of ``block`` targets, :func:`shape`'s P a thread);
+    ``slabs`` None is :func:`slab_plan`. S must be a whole number of chunks
+    (pad with gm = 0 rows, as the script does). Two launches on the card,
+    counted as one."""
     device = _device_of(tgt)
     t, s = tgt.shape[-1], src.shape[-1]
     _check("tgt", tgt, (3, t), device)
     _check("src", src, (3, s), device)
-    _check_launch(block, chunk)
+    p, threads = shape(block)
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in [1, {MAX_CHUNK}], got {chunk}")
     if s % chunk:
         raise ValueError(f"S = {s} is not a multiple of chunk = {chunk}")
     if device.type == "cpu":
@@ -88,7 +118,7 @@ def stationary_acc(
                        device=device)
     with torch.cuda.device(device):
         err = _lib().nbody_stationary_forces(
-            tgt.data_ptr(), src.data_ptr(), t, s, block, chunk, slabs,
+            tgt.data_ptr(), src.data_ptr(), t, s, p, threads, chunk, slabs,
             int(precise), part.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "stationary_forces")

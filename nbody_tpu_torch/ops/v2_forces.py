@@ -1,10 +1,13 @@
-"""K5b: the resident-source force of ``make_v2`` in its two target layouts
-and its sweep's flavors, the CUDA kernel's wrapper and its plain PyTorch
-version. The kernel also runs K5a (``resident_forces.v2_acc``: variants
-``K5A[precise]``, the column layout summed in runs of 256 sources).
+"""K5b and K5c: the resident-source force of ``make_v2`` in its two target
+layouts and its sweep's flavors, and the op-cost probes of ``make_probe``,
+the CUDA kernel's wrapper and its plain PyTorch version. The kernel also
+runs K5a (``resident_forces.v2_acc``: variants ``K5A[precise]``, the column
+layout summed in runs of 256 sources).
 
 Counterpart of ``make_v2`` in ``scripts/ablations/tune_r2b.py`` (its
-``kernel_cols`` and ``kernel_rows``). The kernel is ``csrc/v2_forces.cu``,
+``kernel_cols`` and ``kernel_rows``) and of ``make_probe`` in
+``tune_r2c.py`` (``kernel_rows`` at tile 512 and chunk 2048 with one piece
+of the pair math left out). The kernel is ``csrc/v2_forces.cu``,
 K5b's own, designed for Hopper: an unguarded ``rsqrt.approx.ftz``, P
 targets per thread in blocks of ``block`` threads (the script's ``tile_t``
 is ``p * block``; :func:`shape` takes P = 2 from tile 256 on), and the
@@ -24,6 +27,13 @@ partial            ``partial``: CHAINS chains a chunk (source k    1
                    sums, folded in lane order at the end
 =================  ==============================================  =======
 
+K5c's probes (:data:`K5C`) take the row layout only: ``full`` is the
+base flavor; ``unroll16`` sums as base with sixteen batches a pass; the
+others change the pair math (``skeleton``: ax += dx, ay stays 0;
+``no_rsqrt``: f = r2; ``no_cube``: f = inv; ``no_gm``: f = inv³;
+``one_axis``: no ay) or add only the first source of each chunk
+(``no_reduce``). They are wrong physics except ``full`` and ``unroll16``.
+
 The unroll counts 8-source batches a pass of the pair loop. The column
 layout (``tgt`` a pair (pos (T, 2), radius (T,)), result (T, 2)) is the
 script's ``kernel_cols``, the row layout (``tgt`` (3, T) rows x; y; r,
@@ -33,10 +43,10 @@ ranges of whole chunks (:func:`~.ptile_forces.split_plan`) added in range
 order.
 
 The plain version follows the kernel's association: per-chunk sums added
-in chunk order, or the chains and lane sums folded in order. It does not
-follow a source split (a different grouping of whole-chunk sums). CPU
-tensors take the plain version; CUDA tensors launch the kernel, and
-anything wrong there raises.
+in chunk order, or the chains and lane sums folded in order, with the
+probes' math. It does not follow a source split (a different grouping of
+whole-chunk sums). CPU tensors take the plain version; CUDA tensors
+launch the kernel, and anything wrong there raises.
 """
 
 from __future__ import annotations
@@ -48,7 +58,15 @@ from .flavor_forces import chunked_sum_plain
 from .ptile_forces import split_plan
 
 # name: variant of csrc/v2_forces.cu
-FLAVORS = {"base": 0, "rows": 0, "unroll2": 1, "static": 2, "partial": 3}
+FLAVORS = {"base": 0, "rows": 0, "unroll2": 1, "static": 2, "partial": 3,
+           "full": 0, "unroll16": 6, "skeleton": 7, "no_rsqrt": 8,
+           "no_cube": 9, "no_gm": 10, "one_axis": 11, "no_reduce": 12}
+# K5c's probes, row layout only: name -> (pair math, sum) of the plain
+# version (flavor_forces.chunked_sum_plain)
+K5C = {"full": ("direct", "chunk"), "unroll16": ("direct", "chunk"),
+       "skeleton": ("skeleton", "chunk"), "no_rsqrt": ("no_rsqrt", "chunk"),
+       "no_cube": ("no_cube", "chunk"), "no_gm": ("no_gm", "chunk"),
+       "one_axis": ("one_axis", "chunk"), "no_reduce": ("direct", "first")}
 K5A = {False: 4, True: 5}  # K5a's variants (rsqrt, precise), columns only
 PS = (1, 2)
 CHAINS = 8                 # csrc/v2_forces.cu kChains: partial's lane sums
@@ -74,14 +92,24 @@ def shape(tile_t: int) -> tuple[int, int]:
     return p, tile_t // p
 
 
+def _plain_math(flavor: str) -> tuple[str, str]:
+    """(pair math, sum) of a flavor's plain version."""
+    return K5C.get(flavor, ("direct", "lanes" if flavor == "partial"
+                            else "chunk"))
+
+
 def plain_key(flavor: str, chunk: int) -> tuple:
-    """What a flavor's plain version depends on: its sum and the chunk."""
-    return flavor == "partial", chunk
+    """What a flavor's plain version depends on: its math, its sum and the
+    chunk."""
+    return *_plain_math(flavor), chunk
 
 
-def _check_v2(flavor: str, p: int, block: int, chunk: int):
+def _check_v2(flavor: str, p: int, block: int, chunk: int, rows: bool = True):
     if flavor not in FLAVORS:
         raise ValueError(f"flavor must be one of {sorted(FLAVORS)}, got {flavor!r}")
+    if flavor in K5C and not rows:
+        raise ValueError(f"K5c's flavor {flavor!r} takes (3, T) target rows, "
+                         f"not the column layout")
     if p not in PS:
         raise ValueError(f"p must be one of {PS}, got {p}")
     if not (32 <= block <= MAX_BLOCK and block % 32 == 0):
@@ -96,8 +124,9 @@ def v2_acc_plain(tgt, src, *, flavor: str = "base", chunk: int = 2048):
     """Plain version of :func:`v2_acc`, in the same layout."""
     rows = isinstance(tgt, torch.Tensor)
     t3 = tgt if rows else torch.stack([tgt[0][:, 0], tgt[0][:, 1], tgt[1]])
-    ax, ay = chunked_sum_plain(t3, src, how="lanes" if flavor == "partial"
-                               else "chunk", chunk=chunk, k=CHAINS)
+    pair, how = _plain_math(flavor)
+    ax, ay = chunked_sum_plain(t3, src, pair=pair, how=how, chunk=chunk,
+                               k=CHAINS)
     return (ax, ay) if rows else torch.stack([ax[0], ay[0]], dim=-1)
 
 
@@ -129,7 +158,7 @@ def v2_acc(
         ptrs = (pos.data_ptr(), radius.data_ptr())
     s = src.shape[-1]
     _check("src", src, (3, s), src_dev)
-    _check_v2(flavor, p, block, chunk)
+    _check_v2(flavor, p, block, chunk, rows)
     if src_dev.type == "cpu":
         return v2_acc_plain(tgt, src, flavor=flavor, chunk=chunk)
     out = _launch(ptrs, src, t, rows, FLAVORS[flavor], p, block, chunk,

@@ -32,6 +32,7 @@ from torch_helpers import rel_err
 
 import nbody_tpu as nb
 from nbody_tpu import forces as jforces
+from nbody_tpu_torch import forces as nt_forces
 from nbody_tpu_torch.ablations import (_scene, tune_r2, tune_r2b, tune_r2c, tune_r2d,
                                        tune_direct, tune_p3m, tune_r2e,
                                        tune_r2f, tune_r2g, tune_r2h,
@@ -187,6 +188,38 @@ def test_k5d_plain_is_the_chunk_ordered_sum():
     for lo in (0, 256, 512, 768):
         want += stf.stationary_acc_plain(tgt, src[:, lo:lo + 256], chunk=256)
     assert torch.equal(stf.stationary_acc_plain(tgt, src, chunk=256), want)
+
+
+@pytest.mark.parametrize("precise", [False, True])
+def test_k5d_plain_sums_runs_of_256_in_each_chunk(precise):
+    """K5d's association, term by term on a small case (3 targets, 1100
+    sources, chunks of 600): in each chunk, runs of 256 sources (256, 256
+    and 88; then 256 and 244), each run's terms summed, the runs added in
+    order into the chunk's partial; the partials added in chunk order."""
+    rng = np.random.default_rng(1)
+    tgt = torch.from_numpy(np.stack([rng.normal(size=3), rng.normal(size=3),
+                                     rng.uniform(1, 2, 3)]).astype(np.float32))
+    src = torch.from_numpy(np.stack([rng.normal(size=1100),
+                                     rng.normal(size=1100),
+                                     rng.uniform(1, 9, 1100)]).astype(np.float32))
+
+    def run_sum(a, b):
+        dx = src[0, a:b][None] - tgt[0][:, None]
+        dy = src[1, a:b][None] - tgt[1][:, None]
+        r2 = (dx * dx + dy * dy) + (tgt[2] + 1e-18)[:, None]
+        if precise:
+            f = src[2, a:b][None] / (nt_forces.sqrt(r2) * r2)
+        else:
+            inv = torch.rsqrt(r2)
+            f = src[2, a:b][None] * (inv * inv * inv)
+        return torch.stack([(dx * f).sum(1), (dy * f).sum(1)])
+
+    fold = ff._fold
+    want = fold([fold([run_sum(a, min(a + 256, lo + 600, 1100))
+                       for a in range(lo, min(lo + 600, 1100), 256)])
+                 for lo in (0, 600)])
+    got = stf.stationary_acc_plain(tgt, src, chunk=600, precise=precise)
+    assert torch.equal(got, want)
 
 
 # --- K5h: tune_r2h.py::make_newton ---
@@ -364,7 +397,8 @@ def test_k5e_plain_matches_script(interpret, n, tile_t, chunk, flavor):
 @pytest.mark.parametrize("flavor", tune_r2c.FLAVORS_C)
 @pytest.mark.parametrize("n", [4096, 8192])
 def test_k5c_plain_matches_script(interpret, n, flavor):
-    """The script's TILE_T 512 and CHUNK 2048; the probes are wrong physics
+    """The script's TILE_T 512 (P 2 x 256 threads) and CHUNK 2048, through
+    ``v2_forces``; the probes are wrong physics
     on both sides alike (skeleton and one_axis leave ay at 0, no_reduce
     adds the first source of each chunk, and the gm = 0 rows that pad the
     sources to S128 count where gm is dropped). Bound 5e-6 (TOL): no flavor's sums cancel
@@ -373,8 +407,9 @@ def test_k5c_plain_matches_script(interpret, n, flavor):
     tgt, src = sc.tgt3(), sc.src3(sc.s128)
     want = _acc(*_script("tune_r2c").make_probe(flavor)(
         jnp.asarray(tgt.numpy()), jnp.asarray(src.numpy())))
-    got = _acc(*ff.flavor_acc(tgt, src, flavor=flavor, p=1,
-                              block=tune_r2c.TILE_T, chunk=tune_r2c.CHUNK))
+    p, block = v2.shape(tune_r2c.TILE_T)
+    got = _acc(*v2.v2_acc(tgt, src, flavor=flavor, p=p, block=block,
+                          chunk=tune_r2c.CHUNK))
     if flavor in ("skeleton", "one_axis"):
         assert not got[:, 1].any() and not want[:, 1].any()
     assert rel_err(got, want) < TOL
@@ -427,11 +462,18 @@ def test_cpu_wrappers_make_no_launch():
     (lambda sc: ptf.ptile_acc(sc.tgt3(), sc.src3(128), p=3), ValueError),
     (lambda sc: ptf.ptile_acc(sc.tgt3().T, sc.src3(128)), ValueError),
     (lambda sc: stf.stationary_acc(sc.tgt3(), sc.src3(1000), chunk=512), ValueError),
+    (lambda sc: stf.stationary_acc(sc.tgt3(), sc.src3(1024), block=96), ValueError),
+    (lambda sc: stf.stationary_acc(sc.tgt3(), sc.src3(1024), block=48), ValueError),
+    (lambda sc: stf.stationary_acc(sc.tgt3(), sc.src3(1024), block=2048), ValueError),
+    (lambda sc: stf.stationary_acc(sc.tgt3(), sc.src3(1024), block=16), ValueError),
+    (lambda sc: stf.stationary_acc(sc.tgt3(), sc.src3(24576), chunk=24576), ValueError),
     (lambda sc: nwf.newton_acc(sc.tgt4(), sc.src4(1024), 1004, tile=64), ValueError),
     (lambda sc: nwf.newton_acc(sc.tgt4(), sc.src4(512), 1004), ValueError),
     (lambda sc: nwf.newton_acc(sc.tgt3(), sc.src4(1024), 1004), ValueError),
     (lambda sc: ff.flavor_acc(sc.tgt3(), sc.src3(128), flavor="nope"), ValueError),
-    (lambda sc: ff.flavor_acc(sc.tgt3(), sc.src3(128), flavor="skeleton", p=2), ValueError),
+    (lambda sc: v2.v2_acc((sc.pos, sc.radius), sc.src3(128), flavor="skeleton"), ValueError),
+    (lambda sc: v2.v2_acc(sc.tgt3(), sc.src3(128), flavor="no_reduce", p=4), ValueError),
+    (lambda sc: ff.flavor_acc(sc.tgt3(), sc.src3(128), flavor="unroll16"), ValueError),
     (lambda sc: ff.flavor_acc((sc.pos, sc.radius), sc.src3(128), flavor="f_assoc"), ValueError),
     (lambda sc: ff.flavor_acc(sc.tgt3(), sc.src3(128), block=1024), ValueError),
     (lambda sc: ff.flavor_acc(sc.tgt3(), sc.src3(128), chunk=100), ValueError),
@@ -633,6 +675,85 @@ def test_ablation_sweeps_are_launchable(module):
             assert p in ptf.PS
             rsf._check_launch(block, chunk)
         elif module is tune_r2d:
-            rsf._check_launch(*cfg[:2])
+            p, threads = stf.shape(cfg[0])
+            assert p == 2 and p * threads == cfg[0]
+            assert 1 <= cfg[1] <= stf.MAX_CHUNK
         else:
             assert cfg in nwf.TILES
+
+
+def test_k5d_tiles_take_two_targets_a_thread_from_64():
+    """``block`` stays targets a tile: P = 2 (block // 2 threads) from 64
+    targets on, P = 1 at 32."""
+    assert stf.shape(32) == (1, 32)
+    assert stf.shape(64) == (2, 32)
+    assert stf.shape(192) == (2, 96)
+    assert stf.shape(1024) == (2, 512)
+
+
+@pytest.mark.parametrize("job", [
+    {"what": "k5d", "n": 2048, "block": 256, "chunk": 512, "slabs": None,
+     "precise": False},
+    {"what": "k5d", "n": 2048, "block": 128, "chunk": 100, "slabs": 3,
+     "precise": True},
+    {"what": "k5c", "n": 2048, "flavor": "no_gm", "p": 2},
+    {"what": "k5c", "n": 2048, "flavor": "no_reduce", "p": 1}])
+def test_parent_side_k5d_k5c_jobs_run_the_public_wrappers(job):
+    """``tune_r2d parent``'s and ``tune_r2c parent``'s jobs drive
+    ``stationary_forces.stationary_acc`` and, in a tree with K5c's flavors,
+    ``v2_forces.v2_acc``; on CPU tensors those are the plain versions."""
+    from nbody_tpu_torch.ablations import _side
+
+    times, (got,) = _side.run_job(job, torch.device("cpu"), {})
+    sc, *_ = _scene_np(2048)
+    if job["what"] == "k5d":
+        assert times == {"ms": None, "slabs": job["slabs"]}
+        src = sc.src3(-(-sc.mass_len // job["chunk"]) * job["chunk"])
+        want = stf.stationary_acc_plain(sc.tgt3(), src, chunk=job["chunk"],
+                                        precise=job["precise"])
+    else:
+        assert times == {"ms": None, "p": job["p"]}
+        want = ff.as_acc(v2.v2_acc_plain(sc.tgt3(), sc.src3(sc.s128),
+                                         flavor=job["flavor"], chunk=2048))
+    assert _scene.bit_equal(got, want)
+
+
+def test_k5d_k5c_parent_jobs_cover_their_sweeps():
+    """``tune_r2d parent`` runs every configuration on both paths;
+    ``tune_r2c parent`` every probe at P = 2 and P = 1."""
+    k5d = tune_r2d.jobs(reps=None)
+    assert len(k5d) == 2 * len(tune_r2d.SWEEP)
+    for precise in (False, True):
+        assert [(j["block"], j["chunk"], j["slabs"]) for j in k5d
+                if j["precise"] == precise] == list(tune_r2d.SWEEP)
+    k5c = tune_r2c.jobs(reps=None)
+    assert {(j["flavor"], j["p"]) for j in k5c} == {
+        (f, p) for f in tune_r2c.FLAVORS_C for p in (1, 2)}
+    assert all(f in v2.K5C and v2.FLAVORS[f] != v2.FLAVORS["partial"]
+               for f in tune_r2c.FLAVORS_C)
+
+
+def test_k5c_bound_counts_the_pairs_each_probe_needs():
+    """The probes that keep gm count N x mass_len pairs (the gm = 0
+    padding rows add nothing), those without gm N x S128, no_reduce one
+    source a chunk."""
+    n, m, s = 65536, 32833, 32896
+    assert tune_r2c.pairs("full", n, m, s) == n * m
+    assert tune_r2c.pairs("one_axis", n, m, s) == n * m
+    assert tune_r2c.pairs("no_gm", n, m, s) == n * s
+    assert tune_r2c.pairs("skeleton", n, m, s) == n * s
+    assert tune_r2c.pairs("no_reduce", n, m, s) == n * 17
+
+
+@pytest.mark.parametrize("flavor", tune_r2c.FLAVORS_C)
+def test_k5c_flavors_take_rows_at_p1_and_p2(flavor):
+    """Each probe runs on (3, T) rows at P = 1 and 2 (the plain version on
+    the CPU, the same at both) and is refused in the column layout."""
+    sc, *_ = _scene_np(2048)
+    src = sc.src3(sc.s128)
+    one, two = (ff.as_acc(v2.v2_acc(sc.tgt3(), src, flavor=flavor, p=p,
+                                    block=512 // p, chunk=1024))
+                for p in (1, 2))
+    assert torch.equal(one, two)
+    with pytest.raises(ValueError):
+        v2.v2_acc((sc.pos, sc.radius), src, flavor=flavor)

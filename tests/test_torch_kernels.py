@@ -563,10 +563,17 @@ def test_ptile_acc_matches_plain(cuda, p, block, chunk, n_split):
 
 
 @pytest.mark.parametrize("precise", [False, True])
-@pytest.mark.parametrize("block,chunk,slabs", [(256, 128, None), (256, 512, 1),
-                                               (512, 2048, None), (128, 256, 7)])
-def test_stationary_acc_matches_plain(cuda, block, chunk, slabs, precise):
-    sc = _scene(cuda, 4096)
+@pytest.mark.parametrize("n,block,chunk,slabs", [
+    (4096, 256, 128, None), (4096, 256, 512, 1), (4096, 512, 2048, None),
+    (4096, 128, 256, 7), (4000, 192, 100, None), (4001, 1024, 1000, 3),
+    (4000, 32, 260, 5), (4001, 64, 12, None)])
+def test_stationary_acc_matches_plain(cuda, n, block, chunk, slabs, precise):
+    """K5d against its plain version (the same runs of 256 a chunk), twice
+    bit-equal, one launch a call: tiles of two targets a thread from 64
+    on, one at 32; T = 4000 and 4001 end in a ragged tile (not a multiple
+    of the tile), and chunks of 100, 1000, 260 and 12 end in a ragged batch
+    of 8 (a chunk not a multiple of 8)."""
+    sc = _scene(cuda, n)
     tgt = sc.tgt3()
     src = sc.src3(-(-sc.mass_len // chunk) * chunk)
     before = stf.LAUNCHES
@@ -574,7 +581,24 @@ def test_stationary_acc_matches_plain(cuda, block, chunk, slabs, precise):
         tgt, src, block=block, chunk=chunk, slabs=slabs, precise=precise))
     assert stf.LAUNCHES == before + 2 and same
     want = stf.stationary_acc_plain(tgt, src, chunk=chunk, precise=precise)
+    assert torch.isfinite(got).all()
     assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+def test_stationary_acc_launch_error_raises(cuda, monkeypatch):
+    """A failed K5d launch on CUDA tensors raises and counts nothing; the
+    wrapper never takes its plain version there."""
+    sc = _scene(cuda, 4096)
+
+    class Failing:
+        def nbody_stationary_forces(self, *args):
+            return 1   # cudaErrorInvalidValue
+
+    monkeypatch.setattr(stf, "_lib", Failing)
+    before = stf.LAUNCHES
+    with pytest.raises(RuntimeError, match="stationary_forces"):
+        stf.stationary_acc(sc.tgt3(), sc.src3(2048), chunk=512)
+    assert stf.LAUNCHES == before
 
 
 @pytest.mark.parametrize("tile", [128, 256, 512])
@@ -632,18 +656,22 @@ K5B_SASS_A_PAIR = {("base", 1): 12.38, ("base", 2): 11.69,
 
 
 def test_k5b_pair_loops_keep_their_sass(cuda):
-    """K5b's sixteen kernels and K5a's four (P = 1, 2; rsqrt, precise)
-    are all that ``v2_forces.cu`` builds, and K5b's pair loops keep their
-    SASS a pair."""
+    """K5b's sixteen kernels, K5a's four (P = 1, 2; rsqrt, precise) and
+    K5c's fourteen (unroll16 and six probes on rows at P = 1, 2) are all
+    that ``v2_forces.cu`` builds, and K5b's pair loops keep their SASS a
+    pair."""
     from nbody_tpu_torch.ablations import tune_r2b
     from nbody_tpu_torch.ops import _build, sass
 
     lib = _build.build_all(["v2_forces"])["v2_forces"][0]
     funcs = sass.functions(lib)
-    names = [n for n in funcs if "v2_kernel" in n or "v2_resident_kernel" in n]
-    assert len(names) == 20
+    names = [n for n in funcs if "v2_kernel" in n or "v2_resident_kernel" in n
+             or "v2_probe_kernel" in n]
+    assert len(names) == 34
     assert sum("v2_resident_kernel" in n and "PairTargets" in n
                for n in names) == 4
+    assert sum("v2_probe_kernel" in n and "RowTargets" in n
+               for n in names) == 12
     loops = tune_r2b.pair_loops(funcs, sass.ptxas_usage(
         lib.with_suffix(".log").read_text()), log=lambda *a: None)
     assert {k: round(v[0], 2) for k, v in loops.items()} == K5B_SASS_A_PAIR
@@ -672,7 +700,7 @@ def _bits_equal(a, b):
 
 
 @pytest.mark.parametrize("flavor,p", [
-    *((f, 1) for f in ff.FLAVORS if f not in ("control", "full")),
+    *((f, 1) for f in ff.FLAVORS if f != "control"),
     *((f, p) for f in ("partial_jnp", "fma_kloop", "f_assoc") for p in (4, 8)),
 ])
 def test_flavor_acc_matches_plain(cuda, flavor, p):
@@ -691,6 +719,30 @@ def test_flavor_acc_matches_plain(cuda, flavor, p):
                                          chunk=1024))
     assert torch.isfinite(got).all()
     assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.parametrize("flavor", list(v2.K5C))
+@pytest.mark.parametrize("p", v2.PS)
+def test_k5c_v2_acc_matches_plain(cuda, flavor, p):
+    """K5c's probes, row variants of K5b's kernel, at P = 1 and 2 against
+    their plain versions on the N=4096 scene with 2049 source rows in
+    chunks of 1024 (a last chunk of one source, 4-byte copies), twice
+    bit-equal, one K5b-kernel launch a call and none of K5e's; P = 1 and 2
+    bit-equal to each other. Bound TOL: the plain version follows the
+    kernel's association but sums each chunk in its own order."""
+    sc = _scene(cuda, 4096)
+    tgt = sc.tgt3()
+    src = sc.src3(sc.mass_len + 37)
+    before = (v2.LAUNCHES, ff.LAUNCHES)
+    got, same = _twice(lambda: v2.v2_acc(tgt, src, flavor=flavor, p=p,
+                                         block=512 // p, chunk=1024))
+    assert (v2.LAUNCHES, ff.LAUNCHES) == (before[0] + 2, before[1]) and same
+    want = torch.cat(v2.v2_acc_plain(tgt, src, flavor=flavor, chunk=1024))
+    assert torch.isfinite(got).all()
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+    other = torch.cat(v2.v2_acc(tgt, src, flavor=flavor, p=3 - p,
+                                block=512 // (3 - p), chunk=1024))
+    assert _bits_equal(got, other)
 
 
 @pytest.mark.parametrize("expr", op.EXPRS)

@@ -137,7 +137,7 @@ def test_direct_tiles_is_the_main_path_kernels_own():
 def test_k5a_runs_on_k5b_kernel():
     """K5a's own kernel source is gone: its wrapper, the build and
     ``chip_smoke.py``'s kernels line name ``csrc/v2_forces.cu``, and the
-    pair step of K5a, K5b and K5i is ``csrc/pair_step.cuh``'s."""
+    pair step of K5a, K5b, K5c, K5d and K5i is ``csrc/pair_step.cuh``'s."""
     from nbody_tpu_torch.ops import _build
 
     csrc = ROOT / "nbody_tpu_torch" / "csrc"
@@ -153,4 +153,26 @@ def test_k5a_runs_on_k5b_kernel():
                               "scripts/ablations/tune_r2.py:40")
     users = sorted(p.name for p in csrc.glob("*.cu*")
                    if '#include "pair_step.cuh"' in p.read_text())
-    assert users == ["bcast_probe.cu", "v2_forces.cu"]
+    assert users == ["bcast_probe.cu", "stationary_forces.cu", "v2_forces.cu"]
+
+
+def test_k5c_runs_on_k5b_kernel():
+    """K5c's probes are variants of K5b's row kernel: ``flavor_forces.cu``
+    instantiates K5e's variants 0 and 3-5 alone, at every P, and
+    ``chip_smoke.py``'s kernels line names ``csrc/v2_forces.cu`` for K5c."""
+    import re
+
+    text = (ROOT / "nbody_tpu_torch" / "csrc" / "flavor_forces.cu").read_text()
+    lists = re.findall(r"launch_variant<(\d+), ([\d, ]+)>\(", text)
+    assert sorted(int(p) for p, _ in lists) == [1, 2, 4, 8]
+    for _, variants in lists:
+        assert [int(v) for v in variants.split(",")] == [0, 3, 4, 5]
+    assert not re.search(r"Variant<(6|7|8|9|10|11|12), P>", text)
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    kernels = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and getattr(node.targets[0], "id", None) == "ABLATION_KERNELS")
+    assert kernels["K5c"] == ("nbody_tpu_torch/csrc/v2_forces.cu",
+                              "scripts/ablations/tune_r2c.py:35")
+    v2 = (ROOT / "nbody_tpu_torch" / "csrc" / "v2_forces.cu").read_text()
+    assert "v2_probe_kernel" in v2
