@@ -68,12 +68,14 @@ Phases, each of which raises on failure:
  13. the ablation path of the direct force at N=65536 (two galaxies, seed
      11037): each of K5a (on K5b's kernel, csrc/v2_forces.cu, its rsqrt
      and precise paths), K5g, K5d and K5h through its module in
-     nbody_tpu_torch.ablations at the module's sweep (K5d on K5b's pair
-     step, csrc/pair_step.cuh), every configuration against its plain
-     version and run twice for bit-equality, timed with
+     nbody_tpu_torch.ablations at the module's sweep (K5d and K5h on
+     K5b's pair step, csrc/pair_step.cuh), every configuration against its
+     plain version and run twice for bit-equality, timed with
      CUDA events beside K1's force_acc on the same inputs (and K5a's
      50-substep loop beside World.update), with the four launch counts;
-     then K5h at a ragged N=50000 against the plain direct sum;
+     K5h's task plan (tasks, warps an SM) and its dual and forward loops'
+     SASS a pair beside its row; then K5h at a ragged N=50000 against the
+     plain direct sum;
  14. the rest of the ablation path, with the four launch counts from 0:
      K5b's eight micro-variants through its own kernel (csrc/v2_forces.cu,
      after its pair loop's SASS a pair and registers per flavor at P = 1
@@ -1584,6 +1586,15 @@ def phase_ablations(nt, df, device) -> dict:
             f"({best['ms'] / k1_ms:.3f}x force_acc {k1_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
             f"{b[0] / best['ms']:.1%} of the bound")
+        if key == "K5h":
+            p, sa = best["plan"], best["sass"]
+            log(f"    K5h plan: {p['tasks']} tasks ({p['massive']} massive) "
+                f"of {p['group']} items, {p['blocks_per_sm']} blocks and "
+                f"{p['warps_per_sm']} warps an SM, {p['waves']:.1f} waves; "
+                f"SASS a dual pair {sa.get('dual', float('nan')):.2f}, a "
+                f"forward pair {sa.get('forward', float('nan')):.2f}; "
+                f"{sa['registers']} registers, {sa['spill_stores']} spill "
+                f"bytes")
     out["k1_ms"] = k1_ms
     return out
 

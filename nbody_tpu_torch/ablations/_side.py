@@ -12,10 +12,11 @@ gives one.
 
 JOBS.json is a list of jobs, each {"what": "fused" | "hop" | "ring" |
 "pp" | "p3m" | "contacts" | "vjp" | "merging" | "rollout" | "pp_vjp" |
-"p3m_rollout" | "v2" | "k5a" | "k5i" | "k5d" | "k5c" | "build", "n", ...}
-(the four after "p3m" are tune_merge_vjp's, the next two tune_pp_vjp's,
-"v2" tune_r2b's, "k5a" and "build" tune_r2's, "k5i"
-tune_r4d_bcast_probe's, "k5d" tune_r2d's, "k5c" tune_r2c's, below):
+"p3m_rollout" | "v2" | "k5a" | "k5i" | "k5d" | "k5c" | "k5h" | "build", "n",
+...} (the four after "p3m" are tune_merge_vjp's, the next two
+tune_pp_vjp's, "v2" tune_r2b's, "k5a" and "build" tune_r2's, "k5i"
+tune_r4d_bcast_probe's, "k5d" tune_r2d's, "k5c" tune_r2c's, "k5h"
+tune_r2h's, below):
 "fused" is one fused
 substep of the N-particle two-galaxy world (seed 11037); "hop" that
 world's state as the only hop of a one-shard ring, with its epilogue;
@@ -58,7 +59,9 @@ the slabs) and ``precise`` (its output the (2, N) force). "k5c" is the
 probe ``flavor`` on that scene's rows, chunk 2048: ``v2_forces.v2_acc``
 at ``p`` and a tile of 512 where the tree's ``v2_forces`` has K5c's
 flavors, else ``flavor_forces.flavor_acc`` at P = 1 in blocks of 512 (its
-output the (N, 2) force, its times also its P). "build" builds the kernels
+output the (N, 2) force, its times also its P). "k5h" is
+``newton_forces.newton_acc`` on that scene's (4, N) targets and its S128
+sources at ``tile`` (its output the (2, N) force). "build" builds the kernels
 ``names`` and runs nothing. A job's outputs go to OUT_DIR/<index>.pt, and one
 JSON line a job gives its times (ms; "reps" calls between CUDA events, the
 best of "repeats"; a "p3m" job's ms are a substep's).
@@ -454,8 +457,29 @@ def stationary_probe_job(job: dict, device, worlds: dict) -> tuple:
     return {"ms": ms, **times}, out
 
 
+def newton_job(job: dict, device, worlds: dict) -> tuple:
+    """(times, [the (2, N) force]) of a "k5h" job."""
+    from nbody_tpu_torch.ablations import _scene
+    from nbody_tpu_torch.ops import newton_forces as nwf
+
+    key = ("scene", job["n"])
+    if key not in worlds:
+        worlds.clear()
+        worlds[key] = _scene.make_scene(job["n"], device=device)
+    sc = worlds[key]
+    tgt, src = sc.tgt4(), sc.src4(sc.s128)
+
+    def fn():
+        return nwf.newton_acc(tgt, src, sc.mass_len, tile=job["tile"])
+    out = [torch.cat(fn()).cpu()]
+    ms = best_ms(fn, job["reps"], job.get("repeats", 3)) if job.get("reps") else None
+    return {"ms": ms}, out
+
+
 def run_job(job: dict, device, worlds: dict) -> tuple:
     """(times, output tensors or None) of one job."""
+    if job["what"] == "k5h":
+        return newton_job(job, device, worlds)
     if job["what"] == "v2":
         return v2_job(job, device, worlds)
     if job["what"] in ("k5a", "k5i"):

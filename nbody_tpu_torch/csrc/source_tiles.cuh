@@ -1,10 +1,10 @@
 // Pieces shared by every direct-force kernel: the block and run sizes, the
 // softening floor and the pair factor; the run loop over a staged source
 // chunk and the chunked force kernel of the ablation path (ptile_forces.cu,
-// newton_forces.cu, flavor_forces.cu); and the fixed-order sum of
-// per-range partials. The main-path kernels (direct_forces.cu,
-// ring_forces.cu) run their own pair loop, direct_tiles.cuh; K5a, K5b,
-// K5c, K5d and K5i theirs, pair_step.cuh.
+// flavor_forces.cu); and the fixed-order sum of per-range partials. The
+// main-path kernels (direct_forces.cu, ring_forces.cu) run their own pair
+// loop, direct_tiles.cuh; K5a, K5b, K5c, K5d, K5h and K5i theirs,
+// pair_step.cuh.
 //
 // Math, per target i over sources j < n_src:
 //   dx = sx_j - x_i;  dy = sy_j - y_i

@@ -79,7 +79,8 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "pair_step.cuh"     // kBatch, Pairs, StepMath, stage_at, add_runs
+#include "pair_step.cuh"     // kBatch, Pairs, StepMath, stage_at, add_runs,
+                             // cp_async, stage_rows
 #include "source_tiles.cuh"  // kSofteningFloor, RowTargets, PairTargets,
                              // allow_smem, launch_sum_partials
 
@@ -88,42 +89,6 @@ namespace {
 constexpr int kMaxBlock = 512;
 constexpr int kChains = 8;      // chains (lane sums) of the partial variant
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
-
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-               "l"(gmem), "n"(kBytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Issues the copies of sources [base, base + len) of the (3, n_src) rows at
-// src into the stage st, one group for the block. vec16: 16-byte copies of
-// whole groups of four (a row's last group may reach past len, never past
-// n_src).
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
-                                           int n_src, int base, int len,
-                                           float* st, bool vec16) {
-  if (vec16) {
-    const int n4 = (len + 3) / 4;
-    for (int r = 0; r < 3; ++r) {
-      const float* row = src + static_cast<size_t>(r) * n_src + base;
-      for (int v = threadIdx.x; v < n4; v += blockDim.x)
-        cp_async<16>(st + stage_at(4 * v, r), row + 4 * v);
-    }
-  } else {
-    for (int r = 0; r < 3; ++r) {
-      const float* row = src + static_cast<size_t>(r) * n_src + base;
-      for (int k = threadIdx.x; k < len; k += blockDim.x)
-        cp_async<4>(st + stage_at(k, r), row + k);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 
 // Adds the `len` sources staged at st to the L sums (ax[q * L + c],
 // ay[q * L + c]) of the thread's P targets: the chunk's terms on K chains,
@@ -210,7 +175,8 @@ __device__ __forceinline__ void v2_body(Targets targets,
   const int c_end = min(c_begin + chunks_per_split, n_chunks);
   if (c_begin < c_end)
     stage_rows(src, n_src, c_begin * chunk,
-               min(chunk, n_src - c_begin * chunk), stage, vec16);
+               min(chunk, n_src - c_begin * chunk), stage, vec16,
+               threadIdx.x, blockDim.x);
   int at = 0;  // offset of the stage that holds chunk c
   for (int c = c_begin; c < c_end; ++c) {
     cp_async_wait_all();
@@ -220,7 +186,7 @@ __device__ __forceinline__ void v2_body(Targets targets,
     const int other = 3 * chunk - at;
     if (c + 1 < c_end)
       stage_rows(src, n_src, next, min(chunk, n_src - next), stage + other,
-                 vec16);
+                 vec16, threadIdx.x, blockDim.x);
     if constexpr (kRuns)
       add_runs<P, kPrecise>(stage + at, min(chunk, n_src - c * chunk), t, ax,
                             ay);

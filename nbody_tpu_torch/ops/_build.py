@@ -83,7 +83,9 @@ SIGNATURES = {
         "nbody_newton_forces": [
             _vp, _vp,                  # tgt (4, T), src (4, S)
             _i32, _i32, _i32, _i32,    # n_tgt, n_src, mass_len, tile
-            _vp, _vp, _vp],            # reverse scratch, out (2, T), stream
+            _vp, _i32, _i32,           # plan (int4 tasks), tasks, group
+            _vp, ctypes.c_longlong,    # scratch, its float2 count
+            _vp, _vp],                 # out (2, T), stream
     },
     "flavor_forces": {
         "nbody_flavor_forces": [

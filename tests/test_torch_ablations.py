@@ -282,29 +282,60 @@ def test_k5h_plain_matches_direct_sum(n, tile):
     (130, 129, 256, 128),        # one full massive tile
     (5000, 2500, 2560, 256),
     (1536, 1536, 1536, 256),     # whole tiles, an even m_full
+    (5000, 2500, 2560, 128),     # 20 items a tile: tasks of 16 and 4
 ])
 def test_newton_schedule_counts_every_pair_once(t, m, s, w):
-    """Every (target, source) pair of T x S is counted once by the blocks
-    of the schedule: forward ranges once, a dual block once for its
-    targets and once, reversed, for its sources; every tile is run by
-    exactly one block, the pairs of massive tiles first."""
+    """Every (target, source) pair of T x S is counted once by the tasks
+    of the schedule: forward items and runs once, a dual item once for its
+    targets and once, reversed, for its sources. Each tile's items are cut
+    in order into tasks of ``group(w)`` (the last one ragged), runs only
+    in the other tiles; the tasks come heaviest first, and the plan lists
+    each one's tile and first item as they come."""
     count = np.zeros((t, s), np.int32)
-    tiles = []
-    blocks = nwf.newton_schedule(t, m, s, w)
-    for block in blocks:
-        for i, work in block:
-            tiles.append(i)
-            rows = slice(i * w, min((i + 1) * w, t))
-            for kind, lo, hi in work:
-                count[rows, lo:hi] += 1
-                if kind == "dual":
-                    count[lo:hi, rows] += 1
-    assert sorted(tiles) == list(range(-(-t // w)))
+    m_full, g = m // w, nwf.group(w)
+    tasks = nwf.newton_schedule(t, m, s, w)
+    firsts = {}
+    for task in tasks:
+        items = nwf.tile_items(task.tile, m_full, s, w)
+        assert task.first % g == 0
+        assert list(task.items) == items[task.first:task.first + g]
+        firsts.setdefault(task.tile, []).append(task.first)
+        rows = slice(task.tile * w, min((task.tile + 1) * w, t))
+        for kind, lo, hi in task.items:
+            assert (kind == "run") == (task.tile >= m_full)
+            count[rows, lo:hi] += 1
+            if kind == "dual":
+                count[lo:hi, rows] += 1
     assert (count == 1).all(), np.argwhere(count != 1)[:5]
+    for i in range(-(-t // w)):
+        n_items = len(nwf.tile_items(i, m_full, s, w))
+        assert sorted(firsts.get(i, [])) == list(range(0, n_items, g))
+    costs = [nwf.task_cost(task, w) for task in tasks]
+    assert costs == sorted(costs, reverse=True)
+    assert nwf.newton_plan(t, m, s, w).tolist() == [
+        [k.tile, k.first] for k in tasks]
     fwd, dual = nwf.newton_pairs(t, m, s, w)
     assert fwd + 2 * dual == t * s
-    assert dual == sum(w * (hi - lo) for block in blocks for _, work in block
-                       for kind, lo, hi in work if kind == "dual")
+    assert dual == sum(w * (hi - lo) for task in tasks
+                       for kind, lo, hi in task.items if kind == "dual")
+
+
+@pytest.mark.parametrize("tile", [128, 256, 512])
+def test_k5h_plain_forward_rows_are_runs_of_the_tile(tile):
+    """The rows past the whole massive tiles (the ragged massive rows
+    among them) are bit for bit a sum over runs of ``tile`` sources from
+    0, each run summed on its own and added in order: the association the
+    kernel keeps for them."""
+    sc, *_ = _scene_np(3001)
+    tgt, src = sc.tgt4(), sc.src4(sc.s128)
+    mw = sc.mass_len // tile * tile
+    got = torch.cat(nwf.newton_acc_plain(tgt, src, sc.mass_len, tile=tile))
+    want = torch.zeros((sc.n - mw, 2))
+    for lo in range(0, src.shape[1], tile):
+        want += nt_forces.direct_sum_acc(
+            tgt[:2, mw:].T, tgt[2, mw:], src[:2, lo:lo + tile].T,
+            src[2, lo:lo + tile], precise=False)
+    assert torch.equal(got[:, mw:].T, want)
 
 
 # --- K5b: tune_r2b.py::make_v2 (kernel_cols, kernel_rows) ---

@@ -618,6 +618,22 @@ def test_newton_acc_matches_plain_and_direct_sum(cuda, n, tile):
     assert rel_err(got.T.cpu(), sc.control().cpu()) < TOL
 
 
+def test_newton_acc_launch_error_raises(cuda, monkeypatch):
+    """A failed K5h launch on CUDA tensors raises and counts nothing; the
+    wrapper never takes its plain version there."""
+    sc = _scene(cuda, 4096)
+
+    class Failing:
+        def nbody_newton_forces(self, *args):
+            return 1   # cudaErrorInvalidValue
+
+    monkeypatch.setattr(nwf, "_lib", Failing)
+    before = nwf.LAUNCHES
+    with pytest.raises(RuntimeError, match="newton_forces"):
+        nwf.newton_acc(sc.tgt4(), sc.src4(sc.s128), sc.mass_len)
+    assert nwf.LAUNCHES == before
+
+
 # --- K5b: its own kernel ---
 
 @pytest.mark.parametrize("flavor", ["base", "unroll2", "static", "partial"])

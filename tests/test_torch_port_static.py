@@ -137,7 +137,8 @@ def test_direct_tiles_is_the_main_path_kernels_own():
 def test_k5a_runs_on_k5b_kernel():
     """K5a's own kernel source is gone: its wrapper, the build and
     ``chip_smoke.py``'s kernels line name ``csrc/v2_forces.cu``, and the
-    pair step of K5a, K5b, K5c, K5d and K5i is ``csrc/pair_step.cuh``'s."""
+    pair step of K5a, K5b, K5c, K5d, K5h and K5i is
+    ``csrc/pair_step.cuh``'s."""
     from nbody_tpu_torch.ops import _build
 
     csrc = ROOT / "nbody_tpu_torch" / "csrc"
@@ -153,7 +154,19 @@ def test_k5a_runs_on_k5b_kernel():
                               "scripts/ablations/tune_r2.py:40")
     users = sorted(p.name for p in csrc.glob("*.cu*")
                    if '#include "pair_step.cuh"' in p.read_text())
-    assert users == ["bcast_probe.cu", "stationary_forces.cu", "v2_forces.cu"]
+    assert users == ["bcast_probe.cu", "newton_forces.cu",
+                     "stationary_forces.cu", "v2_forces.cu"]
+
+
+def test_k5h_runs_on_the_pair_step_without_a_butterfly():
+    """K5h's kernel takes ``pair_step.cuh``'s unguarded rsqrt and runs no
+    butterfly reduce-scatter, no guarded ``pair_factor`` and no atomics."""
+    text = (ROOT / "nbody_tpu_torch" / "csrc" / "newton_forces.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in text.splitlines())
+    assert "rsqrt_ftz(" in code and "add_runs<" in code
+    for gone in ("reduce_scatter", "pair_factor", "rsqrtf", "atomic",
+                 "__shfl_xor_sync"):
+        assert gone not in code, gone
 
 
 def test_k5c_runs_on_k5b_kernel():
