@@ -68,8 +68,10 @@ Phases, each of which raises on failure:
  13. the ablation path of the direct force at N=65536 (two galaxies, seed
      11037): each of K5a (on K5b's kernel, csrc/v2_forces.cu, its rsqrt
      and precise paths), K5g, K5d and K5h through its module in
-     nbody_tpu_torch.ablations at the module's sweep (K5d and K5h on
-     K5b's pair step, csrc/pair_step.cuh), every configuration against its
+     nbody_tpu_torch.ablations at the module's sweep (K5g, K5d and K5h on
+     K5b's pair step, csrc/pair_step.cuh; K5g on its chunked sweep, whose
+     stage, SASS a pair, registers and spills are printed beside its
+     row), every configuration against its
      plain version and run twice for bit-equality, timed with
      CUDA events beside K1's force_acc on the same inputs (and K5a's
      50-substep loop beside World.update), with the four launch counts;
@@ -80,7 +82,9 @@ Phases, each of which raises on failure:
      K5b's eight micro-variants through its own kernel (csrc/v2_forces.cu,
      after its pair loop's SASS a pair and registers per flavor at P = 1
      and 2; each also as a 50-substep loop beside World.update), then
-     K5e's seven reductions at N=65536 through the flavored chunk kernel,
+     K5e's seven reductions at N=65536 through the flavored chunk kernel
+     (K5g's chunked sweep; stage, SASS a pair, registers and spills beside
+     its row),
      and K5c's eight op-cost probes through K5b's kernel as row variants
      (with each pair loop's SASS a pair at P = 1 and 2), K5b's, K5c's and
      K5e's launch counts kept apart; K5f's nine expressions at (256,
@@ -1586,6 +1590,8 @@ def phase_ablations(nt, df, device) -> dict:
             f"({best['ms'] / k1_ms:.3f}x force_acc {k1_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
             f"{b[0] / best['ms']:.1%} of the bound")
+        if key == "K5g":
+            log_sweep_row("K5g", best)
         if key == "K5h":
             p, sa = best["plan"], best["sass"]
             log(f"    K5h plan: {p['tasks']} tasks ({p['massive']} massive) "
@@ -1597,6 +1603,16 @@ def phase_ablations(nt, df, device) -> dict:
                 f"bytes")
     out["k1_ms"] = k1_ms
     return out
+
+
+def log_sweep_row(key: str, best: dict) -> None:
+    """The stage, SASS a pair, registers and spills of K5g's or K5e's best
+    configuration (``pair_step.cuh``'s chunked sweep)."""
+    c, sa = best["config"], best["sass"]
+    log(f"    {key} stage {c['stage']} sources a chunk of {c['chunk']}; SASS "
+        f"a pair {sa['sass_per_pair']:.2f} at P={c['p']} ({sa['loop']} for "
+        f"{sa['pairs']} pairs); {sa['registers']} registers, "
+        f"{sa['spill_stores']} spill bytes stored, {sa['spill_loads']} loaded")
 
 
 def phase_probes(device, _build, sass) -> dict:
@@ -1672,6 +1688,7 @@ def phase_probes(device, _build, sass) -> dict:
     record("K5e", best, plain_ms(lambda: ff.flavor_acc_plain(
         tgt, src, flavor=c["flavor"], p=c["p"], chunk=c["chunk"])),
         direct, launches["flavor_forces K5e"])
+    log_sweep_row("K5e", best)
     # The pairs each probe's function needs (tune_r2c.pairs): N x mass_len
     # where its terms carry gm, N x S128 where the gm = 0 padding rows
     # count too.

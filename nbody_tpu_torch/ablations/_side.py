@@ -12,11 +12,11 @@ gives one.
 
 JOBS.json is a list of jobs, each {"what": "fused" | "hop" | "ring" |
 "pp" | "p3m" | "contacts" | "vjp" | "merging" | "rollout" | "pp_vjp" |
-"p3m_rollout" | "v2" | "k5a" | "k5i" | "k5d" | "k5c" | "k5h" | "build", "n",
-...} (the four after "p3m" are tune_merge_vjp's, the next two
-tune_pp_vjp's, "v2" tune_r2b's, "k5a" and "build" tune_r2's, "k5i"
-tune_r4d_bcast_probe's, "k5d" tune_r2d's, "k5c" tune_r2c's, "k5h"
-tune_r2h's, below):
+"p3m_rollout" | "v2" | "k5a" | "k5i" | "k5d" | "k5c" | "k5h" | "k5g" |
+"k5e" | "build", "n", ...} (the four after "p3m" are tune_merge_vjp's, the
+next two tune_pp_vjp's, "v2" tune_r2b's, "k5a" and "build" tune_r2's,
+"k5i" tune_r4d_bcast_probe's, "k5d" tune_r2d's, "k5c" tune_r2c's, "k5h"
+tune_r2h's, "k5g" tune_r2g's, "k5e" tune_r2e's, below):
 "fused" is one fused
 substep of the N-particle two-galaxy world (seed 11037); "hop" that
 world's state as the only hop of a one-shard ring, with its epilogue;
@@ -61,7 +61,14 @@ at ``p`` and a tile of 512 where the tree's ``v2_forces`` has K5c's
 flavors, else ``flavor_forces.flavor_acc`` at P = 1 in blocks of 512 (its
 output the (N, 2) force, its times also its P). "k5h" is
 ``newton_forces.newton_acc`` on that scene's (4, N) targets and its S128
-sources at ``tile`` (its output the (2, N) force). "build" builds the kernels
+sources at ``tile`` (its output the (2, N) force). "k5g" is
+``ptile_forces.ptile_acc`` on that scene's (3, N) targets and its S128
+sources at ``p``, ``block`` and ``chunk``, and at ``n_split`` where the job
+gives one (its times also the split: the job's or the tree's
+``split_plan``); "k5e" is ``flavor_forces.flavor_acc`` there by ``flavor``
+at the script's ``tile_t`` (``flavor_forces.shape``) and ``chunk`` (its
+times also P and the split plan); the output of both the (2, N) force.
+"build" builds the kernels
 ``names`` and runs nothing. A job's outputs go to OUT_DIR/<index>.pt, and one
 JSON line a job gives its times (ms; "reps" calls between CUDA events, the
 best of "repeats"; a "p3m" job's ms are a substep's).
@@ -476,10 +483,47 @@ def newton_job(job: dict, device, worlds: dict) -> tuple:
     return {"ms": ms}, out
 
 
+def sweep_job(job: dict, device, worlds: dict) -> tuple:
+    """(times, [the (2, N) force]) of a "k5g" or "k5e" job."""
+    from nbody_tpu_torch.ablations import _scene
+    from nbody_tpu_torch.ops import flavor_forces as ff
+    from nbody_tpu_torch.ops import ptile_forces as ptf
+    from nbody_tpu_torch.ops.direct_forces import sm_count
+
+    key = ("scene", job["n"])
+    if key not in worlds:
+        worlds.clear()
+        worlds[key] = _scene.make_scene(job["n"], device=device)
+    sc = worlds[key]
+    tgt, src = sc.tgt3(), sc.src3(sc.s128)
+    sms = sm_count(device.index or 0) if device.type == "cuda" else 1
+    if job["what"] == "k5g":
+        p, block, chunk = job["p"], job["block"], job["chunk"]
+        kw = {"n_split": job["n_split"]} if job.get("n_split") else {}
+
+        def fn():
+            return ptf.ptile_acc(tgt, src, p=p, block=block, chunk=chunk, **kw)
+        times = {}
+    else:
+        (p, block), chunk = ff.shape(job["tile_t"]), job["chunk"]
+
+        def fn():
+            return ff.flavor_acc(tgt, src, flavor=job["flavor"], p=p,
+                                 block=block, chunk=chunk)
+        times = {"p": p}
+    times["n_split"] = job.get("n_split") or ptf.split_plan(
+        sc.n, sc.s128, p, block, chunk, sms)
+    out = [torch.cat(fn()).cpu()]
+    ms = best_ms(fn, job["reps"], job.get("repeats", 3)) if job.get("reps") else None
+    return {"ms": ms, **times}, out
+
+
 def run_job(job: dict, device, worlds: dict) -> tuple:
     """(times, output tensors or None) of one job."""
     if job["what"] == "k5h":
         return newton_job(job, device, worlds)
+    if job["what"] in ("k5g", "k5e"):
+        return sweep_job(job, device, worlds)
     if job["what"] == "v2":
         return v2_job(job, device, worlds)
     if job["what"] in ("k5a", "k5i"):

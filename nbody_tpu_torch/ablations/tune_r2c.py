@@ -32,9 +32,8 @@ flavors, else ``flavor_forces.flavor_acc`` at P = 1 in blocks of 512), in
 turns (old, new, new, old) on the N=65536 scene; each probe's bits, this
 tree at P = 2 and at P = 1, against the other side's; each side's SASS a
 pair; and whether every other kernel of the other commit compiled to the
-same SASS here (``ops/sass.diff``; ``flavor_forces.cu`` the other way
-round, its kernels here against the other commit's; K5d's
-``stationary_forces.cu`` left out). JSON goes to
+same SASS here (``sass_against``; K5d's ``stationary_forces.cu`` left
+out). JSON goes to
 ``build/tune_r2c/``. Without a CUDA device either form raises.
 """
 
@@ -184,9 +183,12 @@ def old_pair_loops(lib: Path, log=print) -> dict:
 def sass_against(other: Path, skip: tuple, log=print) -> dict:
     """{library: {kernel: same SASS}}: every kernel of each library that
     the other commit built under ``other/build`` (all but ``skip``, whose
-    kernels were redesigned) against this tree's build of it;
-    ``flavor_forces`` the other way round (this tree keeps K5e's kernels of
-    it, and K5c's are gone)."""
+    kernels were redesigned) against this tree's build of it, a kernel
+    that this tree lacks counting as different. (``flavor_forces`` was
+    once compared the other way round, when K5c's kernels left it and
+    K5e's stayed; K5e's now run on ``pair_step.cuh``'s chunked sweep, so
+    against a commit from before that ``flavor_forces`` goes in
+    ``skip``.)"""
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     mine = {name: path for name, (path, _) in _build.build_all(names).items()}
     same = {}
@@ -196,9 +198,7 @@ def sass_against(other: Path, skip: tuple, log=print) -> dict:
         theirs = sorted((other / "build" / "kernels").glob(f"lib{name}-*.so"))
         if len(theirs) != 1:
             raise RuntimeError(f"expected one {name} build in {other}, got {theirs}")
-        a, b = ((mine[name], theirs[0]) if name == "flavor_forces"
-                else (theirs[0], mine[name]))
-        same[name] = sass.diff(a, b)
+        same[name] = sass.diff(theirs[0], mine[name])
         log(f"  {name}: {sum(same[name].values())} of {len(same[name])} "
             f"kernels compiled to the same SASS in both commits"
             + ("" if all(same[name].values()) else

@@ -69,7 +69,7 @@ SIGNATURES = {
         "nbody_ptile_forces": [
             _vp, _vp,                  # tgt (3, T), src (3, S)
             _i32, _i32, _i32, _i32,    # n_tgt, n_src, p, block
-            _i32, _i32,                # chunk, n_split
+            _i32, _i32, _i32,          # chunk, stage, n_split
             _vp, _vp, _vp],            # partials, out (2, T), stream
     },
     "stationary_forces": {
@@ -92,7 +92,7 @@ SIGNATURES = {
             _vp, _vp,                  # tgt (3, T), src (3, S)
             _i32, _i32,                # n_tgt, n_src
             _i32, _i32, _i32,          # variant, p, block
-            _i32, _i32,                # chunk, n_split
+            _i32, _i32, _i32,          # chunk, stage, n_split
             _vp, _vp, _vp],            # partials, out (2, T), stream
     },
     "v2_forces": {

@@ -3,10 +3,12 @@ and a plain PyTorch version of each flavor, and the plain sums that K5b's
 and K5c's (:mod:`.v2_forces`) share.
 
 Counterpart of ``make_v3`` in ``scripts/ablations/tune_r2e.py``. The
-kernel is ``csrc/flavor_forces.cu``: ``source_tiles.cuh``'s chunked force
-(K5g's) with a pair policy and a sum policy chosen at build time, P
-targets per thread and ``block`` threads per block, so that the script's
-``tile_t`` is ``p * block``. Each script flavor maps to one variant:
+kernel is ``csrc/flavor_forces.cu``: ``pair_step.cuh``'s chunked sweep
+(K5g's) with a sum policy and a pair math chosen at build time, P targets
+per thread and ``block`` threads per block, so that the script's
+``tile_t`` is ``p * block``; its stages are K5g's
+(:func:`~.ptile_forces.stage`, through :func:`~.ptile_forces._launch`).
+Each script flavor maps to one variant:
 
 ======================  ===========================================  =====
 script flavor           Hopper variant                               P
@@ -42,8 +44,9 @@ from __future__ import annotations
 import torch
 
 from ..types import SOFTENING_FLOOR
-from .direct_forces import _check, _device_of, _raise_on, sm_count
-from .ptile_forces import PS, split_plan
+from . import ptile_forces as ptf
+from .direct_forces import _check, _device_of
+from .ptile_forces import PS, RUN  # RUN: fma_kloop's close
 
 # name: (variant of csrc/flavor_forces.cu, pair math, sum)
 FLAVORS = {
@@ -52,7 +55,6 @@ FLAVORS = {
     "fma_kloop": (4, "direct", "chains"),
     "f_assoc": (5, "assoc", "chunk"),
 }
-RUN = 256                  # csrc/source_tiles.cuh kRun: fma_kloop's close
 MAX_BLOCK = 512
 
 # Kernel launches made by the wrapper in this process (plain-version calls
@@ -221,18 +223,10 @@ def flavor_acc(
     _check_flavor(flavor, p, block, chunk)
     if src_dev.type == "cpu":
         return flavor_acc_plain(tgt, src, flavor=flavor, p=p, chunk=chunk)
-    n_split = split_plan(t, s, p, block, chunk, sm_count(
-        src_dev.index if src_dev.index is not None
-        else torch.cuda.current_device()))
+    out = ptf._launch(lambda *rest: _lib().nbody_flavor_forces(
+        tgt.data_ptr(), src.data_ptr(), t, s, FLAVORS[flavor][0], p, block,
+        chunk, *rest), t, s, p, block, chunk, None, src_dev,
+        f"flavor_forces ({flavor})")
     global LAUNCHES
-    out = torch.empty((2, t), dtype=torch.float32, device=src_dev)
-    part = (torch.empty((n_split, 2, t), dtype=torch.float32, device=src_dev)
-            if n_split > 1 else out)
-    with torch.cuda.device(src_dev):
-        err = _lib().nbody_flavor_forces(
-            tgt.data_ptr(), src.data_ptr(), t, s, FLAVORS[flavor][0], p,
-            block, chunk, n_split, part.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, f"flavor_forces ({flavor})")
     LAUNCHES += 1
     return out[0:1], out[1:2]

@@ -37,8 +37,7 @@ LAUNCHES = 0
 
 
 def _check_launch(block: int, chunk: int) -> None:
-    """The block and chunk ranges of the chunked kernels of one thread a
-    target group (``csrc/source_tiles.cuh``; K5g takes them)."""
+    """The block and chunk ranges of K5g's kernel (``csrc/ptile_forces.cu``)."""
     if not (32 <= block <= 1024 and block % 32 == 0):
         raise ValueError(f"block must be a multiple of 32 in [32, 1024], got {block}")
     if not 1 <= chunk <= 12288:

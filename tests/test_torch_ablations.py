@@ -462,6 +462,80 @@ def test_flavor_plain_follows_the_kernels_sums():
     assert torch.equal(ff._reduce(e, "chains", 16, 2), fold(runs))
 
 
+# --- K5g and K5e: the stages of the chunked sweep ---
+
+CHUNKS = (1, 8, 100, 255, 256, 300, 1000, 1024, 1032, 1100, 1280, 1536, 2048,
+          3072, 4096, 5000, 8192, 12287, 12288)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_sweep_stage_from_the_chunk_alone(chunk):
+    """``ptile_forces.stage``: the whole chunk up to 1024 sources; else a
+    multiple of 256 that divides the chunk (the largest up to 1024) where
+    one does, else 1024 with each chunk's last stage shorter; two buffers of
+    12 bytes a source (rounded up to a batch of 8) fit the 48 KB a block
+    gets without an opt-in."""
+    st = ptf.stage(chunk)
+    if chunk <= ptf.STAGE:
+        assert st == chunk
+    else:
+        dividing = [m for m in range(ptf.RUN, ptf.STAGE + 1, ptf.RUN)
+                    if chunk % m == 0]
+        assert st % ptf.RUN == 0 and st == max(dividing, default=ptf.STAGE)
+        assert st < chunk
+    assert 24 * -(-st // 8) * 8 <= 48 * 1024
+
+
+@pytest.mark.parametrize("module", [tune_r2g, tune_r2e])
+def test_sweep_stages_divide_every_sweep_chunk(module):
+    """At every chunk of the two sweeps the stage is 1024 sources and
+    divides the chunk: whole runs of 256, every stage full."""
+    chunks = [cfg[2] for cfg in module.SWEEP]
+    assert all(ptf.stage(c) == 1024 and c % 1024 == 0 for c in chunks)
+
+
+def test_k5g_and_k5e_launch_through_one_staging(monkeypatch):
+    """Both wrappers launch through ``ptile_forces._launch``, which hands
+    the C entry ``stage(chunk)`` after the chunk and before the split, in
+    the order of ``_build.SIGNATURES``; each counts its own launch. The
+    card is stood in for by spies on the device, the checks and the
+    libraries."""
+    from nbody_tpu_torch.ops import _build
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    cuda = torch.device("cuda", 0)
+    for mod in (ptf, ff):
+        monkeypatch.setattr(mod, "_device_of", lambda t: cuda)
+        monkeypatch.setattr(mod, "_check", lambda *a: None)
+        monkeypatch.setattr(mod, "_lib", Lib)
+    launched = []
+
+    def launch(call, t, s, p, block, chunk, n_split, device, what):
+        launched.append((t, s, p, block, chunk, n_split, device))
+        call(ptf.stage(chunk), 5, 111, 222, 333)
+        return torch.zeros((2, t))
+    monkeypatch.setattr(ptf, "_launch", launch)
+    tgt, src = torch.zeros((3, 300)), torch.zeros((3, 5000))
+    before = (ptf.LAUNCHES, ff.LAUNCHES)
+    ptf.ptile_acc(tgt, src, p=8, block=128, chunk=1100, n_split=3)
+    ff.flavor_acc(tgt, src, flavor="f_assoc", p=4, block=256, chunk=1032)
+    assert (ptf.LAUNCHES, ff.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert launched == [(300, 5000, 8, 128, 1100, 3, cuda),
+                        (300, 5000, 4, 256, 1032, None, cuda)]
+    (name_g, args_g), (name_e, args_e) = calls
+    assert name_g == "nbody_ptile_forces" and name_e == "nbody_flavor_forces"
+    assert len(args_g) == len(_build.SIGNATURES["ptile_forces"][name_g])
+    assert len(args_e) == len(_build.SIGNATURES["flavor_forces"][name_e])
+    assert args_g[2:] == (300, 5000, 8, 128, 1100, 1024, 5, 111, 222, 333)
+    assert args_e[2:] == (300, 5000, ff.FLAVORS["f_assoc"][0], 4, 256, 1032,
+                          1024, 5, 111, 222, 333)
+
+
 # --- wrappers on the CPU ---
 
 def test_cpu_wrappers_make_no_launch():
@@ -674,6 +748,89 @@ def test_parent_side_k5_jobs_run_the_public_wrappers(job):
         want = bp.bcast_acc_plain(tgt, src, reps=tune_r4d_bcast_probe.REPS,
                                   n_split=split)
     assert _scene.bit_equal(got, want)
+
+
+@pytest.mark.parametrize("job", [
+    {"what": "k5g", "n": 2048, "p": 4, "block": 256, "chunk": 2048,
+     "n_split": None},
+    {"what": "k5g", "n": 2048, "p": 2, "block": 128, "chunk": 512,
+     "n_split": 3},
+    {"what": "k5e", "n": 2048, "flavor": "fma_kloop", "tile_t": 2048,
+     "chunk": 1024},
+    {"what": "k5e", "n": 2048, "flavor": "partial_jnp", "tile_t": 1024,
+     "chunk": 512}])
+def test_parent_side_sweep_jobs_run_the_public_wrappers(job):
+    """``tune_r2g parent``'s and ``tune_r2e parent``'s jobs drive
+    ``ptile_forces.ptile_acc`` and ``flavor_forces.flavor_acc`` at the
+    configuration's split or the tree's plan (a one-SM card on the CPU);
+    on CPU tensors those are the plain versions, in (2, N) form."""
+    from nbody_tpu_torch.ablations import _side
+
+    times, (got,) = _side.run_job(job, torch.device("cpu"), {})
+    sc, *_ = _scene_np(2048)
+    tgt, src = sc.tgt3(), sc.src3(sc.s128)
+    if job["what"] == "k5g":
+        p, block = job["p"], job["block"]
+        want = torch.cat(ptf.ptile_acc_plain(tgt, src))
+        extra = {}
+    else:
+        p, block = ff.shape(job["tile_t"])
+        want = torch.cat(ff.flavor_acc_plain(tgt, src, flavor=job["flavor"],
+                                             p=p, chunk=job["chunk"]))
+        extra = {"p": p}
+    split = job.get("n_split") or ptf.split_plan(2048, sc.s128, p, block,
+                                                 job["chunk"], 1)
+    assert times == {"ms": None, "n_split": split, **extra}
+    assert _scene.bit_equal(got, want)
+
+
+@pytest.mark.parametrize("module", [tune_r2g, tune_r2e])
+def test_sweep_parent_jobs_cover_the_sweep(module):
+    """``tune_r2g parent`` and ``tune_r2e parent`` run every configuration
+    of their module's sweep, K5g's at its own split where it gives one."""
+    jobs = module.jobs(7, reps=None)
+    assert len(jobs) == len(module.SWEEP)
+    assert all(j["n"] == 7 and j["reps"] is None for j in jobs)
+    if module is tune_r2g:
+        assert [(j["p"], j["block"], j["chunk"], j["n_split"])
+                for j in jobs] == list(tune_r2g.SWEEP)
+    else:
+        assert [(j["flavor"], j["tile_t"], j["chunk"])
+                for j in jobs] == list(tune_r2e.SWEEP)
+
+
+# Mangled names of K5g's and K5e's kernels in this tree's build and in the
+# builds before the chunked sweep (chunk_kernel<P, false, RowTargets>,
+# flavor_kernel<P, RowTargets, V>).
+_TAG = "_ZN48_GLOBAL__N__faceea53_15_{}_cu_0462d2fe"
+SWEEP_KERNELS = {
+    "new": [_TAG.format("ptile_forces")
+            + "12ptile_kernelILi{p}EEEvNS_10RowTargetsEPKfiiiiiiPf",
+            _TAG.format("flavor_forces")
+            + "13flavor_kernelILi{p}ELi{v}EEEvNS_10RowTargetsEPKfiiiiiiPf"],
+    "old": [_TAG.format("ptile_forces")
+            + "12chunk_kernelILi{p}ELb0ENS_10RowTargetsEEEvT1_PKfiiiiPf",
+            _TAG.format("flavor_forces")
+            + "13flavor_kernelILi{p}ENS_10RowTargetsELi{v}EEEvT0_PKfiiiiPf"],
+}
+
+
+@pytest.mark.parametrize("build", ["new", "old"])
+def test_sweep_sass_patterns_find_each_kernel_once(build):
+    """``tune_r2g.KERNEL`` and ``tune_r2e.KERNEL`` pick each P's (and
+    each variant's) kernel alone out of either build's kernels."""
+    from nbody_tpu_torch.ops import sass
+
+    ptile, flavor = SWEEP_KERNELS[build]
+    variants = sorted(v for v, _, _ in ff.FLAVORS.values())
+    funcs = {ptile.format(p=p): [] for p in ptf.PS}
+    funcs.update({flavor.format(p=p, v=v): [] for p in ptf.PS for v in variants})
+    funcs[_TAG.format("ptile_forces") + "19sum_partials_kernelEPKfiiiiPf"] = []
+    for p in ptf.PS:
+        assert sass.find(funcs, tune_r2g.KERNEL.format(p=p)) == ptile.format(p=p)
+        for v in variants:
+            assert sass.find(funcs, tune_r2e.KERNEL.format(p=p, v=v)) == \
+                flavor.format(p=p, v=v)
 
 
 def test_k5_parent_jobs_cover_both_sweeps():

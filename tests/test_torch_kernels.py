@@ -562,6 +562,81 @@ def test_ptile_acc_matches_plain(cuda, p, block, chunk, n_split):
     assert rel_err(got.cpu(), want.cpu()) < TOL
 
 
+@pytest.mark.parametrize("n,p,block,chunk,n_split", [
+    (4000, 4, 256, 1100, None), (4001, 8, 128, 1027, 3), (4000, 1, 96, 300, None),
+    (4001, 2, 256, 12287, 2), (4000, 8, 64, 1536, None), (4001, 2, 512, 13, 1),
+    (4000, 4, 896, 2048, None), (4001, 8, 512, 4096, 1)])
+def test_ptile_acc_ragged_stages_match_plain(cuda, n, p, block, chunk, n_split):
+    """K5g where a chunk is not a whole number of stages or of batches of 8
+    (1100 and 12287: stages of 1024 and a short last one; 1027, 300 and 13:
+    one stage a chunk, a ragged last batch; 1536: stages of 512) and T is
+    not a whole number of blocks (P * block targets), the sources ragged
+    too (mass_len + 37 rows), up to the largest blocks the kernel's
+    registers allow (896 threads at P = 4, 512 at P = 8): against its
+    plain version (TOL), twice bit-equal, one launch a call."""
+    sc = _scene(cuda, n)
+    tgt, src = sc.tgt3(), sc.src3(sc.mass_len + 37)
+    before = ptf.LAUNCHES
+    got, same = _twice(lambda: ptf.ptile_acc(tgt, src, p=p, block=block,
+                                             chunk=chunk, n_split=n_split))
+    assert ptf.LAUNCHES == before + 2 and same
+    assert torch.isfinite(got).all()
+    want = torch.cat(ptf.ptile_acc_plain(tgt, src))
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.parametrize("chunk,stages", [(2048, (256, 512, 1024, 2048)),
+                                          (1100, (256, 1024, 1100)),
+                                          (1032, (256, 512, 1032))])
+def test_sweep_sums_do_not_depend_on_the_stage(cuda, monkeypatch, chunk, stages):
+    """K5g and every K5e flavor at P = 2 give the same bits at every stage
+    the C entries take for the chunk (a multiple of 256 below it, or the
+    whole chunk; ``ptile_forces.stage`` forced): the runs and chains carry
+    from stage to stage. K5e takes chunks of whole batches only, so the
+    chunk of 1100 is K5g's alone."""
+    sc = _scene(cuda, 4096)
+    tgt, src = sc.tgt3(), sc.src3(sc.mass_len + 37)
+    calls = {"K5g": lambda: ptf.ptile_acc(tgt, src, p=2, block=256,
+                                          chunk=chunk, n_split=2)}
+    for flavor in ff.FLAVORS if chunk % 8 == 0 else ():
+        calls[flavor] = lambda flavor=flavor: ff.flavor_acc(
+            tgt, src, flavor=flavor, p=2, block=256, chunk=chunk)
+    for name, call in calls.items():
+        outs = []
+        for st in stages:
+            monkeypatch.setattr(ptf, "stage", lambda c, st=st: st)
+            outs.append(torch.cat(call()))
+        torch.cuda.synchronize()
+        assert all(_bits_equal(outs[0], o) for o in outs[1:]), name
+
+
+def test_k5g_k5e_stage_the_same_on_both_entry_points(cuda, monkeypatch):
+    """Both C entries get ``ptile_forces.stage(chunk)`` as their stage
+    argument (read off the calls), at chunks of one, several and a ragged
+    number of stages."""
+    sc = _scene(cuda, 4096)
+    tgt, src = sc.tgt3(), sc.src3(sc.s128)
+    seen = []
+
+    class Spy:
+        def __init__(self, lib, index):
+            self.lib, self.index = lib, index
+
+        def __getattr__(self, name):
+            fn = getattr(self.lib, name)
+            return lambda *a: seen.append((name, a[self.index])) or fn(*a)
+
+    lib_g, lib_e = ptf._lib(), ff._lib()
+    monkeypatch.setattr(ptf, "_lib", lambda: Spy(lib_g, 7))
+    monkeypatch.setattr(ff, "_lib", lambda: Spy(lib_e, 8))
+    for chunk in (512, 2048, 1032):
+        ptf.ptile_acc(tgt, src, p=2, block=256, chunk=chunk)
+        ff.flavor_acc(tgt, src, flavor="control", p=2, block=256, chunk=chunk)
+    torch.cuda.synchronize()
+    assert seen == [(name, ptf.stage(chunk)) for chunk in (512, 2048, 1032)
+                    for name in ("nbody_ptile_forces", "nbody_flavor_forces")]
+
+
 @pytest.mark.parametrize("precise", [False, True])
 @pytest.mark.parametrize("n,block,chunk,slabs", [
     (4096, 256, 128, None), (4096, 256, 512, 1), (4096, 512, 2048, None),
@@ -733,6 +808,26 @@ def test_flavor_acc_matches_plain(cuda, flavor, p):
     assert ff.LAUNCHES == before + 2 and same
     want = torch.cat(ff.flavor_acc_plain(tgt, src, flavor=flavor, p=p,
                                          chunk=1024))
+    assert torch.isfinite(got).all()
+    assert rel_err(got.cpu(), want.cpu()) < TOL
+
+
+@pytest.mark.parametrize("flavor", list(ff.FLAVORS))
+def test_flavor_acc_p8_ragged_stages_match_plain(cuda, flavor):
+    """Every K5e flavor at P = 8 (blocks of 64: 512 targets) on T = 4000
+    (not a whole number of blocks) against 2013 source rows in chunks of
+    1032 (the first chunk a stage of 1024 and one of 8, the second one
+    stage of 981 with a ragged last batch; 4-byte copies): against its
+    plain version (TOL), twice bit-equal, one launch a call."""
+    sc = _scene(cuda, 4000)
+    tgt = sc.tgt3()
+    src = sc.src3(sc.mass_len + 37)
+    before = ff.LAUNCHES
+    got, same = _twice(lambda: ff.flavor_acc(tgt, src, flavor=flavor, p=8,
+                                             block=64, chunk=1032))
+    assert ff.LAUNCHES == before + 2 and same
+    want = torch.cat(ff.flavor_acc_plain(tgt, src, flavor=flavor, p=8,
+                                         chunk=1032))
     assert torch.isfinite(got).all()
     assert rel_err(got.cpu(), want.cpu()) < TOL
 

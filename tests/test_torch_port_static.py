@@ -137,8 +137,7 @@ def test_direct_tiles_is_the_main_path_kernels_own():
 def test_k5a_runs_on_k5b_kernel():
     """K5a's own kernel source is gone: its wrapper, the build and
     ``chip_smoke.py``'s kernels line name ``csrc/v2_forces.cu``, and the
-    pair step of K5a, K5b, K5c, K5d, K5h and K5i is
-    ``csrc/pair_step.cuh``'s."""
+    pair step of K5a-K5e and K5g-K5i is ``csrc/pair_step.cuh``'s."""
     from nbody_tpu_torch.ops import _build
 
     csrc = ROOT / "nbody_tpu_torch" / "csrc"
@@ -154,8 +153,8 @@ def test_k5a_runs_on_k5b_kernel():
                               "scripts/ablations/tune_r2.py:40")
     users = sorted(p.name for p in csrc.glob("*.cu*")
                    if '#include "pair_step.cuh"' in p.read_text())
-    assert users == ["bcast_probe.cu", "newton_forces.cu",
-                     "stationary_forces.cu", "v2_forces.cu"]
+    assert users == ["bcast_probe.cu", "flavor_forces.cu", "newton_forces.cu",
+                     "ptile_forces.cu", "stationary_forces.cu", "v2_forces.cu"]
 
 
 def test_k5h_runs_on_the_pair_step_without_a_butterfly():
@@ -189,3 +188,62 @@ def test_k5c_runs_on_k5b_kernel():
                               "scripts/ablations/tune_r2c.py:35")
     v2 = (ROOT / "nbody_tpu_torch" / "csrc" / "v2_forces.cu").read_text()
     assert "v2_probe_kernel" in v2
+
+
+def _code(path):
+    """The source at path without its // comments."""
+    return "\n".join(line.split("//")[0] for line in path.read_text().splitlines())
+
+
+@pytest.mark.parametrize("name", ["ptile_forces.cu", "flavor_forces.cu"])
+def test_k5g_k5e_run_on_the_pair_steps_sweep(name):
+    """K5g's and K5e's kernels are ``pair_step.cuh``'s chunked sweep
+    (``sweep_body``, launched by ``launch_sweep``): its unguarded rsqrt, no
+    guarded ``rsqrtf``/``pair_factor``, no atomics and nothing of the old
+    chunk loop."""
+    path = ROOT / "nbody_tpu_torch" / "csrc" / name
+    assert '#include "pair_step.cuh"' in path.read_text()
+    code = _code(path)
+    assert "sweep_body<" in code and "launch_sweep<" in code
+    for gone in ("rsqrtf", "pair_factor", "atomic", "chunk_body",
+                 "source_tiles.cuh", "AssocPair", "launch_chunks"):
+        assert gone not in code, gone
+
+
+def test_sweep_body_stages_double_buffered():
+    """``sweep_body`` stages through ``cp.async`` copies (``stage_rows``),
+    the next stage's issued while the current one's pairs run, one barrier
+    a stage, and reads a batch through ``Pairs::add_batch`` with the
+    unguarded rsqrt of ``StepMath``."""
+    code = _code(ROOT / "nbody_tpu_torch" / "csrc" / "pair_step.cuh")
+    body = code[code.index("void sweep_body("):code.index("launch_sweep(")]
+    assert body.count("__syncthreads()") == 1
+    assert body.count("stage_rows(") == 2 and "cp_async_wait_all()" in body
+    span = code[code.index("void add_span("):code.index("void close_run(")]
+    assert "t.add_batch(" in span
+    assert "rsqrt_ftz(" in code and "rsqrtf" not in code
+
+
+RETIRED = ("pair_factor", "DirectPair", "SumPolicy", "RunSum", "ADD_BATCH",
+           "accumulate_staged", "stage_sources", "chunk_body", "chunk_kernel",
+           "launch_chunks", "launch_chunked")
+KEPT = ("kBlock", "kRun", "kSofteningFloor", "RowTargets", "PairTargets",
+        "sum_partials_kernel", "launch_sum_partials", "allow_smem")
+
+
+@pytest.mark.parametrize("name", RETIRED)
+def test_source_tiles_old_chunk_loop_is_retired(name):
+    """``source_tiles.cuh`` no longer holds the old chunked loop of K5g and
+    K5e, nor any other ``csrc`` file its names."""
+    import re
+
+    csrc = ROOT / "nbody_tpu_torch" / "csrc"
+    for path in sorted(csrc.glob("*.cu*")):
+        assert not re.search(rf"\b{name}\b", _code(path)), path.name
+
+
+def test_source_tiles_keeps_what_other_kernels_include():
+    """What the other kernels take from ``source_tiles.cuh`` stays there."""
+    code = _code(ROOT / "nbody_tpu_torch" / "csrc" / "source_tiles.cuh")
+    for name in KEPT:
+        assert name in code, name
