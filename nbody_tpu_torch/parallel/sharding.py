@@ -68,13 +68,14 @@ import torch
 from torch.profiler import record_function
 
 from .. import diagnostics, forces, integrators, world
+from ..interop import FIELDS
 from ..ops.collective import LOCAL, ShardGroup
 from ..ops.collisions import merge_pass
 from ..ops.p3m_forces import (p3m_acc_collective_from_bins,
                               p3m_bins_collective,
                               p3m_exact_core_bins_collective)
 from ..ops.pm_forces import pm_acc_collective
-from ..ops.ring_forces import Ring, ring_force, ring_substep
+from ..ops.ring_forces import Ring, ring_force, ring_substep, source_pieces
 from ..trajectory import stack_frames
 from ..types import DEFAULT_SIM_CONFIG, DTYPE, Particles, SimConfig, round_up
 from ..world import _scalar, partition_massive_first
@@ -182,6 +183,16 @@ def padded_state(particles: Particles, mass_len: int, n_pad: int, g: float):
     return state, gm, valid
 
 
+def _prefix_slice(prefix: list, k: int, s_loc: int, t_loc: int, device):
+    """Rows [k·s_loc, (k+1)·s_loc) of the source prefix, whose rows lie in
+    the pieces ``prefix`` (target shard j's first rows), on ``device``: a
+    view of one piece where the rows lie in one, else the pieces' rows
+    joined."""
+    parts = [prefix[j][lo:hi].to(device)
+             for j, lo, hi, _ in source_pieces(k, s_loc, t_loc, s_loc)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def mesh_chips(devices, group=None) -> int:
     """The D of "auto"'s per-chip rule: the distinct cards of a CUDA mesh
     (four shards on one card do all the direct work on that card), and
@@ -286,7 +297,15 @@ class ShardedWorld:
                                         config.merge_collisions)
         n_pad = shard_layout(n, mass_len, config, len(devices))[3]
         state, gm, valid = padded_state(particles, mass_len, n_pad, config.g)
-        self._setup(devices, config, backend, n, mass_len, state, gm, valid)
+        t_loc = n_pad // len(devices)
+
+        def split(x):
+            return [x[k * t_loc:(k + 1) * t_loc].to(dev).contiguous()
+                    for k, dev in enumerate(devices)]
+
+        self._setup(devices, config, backend, n, mass_len,
+                    {f: split(getattr(state, f)) for f in FIELDS},
+                    split(gm), split(valid))
 
     @classmethod
     def from_arrays(cls, pos, vel, acc, mass, radius, *, total_len: int,
@@ -297,51 +316,81 @@ class ShardedWorld:
         ``nbody_tpu``'s ``from_arrays``): each field a tensor of the
         ``n_pad`` rows of :func:`shard_layout` for (total_len, mass_len,
         config, mesh size), or the list of its D shards, on any device
-        (e.g. :attr:`state`, or the lists ``pos``, ``vel``, ...). The gm
-        and valid rows are made again: gm = g·mass below ``mass_len``,
-        valid = 1 below ``total_len``.
+        (e.g. :attr:`state`, or the lists ``pos``, ``vel``, ...). Each
+        shard's rows are copied straight to its device; the gm and valid
+        rows are made again there: gm = g·mass below ``mass_len``, valid =
+        1 below ``total_len``.
 
         With ``group`` (a ``torch.distributed`` process group, every rank
         calling), ``mesh`` is this rank's L devices and each field holds
         this rank's rows: the L·t_loc rows from global row r·L·t_loc on
         rank r, for the layout of D = L × the group's size shards."""
-        self = cls.__new__(cls)
         devices = make_mesh(devices=mesh)
         sg = None if group is None else shard_group(group, devices)
-        size, rank = (1, 0) if sg is None else (sg.size, sg.rank)
-        backend = resolve_force_backend(force_backend, devices, total_len,
-                                        mass_len, config.merge_collisions,
-                                        group=sg)
-        t_loc = shard_layout(total_len, mass_len, config,
-                             size * len(devices))[1]
+        d = len(devices) * (1 if sg is None else sg.size)
+        t_loc = shard_layout(total_len, mass_len, config, d)[1]
         rows = len(devices) * t_loc
 
-        def whole(x):
+        def shards(name, x):
             if isinstance(x, (list, tuple)):
-                return torch.cat([t.to("cpu", DTYPE) for t in x])
-            return torch.as_tensor(x).to("cpu", DTYPE)
+                pieces = list(x)
+                shape = (sum(p.shape[0] for p in pieces),
+                         *pieces[0].shape[1:]) if pieces else (0,)
+                fits = len(pieces) == len(devices) and all(
+                    p.shape[0] == t_loc for p in pieces)
+            else:
+                x = torch.as_tensor(x)
+                shape = tuple(x.shape)
+                pieces = [x[k * t_loc:(k + 1) * t_loc]
+                          for k in range(len(devices))]
+                fits = shape[0] == rows
+            want = (rows, 2) if name in ("pos", "vel", "acc") else (rows,)
+            if not fits or tuple(shape) != want:
+                raise ValueError(
+                    f"restored {name} shape {tuple(shape)} does not match "
+                    f"the layout for n={total_len}, mass_len={mass_len}, "
+                    f"D={d}: {want} on this process; restore with the same "
+                    "config and mesh size as the save")
+            return [p.to(dev, DTYPE, copy=True).contiguous()
+                    for p, dev in zip(pieces, devices)]
 
-        state = Particles(pos=whole(pos), vel=whole(vel), acc=whole(acc),
-                          mass=whole(mass), radius=whole(radius))
-        if tuple(state.pos.shape) != (rows, 2):
-            raise ValueError(
-                f"restored pos shape {tuple(state.pos.shape)} does not match "
-                f"the layout for n={total_len}, mass_len={mass_len}, "
-                f"D={size * len(devices)}: ({rows}, 2) on this process; "
-                "restore with the same config and mesh size as the save")
-        idx = rank * rows + torch.arange(rows)
-        gm = torch.where(idx < mass_len, config.g * state.mass, 0.0)
-        valid = (idx < total_len).to(DTYPE)
-        self._setup(devices, config, backend, total_len, mass_len, state, gm,
-                    valid, group=sg)
+        given = dict(zip(FIELDS, (pos, vel, acc, mass, radius)))
+        return cls._from_shards({f: shards(f, x) for f, x in given.items()},
+                                total_len=total_len, mass_len=mass_len,
+                                devices=devices, config=config,
+                                force_backend=force_backend, group=sg)
+
+    @classmethod
+    def _from_shards(cls, shards: dict, *, total_len: int, mass_len: int,
+                     devices: list, config: SimConfig, force_backend,
+                     group: ShardGroup | None) -> "ShardedWorld":
+        """A world around this process's padded shards, which it takes as
+        its own: ``shards`` maps each of :data:`FIELDS` to one tensor a
+        local shard, of ``t_loc`` rows, on that shard's device. The gm and
+        valid rows are made on each shard's device from the global row
+        index; no state row leaves its device."""
+        self = cls.__new__(cls)
+        backend = resolve_force_backend(force_backend, devices, total_len,
+                                        mass_len, config.merge_collisions,
+                                        group=group)
+        first = 0 if group is None else group.first(len(devices))
+        t_loc = shards["pos"][0].shape[0]
+        gm, valid = [], []
+        for j, (m, dev) in enumerate(zip(shards["mass"], devices)):
+            idx = (first + j) * t_loc + torch.arange(t_loc, device=dev)
+            gm.append(torch.where(idx < mass_len, config.g * m, 0.0))
+            valid.append((idx < total_len).to(DTYPE))
+        self._setup(devices, config, backend, total_len, mass_len, shards,
+                    gm, valid, group=group)
         return self
 
-    def _setup(self, devices, config, backend, n, mass_len, state, gm,
+    def _setup(self, devices, config, backend, n, mass_len, shards, gm,
                valid, group=None) -> None:
-        """Split this process's padded CPU rows over ``devices`` and build
-        the backend's source layout (the ring, or the mesh solvers' rows).
-        ``group``: a ``collective.ShardGroup``, or None for the single
-        controller (whose rows are all the rows)."""
+        """Take this process's padded shards (``shards``: field -> one
+        tensor a local shard on its device; ``gm`` and ``valid`` alike) and
+        build the backend's source layout (the ring, or the mesh solvers'
+        rows). ``group``: a ``collective.ShardGroup``, or None for the
+        single controller (whose shards are all the shards)."""
         self.mesh = devices
         self.group = LOCAL if group is None else group
         d = self.n_devices = self.group.n_shards(len(devices))
@@ -352,15 +401,10 @@ class ShardedWorld:
         self.total_len, self.mass_len = n, mass_len
         self.s_loc, self.t_loc, self.src_len, self.n_pad = (
             s_loc, t_loc, src_len, n_pad)
-
-        def split(x, rows):
-            return [x[k * rows:(k + 1) * rows].to(dev).contiguous()
-                    for k, dev in enumerate(devices)]
-
-        self.pos, self.vel, self.acc = (split(x, t_loc) for x in
-                                        (state.pos, state.vel, state.acc))
-        self.mass, self.radius = split(state.mass, t_loc), split(state.radius, t_loc)
-        self.valid = split(valid, t_loc)
+        self.pos, self.vel, self.acc = (list(shards[f])
+                                        for f in ("pos", "vel", "acc"))
+        self.mass, self.radius = list(shards["mass"]), list(shards["radius"])
+        self.valid = valid
         # the rows of [0, src_len) that each shard holds as targets: the
         # merge pass's prefix
         self._prefix_rows = [min(max(src_len - k * t_loc, 0), t_loc)
@@ -374,24 +418,24 @@ class ShardedWorld:
             self._src_rows = src_rows[first:first + len(devices)]
             if group is not None:
                 group.src_rows = src_rows
-            self._gm_src = split(gm, t_loc)
+            self._gm_src = gm
             self._softening = [world._scalar(config.pm_softening, dev)
                                for dev in devices]
             self.ring = None
         else:
-            if group is None:
-                self._gm_src = split(gm[:src_len], s_loc)
-            else:
-                # every shard's gm, the same on every rank: gathered once
-                # here, changed only by the merge pass, which every rank
-                # runs on the same gathered rows
-                dev0 = devices[0]
-                mine = self._prefix_rows[first:first + len(devices)]
-                full = torch.cat(group.gather(
-                    [gm[j * t_loc:j * t_loc + r].to(dev0)
-                     for j, r in enumerate(mine)], dev0, self._prefix_rows))
-                self._gm_src = [full[k * s_loc:(k + 1) * s_loc]
-                                for k in range(d)]
+            # source shard k's gm: rows [k·s_loc, (k+1)·s_loc) of the
+            # prefix, on device k; over a group every shard's, the same on
+            # every rank, on the first local device: gathered once here,
+            # changed only by the merge pass, which every rank runs on the
+            # same gathered rows
+            mine = self._prefix_rows[first:first + len(devices)]
+            prefix = [g[:r] for g, r in zip(gm, mine)]
+            homes = devices
+            if group is not None:
+                prefix = group.gather(prefix, devices[0], self._prefix_rows)
+                homes = [devices[0]] * d
+            self._gm_src = [_prefix_slice(prefix, k, s_loc, t_loc, dev)
+                            for k, dev in enumerate(homes)]
             self.ring = Ring(devices, t_loc, s_loc, mass_len, self._gm_src,
                              n_targets=n, group=group)
         self._host_cache: Particles | None = None

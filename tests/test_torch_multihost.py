@@ -24,7 +24,8 @@ import nbody_tpu_torch as nt
 from nbody_tpu.parallel import sharding as jsh
 from nbody_tpu_torch.parallel import ShardedWorld, make_mesh, multihost
 from nbody_tpu_torch.parallel import sharding as sh
-from nbody_tpu_torch.utils.checkpoint import load_world
+from nbody_tpu_torch.utils.checkpoint import (load_sharded_world_dcp,
+                                              load_world)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_multihost_worker.py")
@@ -161,6 +162,34 @@ def test_checkpoint_restores_on_one_process(worker_outputs, backend):
         np.testing.assert_array_equal(getattr(w.particles, f).numpy(), got[f])
     w.update(worker.DT, 1)
     assert torch.isfinite(w.particles.pos).all()
+
+
+@pytest.mark.parametrize("backend", worker.BACKENDS)
+def test_dcp_restores_each_ranks_shards(worker_outputs, backend):
+    """Each rank wrote its own shards with save_world_dcp and read them
+    back with load_sharded_world_dcp over the group: the step, the layout,
+    the config and every shard bit-equal to its live ones, and 2 more
+    substeps on both bit-equal."""
+    for out in worker_outputs[1][backend]:
+        assert out["dcp_equal"].all() and len(out["dcp_equal"]) == \
+            3 + len(FIELDS) * worker.LOCAL
+        assert bool(out["dcp_resumed_equal"])
+
+
+@pytest.mark.parametrize("backend", worker.BACKENDS)
+def test_dcp_checkpoint_restores_on_one_process(worker_outputs, backend):
+    """The shard-native checkpoint of the 2-process world loads on a
+    single-process 8-shard world straight onto its shards, bit-equal to
+    the gathered state, with its step and config."""
+    outdir, outputs = worker_outputs
+    got = outputs[backend][0]
+    w, step = load_sharded_world_dcp(str(outdir / f"{backend}_dcp"),
+                                     make_mesh(devices=["cpu"] * D),
+                                     force_backend=backend)
+    assert step == worker.SUBSTEPS + int(got["k_adaptive"])
+    assert w.config == _config() and w.n_devices == D
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(w.particles, f).numpy(), got[f])
 
 
 @pytest.mark.parametrize("backend", worker.BACKENDS)

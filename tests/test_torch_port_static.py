@@ -64,7 +64,12 @@ def test_port_files_found():
                  "nbody_tpu_torch/parallel/multihost.py",
                  "nbody_tpu_torch/ops/collective.py",
                  "nbody_tpu_torch/viewer_sdl.py",
-                 "nbody_tpu_torch/ops/v2_forces.py"):
+                 "nbody_tpu_torch/ops/v2_forces.py",
+                 "nbody_tpu_torch/examples/__init__.py",
+                 *(f"nbody_tpu_torch/examples/{name}.py" for name in (
+                     "checkpoint_resume", "sharded", "collision",
+                     "pm_million", "accretion", "shooting",
+                     "thrust_control", "multihost_pod"))):
         assert want in names
     for source in ("direct_vjp.cu", "p3m_pp_vjp.cu", "v2_forces.cu"):
         assert (ROOT / "nbody_tpu_torch" / "csrc" / source).is_file()
