@@ -225,6 +225,28 @@ Phases, each of which raises on failure:
      bit-equal; (c) the eight examples (nbody_tpu_torch.examples) through
      runpy, each with its rc, wall seconds and its kernel's launches,
      pm_million at N=1048576 on p3m, the cuts from their defaults logged.
+23. physics at horizon on the card (nbody_tpu_torch.scripts), each item
+     with its wall seconds, its device ms a substep (CUDA events) and its
+     kernels' launches counted from 0: (a) the reference binary's 10k-step
+     state (tests/test_physics_validation.py:309): the bit-exact IC
+     (N=2000, two galaxies, seed 11037), 10,000 precise substeps of 0.01
+     on "cuda" and on "torch", against both committed 10k goldens with the
+     4x-self-noise rule, mass bit-exact; (b) that file's single-device 10k
+     cases at their scenes, configs and bounds: "torch" and "cuda" (drift
+     < 1e-3, |dp|/scale < 1e-6), "pm" at grid 128 (5e-3, 2e-4), leapfrog
+     and yoshida4 (1e-3), the default math against the native oracle at
+     N=150; (c) its ring case: "cuda_ring" with D=8 shards on the card,
+     N=1024 (1e-3, 1e-6); (d) validate_physics at docs/BENCHMARKS.md's
+     five rows (N=16384 x 10000 "cuda"; 65536 x 2000 on "cuda", "p3m" and
+     "pm"; 262144 x 400 "cuda") and leapfrog and yoshida4 at 65536 x 2000
+     on "cuda", each finite with its drift under 1e-3 (exact) or 5e-3
+     (mesh); (e) scale_ceiling at its defaults (N=32M, "pm", grid 2048):
+     scene and world seconds, ms a substep, peak GiB; (f) verify_drive;
+     (g) the compile cache: direct_forces built cold into a fresh
+     directory (nvcc seconds), then a CLI subprocess with --compile-cache
+     on that directory loads it with no build (the directory unchanged),
+     and cache_entries counts it. The kernels line gets one row: K1's
+     fused substep over (b)'s 10k "cuda" run.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
@@ -4289,6 +4311,223 @@ def phase_checkpoint(nt, sh, rf, df, pp, col, multihost, ck, scene_big,
     return out
 
 
+HZ_ROWS = (  # docs/BENCHMARKS.md:290-296, then the two integrators
+    (16384, 10000, "cuda", "euler"), (65536, 2000, "cuda", "euler"),
+    (65536, 2000, "p3m", "euler"), (65536, 2000, "pm", "euler"),
+    (262144, 400, "cuda", "euler"), (65536, 2000, "cuda", "leapfrog"),
+    (65536, 2000, "cuda", "yoshida4"))
+# the drifts measured on a TPU (docs/BENCHMARKS.md:290-296): physics, not
+# speed; logged beside the card's
+HZ_TPU = {(16384, "cuda"): (2.4e-5, 1.3e-7), (65536, "cuda"): (1.8e-5, 1.1e-7),
+          (65536, "p3m"): (5.0e-4, 3.8e-6), (65536, "pm"): (3.15e-4, 1.2e-4),
+          (262144, "cuda"): (2.7e-6, 2.2e-7)}
+HZ_DRIFT = {"cuda": 1e-3, "p3m": 5e-3, "pm": 5e-3}
+HZ_CLI = ["run", "--n", "6000", "--steps", "10"]
+
+
+def hz_count(counters: dict, fn):
+    """Run ``fn`` with every named counter ((module, attribute)) set to 0;
+    (fn's result, {name: launches}) read just after."""
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
+def hz_log(label: str, r: dict, launches: dict, wall_s: float) -> None:
+    log(f"  {label}: {wall_s:.1f} s wall, {r['device_ms']:.4f} ms/substep "
+        f"device, {r['wall_ms']:.4f} ms/substep wall; launches " + ", ".join(
+            f"{k} {v}" for k, v in launches.items()))
+
+
+def phase_physics(nt, df, rf, pp, _build, smi: str, device) -> dict:
+    """[23]: physics at horizon on the card, through
+    nbody_tpu_torch.scripts."""
+    import shutil
+
+    from nbody_tpu_torch import integrators
+    from nbody_tpu_torch.scripts import scale_ceiling, validate_physics as vp
+    from nbody_tpu_torch.scripts import verify_drive
+    from nbody_tpu_torch.utils import cpp_oracle
+    from nbody_tpu_torch.utils.compile_cache import (cache_entries,
+                                                     enable_compile_cache)
+
+    t_phase = time.perf_counter()
+    counters = {"K1": (df, "LAUNCHES"), "K4": (pp, "LAUNCHES"),
+                "K3": (rf, "LAUNCHES")}
+    out = {}
+
+    def item(label, fn, want: dict):
+        """fn() under the counters; each named count must equal its want."""
+        t0 = time.perf_counter()
+        r, got = hz_count(counters, fn)
+        wall = time.perf_counter() - t0
+        hz_log(label, r, got, wall)
+        for k in counters:
+            expect_launches(f"[23] {label}, {k}", got[k], want.get(k, 0))
+        return {**r, "launches": got, "s": wall}
+
+    log(f"[23a] the reference binary's 10k-step state: N={vp.REF_N}, "
+        f"{vp.REF_STEPS} precise substeps of {vp.REF_DT}, 4x self-noise")
+    for backend in ("cuda", "torch"):
+        r = item(f"reference binary on {backend}",
+                 lambda: vp.reference_binary(backend, device),
+                 {"K1": vp.REF_STEPS} if backend == "cuda" else {})
+        log(f"    com {r['com']:.3e} (self {r['self_com']:.3e}), momentum "
+            f"{r['mom']:.3e} (self {r['self_mom']:.3e}), radial quantiles "
+            + ", ".join(f"{a:.3e}" for a in r["rq"]) + " (self " + ", ".join(
+                f"{a:.3e}" for a in r["self_rq"]) + ")")
+        out[f"ref_{backend}"] = r
+
+    steps = vp.HORIZON_CHUNKS * vp.HORIZON_CHUNK
+    log(f"[23b] tests/test_physics_validation.py's single-device cases, "
+        f"{steps} substeps of {vp.HORIZON_DT}")
+    worlds = {}
+
+    def case(name, backend, want):
+        c = vp.HORIZON_CASES[name]
+
+        def go():
+            scene, world = vp.horizon_world(name, device, backend)
+            worlds[(name, backend)] = world
+            r = vp.invariants(world, scene, device)
+            vp.check_invariants(f"[23] {name} {backend}", r, c["drift"],
+                                c["dp"])
+            return r
+
+        r = item(f"{name} {backend or c.get('backend')}", go, want)
+        log(f"    worst drift {r['worst_drift']:.3e} (bound {c['drift']:g}), "
+            f"|dp|/scale " + ", ".join(f"{x:.2e}" for x in r["dp"])
+            + (f" (bound {c['dp']:g})" if c["dp"] else " (not bounded)"))
+        return r
+
+    out["torch"] = case("exact", "torch", {})
+    out["cuda"] = case("exact", "cuda", {"K1": steps})
+    out["pm"] = case("pm", None, {})
+    for name in ("leapfrog", "yoshida4"):
+        stages = len(integrators.stage_weights(name))
+        out[name] = case(name, "cuda", {"K1": stages * steps})
+    if not cpp_oracle.available():
+        raise SystemExit("chip_smoke: [23] the native oracle cannot be built")
+    out["oracle"] = item("oracle N=150 on cuda",
+                         lambda: vp.oracle_horizon("cuda", device),
+                         {"K1": steps})
+    r = out["oracle"]
+    log(f"    momentum {r['mom']:.3e} (bound 1e-3), com {r['com']:.3e} "
+        f"(bound 1e-2), extent {r['extent']:.3e} (bound 0.2)")
+    # the kernels line's row: K1 against its plain version on the "cuda"
+    # world's state at the horizon
+    world = worlds[("exact", "cuda")]
+    st = world.state
+    out["k1_err"] = compare_variants(df, f"[23b] N={world.total_len} at the "
+                                     "horizon", st.pos, st.vel, st.radius,
+                                     world.gm, BOUND_SMALL)
+    out["k1_n"], out["k1_s"] = world.total_len, world.mass_len
+    worlds.clear()
+
+    c = vp.HORIZON_CASES["ring"]
+    log(f"[23c] the ring case: cuda_ring, D={c['shards']} shards on one card, "
+        f"N={c['n']}")
+    out["ring"] = case("ring", None, {"K3": c["shards"] ** 2 * steps})
+
+    log("[23d] validate_physics at docs/BENCHMARKS.md's rows (TPU values "
+        "beside: physics, not speed)")
+    out["rows"] = []
+    for n, k, backend, integ in HZ_ROWS:
+        stages = len(integrators.stage_weights(integ) or (1.0,))
+        want = ({"K1": stages * k} if backend == "cuda" else
+                {"K1": k, "K4": k} if backend == "p3m" else {})
+        r = item(f"N={n} x {k} {backend} {integ}",
+                 lambda: vp.main([str(n), str(k), backend, integ]), want)
+        bound_ = HZ_DRIFT[backend]
+        tpu = HZ_TPU.get((n, backend)) if integ == "euler" else None
+        log(f"    worst drift {r['worst_drift']:.3e} (bound {bound_:g}), "
+            f"|dp|/scale {r['worst_dp']:.3e}" + (
+                f"; on a TPU {tpu[0]:.2e}, {tpu[1]:.2e}" if tpu else ""))
+        if not (r["finite"] and r["worst_drift"] < bound_):
+            raise SystemExit(f"chip_smoke: [23d] N={n} {backend} {integ}: "
+                             f"drift {r['worst_drift']:.3e}")
+        out["rows"].append({key: r[key] for key in (
+            "n", "steps", "backend", "integrator", "worst_drift", "worst_dp",
+            "device_ms", "wall_ms", "launches", "s")})
+        del r
+
+    log("[23e] scale_ceiling at its defaults (pm, N=32M, grid 2048)")
+    t0 = time.perf_counter()
+    r, got = hz_count(counters, lambda: scale_ceiling.main([]))
+    r["s"] = time.perf_counter() - t0
+    log(f"  scene {r['scene_s']:.4f} s, world {r['world_s']:.4f} s, "
+        f"{r['ms']:.4f} ms/substep device, peak {r['peak_gib']:.4f} of "
+        f"{r['total_gib']:.4f} GiB; {r['s']:.1f} s wall; launches {got} "
+        f"[{smi}]")
+    out["scale"] = {k: r[k] for k in ("n", "grid", "scene_s", "world_s", "ms",
+                                      "peak_gib", "total_gib", "s",
+                                      "updates_per_s")}
+    del r
+
+    log("[23f] verify_drive")
+    frame = ROOT / "build" / "chip_smoke_verify" / "frame.ppm"
+    t0 = time.perf_counter()
+    r, got = hz_count(counters, lambda: verify_drive.main(
+        ["--out", str(frame)]))
+    log(f"  {time.perf_counter() - t0:.1f} s wall, lit {r['lit']}, mix "
+        f"{r['mix']} {r['mix_err']:.2e}, launches {got}")
+    if r["mix"] != ("torch", "cuda") or got["K1"] < r["steps"]:
+        raise SystemExit(f"chip_smoke: [23f] mix {r['mix']}, K1 {got['K1']}")
+    out["verify"] = {"s": time.perf_counter() - t0, "launches": got["K1"]}
+    del r
+
+    log("[23g] the compile cache")
+    cache = ROOT / "build" / "chip_smoke_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    try:
+        enable_compile_cache(str(cache))
+        t0 = time.perf_counter()
+        path, cold = _build.build_all(["direct_forces"])["direct_forces"]
+        cold_wall = time.perf_counter() - t0
+        if path.parent != cache or not cold > 0:
+            raise SystemExit(f"chip_smoke: [23g] built {path} in {cold} s")
+        t0 = time.perf_counter()
+        again = _build.build_all(["direct_forces"])["direct_forces"][1]
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        import ctypes
+
+        ctypes.CDLL(str(path))
+        dlopen_s = time.perf_counter() - t0
+    finally:
+        _build.set_build_dir(None)
+    files = {f.name: (f.stat().st_mtime_ns, f.stat().st_size)
+             for f in cache.iterdir()}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nbody_tpu_torch",
+                           "--compile-cache", str(cache), *HZ_CLI], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    tail = " | ".join(proc.stderr.strip().splitlines()[-2:])
+    log(f"  $ python -m nbody_tpu_torch --compile-cache {cache} "
+        f"{' '.join(HZ_CLI)}: rc {proc.returncode}, {cli_s:.1f} s wall; {tail}")
+    after = {f.name: (f.stat().st_mtime_ns, f.stat().st_size)
+             for f in cache.iterdir()}
+    entries = cache_entries(str(cache))
+    if (proc.returncode != 0 or after != files or entries != 1
+            or "built in this process: none" not in proc.stderr):
+        raise SystemExit(f"chip_smoke: [23g] rc {proc.returncode}, cache "
+                         f"{files} -> {after}, {entries} entries: "
+                         f"{proc.stderr[-2000:]}")
+    log(f"  cold: nvcc {cold:.2f} s ({cold_wall:.2f} s wall); warm: "
+        f"build_all {warm_s:.4f} s (reported build {again} s: nvcc "
+        f"--version and the file), dlopen {dlopen_s:.4f} s; the CLI "
+        f"subprocess built nothing, the directory unchanged, "
+        f"cache_entries {entries} [{smi}]")
+    out["cache"] = {"cold_s": cold, "warm_s": warm_s, "dlopen_s": dlopen_s,
+                    "cli_s": cli_s, "entries": entries}
+    out["s"] = time.perf_counter() - t_phase
+    log(f"  [23] took {out['s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4444,6 +4683,8 @@ def main() -> int:
     ckpt = phase_checkpoint(nt, sh, rf, df, pp, collisions, multihost, ck,
                             scene_big, smi, device)
     del scene_big
+    log("[23] physics at horizon on the card (nbody_tpu_torch.scripts)")
+    phys = phase_physics(nt, df, rf, pp, _build, smi, device)
 
     mk = merge["kernel"]
     log(f"card: {smi}")
@@ -4531,6 +4772,22 @@ def main() -> int:
         f"{ckpt['load_copies']} (n_pad x 32 = {ckpt['state_bytes']}); "
         "examples " + ", ".join(f"{k} {v['s']:.1f} s" for k, v in
                                 ckpt["examples"].items()))
+    log(f"physics at horizon on the card, device ms/substep: reference "
+        f"binary 10k cuda {phys['ref_cuda']['device_ms']:.4f}, torch "
+        f"{phys['ref_torch']['device_ms']:.4f}; N=1024 cuda "
+        f"{phys['cuda']['device_ms']:.4f}, torch "
+        f"{phys['torch']['device_ms']:.4f}, pm {phys['pm']['device_ms']:.4f}, "
+        f"leapfrog {phys['leapfrog']['device_ms']:.4f}, yoshida4 "
+        f"{phys['yoshida4']['device_ms']:.4f}, ring D=8 "
+        f"{phys['ring']['device_ms']:.4f}; rows " + ", ".join(
+            f"{r['n']}x{r['steps']} {r['backend']} {r['integrator']} drift "
+            f"{r['worst_drift']:.3e} {r['device_ms']:.4f}"
+            for r in phys["rows"]) + f"; scale ceiling N="
+        f"{phys['scale']['n']} world {phys['scale']['world_s']:.4f} s, "
+        f"{phys['scale']['ms']:.4f} ms/substep, peak "
+        f"{phys['scale']['peak_gib']:.4f} GiB; cache cold "
+        f"{phys['cache']['cold_s']:.2f} s, warm "
+        f"{phys['cache']['warm_s']:.4f} s; [23] {phys['s']:.1f} s")
     log("ablation path, best ms of each sweep: " + ", ".join(
         f"{key} {ablation[key]['best']['ms']:.4f} ({ablation[key]['best']['name']})"
         for key in ABLATION_KERNELS) + f" (K1 force_acc {ablation['k1_ms']:.4f})")
@@ -4698,6 +4955,13 @@ def main() -> int:
          "library_ms": None},
         mh_ring_row(),
         mh_pp_row(),
+        {**fused_row(phys["k1_n"], phys["k1_s"],
+                     "nbody_tpu/ops/pallas_forces.py:220",
+                     phys["cuda"]["launches"]["K1"], phys["k1_err"],
+                     phys["cuda"]["device_ms"], phys["torch"]["device_ms"]),
+         "name": f"direct_forces fused substep over 10,000 substeps, "
+                 f"tests/test_physics_validation.py's one-galaxy scene "
+                 f"N={phys['k1_n']} S={phys['k1_s']}"},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,5 +16,7 @@ scripts' shapes on inputs drawn with numpy.
 
 ``tune_direct`` has no TPU script: it sweeps the plans of the main-path
 pair loop (``csrc/direct_tiles.cuh``) from which ``cluster_plan`` was
-chosen. Without a CUDA device each module raises.
+chosen. Nor has ``pm_momentum``: the "pm" horizon case's momentum under
+an fp32, an odd-spectrum fp32 and the float64 mesh solve, on the CPU and
+the card, from which ``ops/pm_forces._solve``'s float64 was chosen. Without a CUDA device each module raises.
 """

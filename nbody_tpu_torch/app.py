@@ -20,8 +20,11 @@ CPU's, so the two give different scenes of the same distribution); the
 default ``--scene galaxies`` is the numpy generator on the host. ``view``
 opens the matplotlib viewer, or with ``--sdl`` the pygame game loop; where
 that viewer cannot run (no pygame, no interactive matplotlib backend) it
-exits with an error and does not switch to the other. Not registered:
-``--compile-cache`` and the remote-device probe.
+exits with an error and does not switch to the other. ``--compile-cache
+[DIR]`` builds and loads the CUDA kernels' libraries in DIR (bare:
+$NBODY_TPU_TORCH_CACHE_DIR or ~/.cache/nbody_tpu_torch/kernels), so that a
+repeat launch loads them with no nvcc build. Not registered: the
+remote-device probe.
 """
 
 from __future__ import annotations
@@ -345,11 +348,59 @@ def _device(platform: str | None) -> torch.device:
     return device
 
 
+_SUBCOMMANDS = ("run", "render", "gif", "view")
+
+
+def _fix_bare_compile_cache(argv):
+    """Let the bare form ``--compile-cache run ...`` parse.
+
+    With ``nargs='?'`` argparse would take the subcommand's name as DIR;
+    an explicit empty DIR is inserted where the next token is a
+    subcommand or another option. ``--platform``'s value is skipped, so
+    that ``--platform cpu --compile-cache run`` parses too."""
+    argv = list(argv)
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        if tok == "--compile-cache":
+            nxt = argv[i + 1] if i + 1 < len(argv) else None
+            if nxt is None or nxt in _SUBCOMMANDS or nxt.startswith("-"):
+                argv.insert(i + 1, "")
+            break
+        if tok == "--platform":
+            i += 2
+            continue
+        if tok in _SUBCOMMANDS:
+            break  # the subcommand's own flags follow
+        i += 1
+    return argv
+
+
+def _report_builds(cache: str) -> None:
+    """One line on stderr: the libraries this process built in the cache
+    and their nvcc seconds (none when it loaded them all)."""
+    from .ops import _build
+    from .utils.compile_cache import cache_entries
+
+    built = ", ".join(f"{k} {s:.2f} s" for k, s in _build.BUILT.items())
+    print(f"compile cache {cache}: {cache_entries(cache)} libraries; built "
+          f"in this process: {built or 'none'}", file=sys.stderr)
+
+
 def main(argv=None) -> None:
     if argv is None:
         argv = sys.argv[1:]
+    argv = _fix_bare_compile_cache(argv)
     ap = argparse.ArgumentParser(prog=PROG, description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--compile-cache", nargs="?", const="", default=None,
+                    metavar="DIR",
+                    help="build and load the CUDA kernels' libraries in DIR "
+                         "(bare flag: $NBODY_TPU_TORCH_CACHE_DIR or "
+                         "~/.cache/nbody_tpu_torch/kernels), so that repeat "
+                         "launches skip nvcc (utils.enable_compile_cache). A "
+                         "DIR that collides with a subcommand name needs "
+                         "--compile-cache=DIR")
     ap.add_argument("--platform", default=None, metavar="P",
                     help="the device: 'cuda' (default, the card), 'cuda:N' "
                          "or 'cpu'")
@@ -407,8 +458,15 @@ def main(argv=None) -> None:
     p.set_defaults(fn=cmd_view)
 
     args = ap.parse_args(argv)
+    cache = None
+    if args.compile_cache is not None:
+        from .utils.compile_cache import enable_compile_cache
+
+        cache = enable_compile_cache(args.compile_cache or None)
     args.device = _device(args.platform)
     args.fn(args)
+    if cache is not None:
+        _report_builds(cache)
 
 
 if __name__ == "__main__":

@@ -2,12 +2,16 @@
 
 Each source ``nbody_tpu_torch/csrc/<name>.cu`` has a plain C interface. At
 first use it is compiled by ``nvcc`` for ``sm_90a`` into its own shared
-library, ``build/kernels/lib<name>-<sha>.so`` under the repository root,
-where ``<sha>`` hashes the source, the headers beside it (``csrc/*.cuh``)
-and the flags; the library is then loaded
-with ctypes. A library already built from the same source and flags is
-loaded as it is. No PyTorch header is compiled, so a build takes seconds,
-and :func:`build_all` runs one ``nvcc`` per source, all at once.
+library, ``lib<name>-<sha>.so`` in :func:`build_dir`, where ``<sha>``
+hashes the source, the headers beside it (``csrc/*.cuh``), the flags and
+``nvcc --version``'s output; the library is then loaded with ctypes.
+:func:`build_dir` is the directory that ``utils.enable_compile_cache``
+chose, else $NBODY_TPU_TORCH_CACHE_DIR, else ``build/kernels`` under the
+repository root of a source checkout, else the user's cache directory
+(``utils.compile_cache.default_cache_dir``: an installed package). A
+library already built from the same source, flags and nvcc is loaded as
+it is. No PyTorch header is compiled, so a build takes seconds, and
+:func:`build_all` runs one ``nvcc`` per source, all at once.
 
 ``nvcc`` is looked up in ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``,
 then on ``PATH``; if none has it, loading raises.
@@ -25,7 +29,10 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# a source checkout's directory: the repository root's build/kernels
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_chosen: Path | None = None     # set by utils.enable_compile_cache
+BUILT: dict[str, float] = {}    # nvcc seconds of each build in this process
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 # No --use_fast_math: the precise paths rely on IEEE sqrtf and division.
@@ -167,17 +174,58 @@ def find_nvcc() -> str:
         "the CUDA kernels cannot be built")
 
 
+@functools.cache
+def _version(nvcc: str) -> str:
+    return subprocess.run([nvcc, "--version"], check=True, capture_output=True,
+                          text=True, timeout=60).stdout
+
+
+def nvcc_version() -> str:
+    """``nvcc --version``'s output, or "" where there is no nvcc (then no
+    library can be built, and a path is only a name)."""
+    try:
+        nvcc = find_nvcc()
+    except RuntimeError:
+        return ""
+    return _version(nvcc)
+
+
+def set_build_dir(path) -> None:
+    """Build and load libraries in ``path`` from now on (None: resolve it
+    again); ``utils.enable_compile_cache`` calls this."""
+    global _chosen
+    _chosen = None if path is None else Path(path)
+
+
+def build_dir() -> Path:
+    """The libraries' directory: the one set by :func:`set_build_dir`, else
+    $NBODY_TPU_TORCH_CACHE_DIR, else ``BUILD_DIR`` in a source checkout,
+    else ``utils.compile_cache.default_cache_dir()``."""
+    if _chosen is not None:
+        return _chosen
+    env = os.environ.get("NBODY_TPU_TORCH_CACHE_DIR")
+    if env:
+        return Path(env)
+    if BUILD_DIR.parents[1].name not in ("site-packages", "dist-packages"):
+        return BUILD_DIR
+    from ..utils.compile_cache import default_cache_dir
+
+    return Path(default_cache_dir())
+
+
 def source(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
 def library_path(name: str) -> Path:
-    """Where the library for the current source, headers and flags lives."""
+    """Where the library for the current source, headers, flags and nvcc
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(source(name).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(nvcc_version().encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, tuple[Path, float]]:
@@ -193,7 +241,8 @@ def build_all(names=None) -> dict[str, tuple[Path, float]]:
     if not todo:
         return out
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for n in todo:
+        out[n][0].parent.mkdir(parents=True, exist_ok=True)
     procs = {}
     for n in todo:
         tmp = out[n][0].with_suffix(f".{os.getpid()}.tmp")
@@ -213,6 +262,7 @@ def build_all(names=None) -> dict[str, tuple[Path, float]]:
         path.with_suffix(".log").write_text(log)
         os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
         out[n] = (path, seconds)
+        BUILT[n] = seconds
     if failed:
         raise RuntimeError("\n".join(failed))
     return out

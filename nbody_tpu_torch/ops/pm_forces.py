@@ -120,11 +120,25 @@ def _cic_scatter(src_pos, src_gm, lo, inv_h, grid):
 
 def _solve(rho, h, eps2, grid, rc=None):
     """Free-space convolution of the mass grid with the softened 1/r²
-    kernel: the stacked (G, G, 2) force grid. With ``rc`` the kernel is
-    multiplied by the P³M smootherstep taper g(r/rc)."""
+    kernel: the stacked (G, G, 2) fp32 force grid. With ``rc`` the kernel
+    is multiplied by the P³M smootherstep taper g(r/rc).
+
+    Without ``rc`` (the "pm" backend) the convolution runs in float64. A
+    heavy body's own cloud puts its largest field values on the cells
+    around it; an fp32 FFT's rounding there leaves it a self-force that
+    does not cancel, and on the card (cuFFT) it points the same way
+    substep after substep: the momentum of one N=1024 galaxy at grid 128
+    drifted 6.7e-4 of its scale over 10,000 substeps on an H100 80GB HBM3
+    (700 W), past tests/test_physics_validation.py's 2e-4; after 2000,
+    6.8e-6 on the CPU, 1.05e-4 on the card, 5.5e-7 on both with this
+    float64 solve (``python -m nbody_tpu_torch.ablations.pm_momentum``).
+    The P³M kernel's taper removes the short-range field, so "p3m" keeps
+    fp32."""
+    dtype = torch.float64 if rc is None else DTYPE
+    h, eps2 = torch.as_tensor(h).to(dtype), torch.as_tensor(eps2).to(dtype)
     n2 = 2 * grid
     idx = torch.arange(n2, device=rho.device)
-    d = torch.where(idx < grid, idx, idx - n2).to(DTYPE)  # wraparound order
+    d = torch.where(idx < grid, idx, idx - n2).to(dtype)  # wraparound order
     dx = d[:, None] * h
     dy = d[None, :] * h
     dist2 = dx * dx + dy * dy
@@ -138,14 +152,15 @@ def _solve(rho, h, eps2, grid, rc=None):
         inv_r3 = inv_r3 * _taper(dist2, rc)
     kx = dx * inv_r3
     ky = dy * inv_r3
-    rho_pad = torch.zeros((n2, n2), dtype=DTYPE, device=rho.device)
+    rho_pad = torch.zeros((n2, n2), dtype=dtype, device=rho.device)
     rho_pad[:grid, :grid] = rho
     f_rho = torch.fft.rfft2(rho_pad)
     # A(c) = sum_{c'} rho(c') K(c' - c): a correlation; K is odd, so it is
     # minus the convolution.
     ax = -torch.fft.irfft2(f_rho * torch.fft.rfft2(kx), s=(n2, n2))
     ay = -torch.fft.irfft2(f_rho * torch.fft.rfft2(ky), s=(n2, n2))
-    return torch.stack([ax[:grid, :grid], ay[:grid, :grid]], dim=-1)
+    return torch.stack([ax[:grid, :grid], ay[:grid, :grid]],
+                       dim=-1).to(DTYPE)
 
 
 def _cic_gather(a_grid, tgt_pos, lo, inv_h, grid):

@@ -13,10 +13,12 @@ from nbody_tpu.ops import pm_forces as jpm
 import nbody_tpu_torch as nt
 from nbody_tpu_torch.ops import pm_forces as tpm
 
-# Forces: max|Δa|/max|a| < 1e-5. Both sides run the same fp32 formulas on
+# Forces: max|Δa|/max|a| < 1e-5. Both sides run the same formulas on
 # bit-identical cells and weights; they differ in the FFT library (pocketfft
-# vs ducc), which sums each transform in another order, and in the order of
-# the CIC scatter's sums. Measured up to 5.5e-6 here (grid 128).
+# vs ducc), which sums each transform in another order, in the order of
+# the CIC scatter's sums, and in the convolution's precision (float64 in
+# the port's "pm" solve, ~3e-7 of max|a| from fp32). Measured up to 5.5e-6
+# here (grid 128).
 TOL = 1e-5
 
 
@@ -90,3 +92,59 @@ def test_world_pm_matches_nbody_tpu(integrator):
     w_j.update(0.01, 5, backend="pm")
     assert rel_err(w_t.particles.pos, w_j.particles.pos) < 1e-6
     assert rel_err(w_t.particles.acc, w_j.particles.acc) < TOL
+
+
+def _solve_float64(rho, h, eps2, grid):
+    """The free-space convolution in numpy float64: the (G, G, 2) grid."""
+    n2 = 2 * grid
+    idx = np.arange(n2)
+    d = np.where(idx < grid, idx, idx - n2).astype(np.float64)
+    dx, dy = d[:, None] * float(h), d[None, :] * float(h)
+    r2 = dx * dx + dy * dy + float(eps2)
+    inv_r3 = 1.0 / (r2 * np.sqrt(r2))
+    pad = np.zeros((n2, n2))
+    pad[:grid, :grid] = rho.numpy()
+    f = np.fft.rfft2(pad)
+    out = [-np.fft.irfft2(f * np.fft.rfft2(k * inv_r3), s=(n2, n2))[:grid, :grid]
+           for k in (dx, dy)]
+    return np.stack(out, axis=-1)
+
+
+def _horizon_grid():
+    """tests/test_physics_validation.py:110's scene and grid (one galaxy,
+    N=1024, grid 128, softening 2): its mass grid, h, and the world."""
+    w = nt.create_world(nt.make_galaxies(1024, 1, seed=11037),
+                        config=nt.SimConfig(pm_grid=128), device="cpu")
+    pos, gm = w.state.pos, w.gm
+    lo, h = tpm._box(*tpm._bounds(pos, pos[:w.mass_len], gm), 128)
+    return tpm._cic_scatter(pos[:w.mass_len], gm, lo, 1.0 / h, 128), h, w
+
+
+def test_pm_solve_is_the_float64_convolution():
+    """The "pm" solve equals the float64 convolution to its fp32 output's
+    rounding: an fp32 FFT is 3.0e-7 of max off it on this grid, and on the
+    card (cuFFT) its rounding at a heavy body's cells leaves a self-force
+    that drifts the momentum past tests/test_physics_validation.py's bound
+    (tests/test_torch_scripts_cuda.py). The P³M solve (a taper) stays
+    fp32."""
+    rho, h, _ = _horizon_grid()
+    eps2 = torch.tensor(4.0)
+    want = _solve_float64(rho, h, eps2, 128)
+    got = tpm._solve(rho, h, eps2, 128)
+    assert got.dtype == torch.float32
+    assert rel_err(got, want) < 1e-7
+    assert tpm._solve(rho, h, eps2, 128, rc=torch.tensor(8.0)).dtype == \
+        torch.float32
+
+
+def test_pm_net_force_of_a_heavy_core_vanishes():
+    """sum m_i a_i over the scene, against sum |m_i a_i|: 0 for an exact
+    mesh (the kernel is odd); 2.6e-3 and 2.3e-3 with the float64 solve
+    (the fp32 CIC weights and gather), 1.2e-2 in x with an fp32 solve, the
+    galaxy's core (m = 1.4e10) carrying most of it."""
+    _, _, w = _horizon_grid()
+    st = w.state
+    acc = nt.pm_acc(st.pos, st.pos[:w.mass_len], w.gm, 2.0, grid=128)
+    ma = st.mass.double()[:, None] * acc.double()
+    net = (ma.sum(0) / ma.abs().sum()).abs()
+    assert float(net.max()) < 5e-3, net

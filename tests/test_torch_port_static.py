@@ -69,7 +69,11 @@ def test_port_files_found():
                  *(f"nbody_tpu_torch/examples/{name}.py" for name in (
                      "checkpoint_resume", "sharded", "collision",
                      "pm_million", "accretion", "shooting",
-                     "thrust_control", "multihost_pod"))):
+                     "thrust_control", "multihost_pod")),
+                 "nbody_tpu_torch/utils/compile_cache.py",
+                 "nbody_tpu_torch/scripts/__init__.py",
+                 *(f"nbody_tpu_torch/scripts/{name}.py" for name in (
+                     "validate_physics", "scale_ceiling", "verify_drive"))):
         assert want in names
     for source in ("direct_vjp.cu", "p3m_pp_vjp.cu", "v2_forces.cu"):
         assert (ROOT / "nbody_tpu_torch" / "csrc" / source).is_file()
