@@ -33,6 +33,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _chosen: Path | None = None     # set by utils.enable_compile_cache
 BUILT: dict[str, float] = {}    # nvcc seconds of each build in this process
+# seconds of each load in this process: the hash, nvcc --version, a build
+# on a miss and dlopen
+LOADED: dict[str, float] = {}
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 # No --use_fast_math: the precise paths rely on IEEE sqrtf and division.
@@ -271,10 +274,12 @@ def build_all(names=None) -> dict[str, tuple[Path, float]]:
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed, load it, and declare its C
-    signatures."""
+    signatures; the seconds it took go to ``LOADED``."""
+    t0 = time.perf_counter()
     path, _ = build_all([name])[name]
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _i32
+    LOADED[name] = time.perf_counter() - t0
     return lib

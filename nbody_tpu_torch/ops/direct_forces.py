@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import forces
+from ..utils.profiling import span
 
 # The kernel's threads per block, and the sources per shared-memory tile of
 # the one-target-per-thread split that ``_split_plan`` plans for the
@@ -169,7 +170,7 @@ def _launch(*args, plan: Plan, partial=None) -> None:
     the arguments of :func:`_kernel_args` and ``plan``; raise if the launch
     failed."""
     global LAUNCHES
-    with torch.cuda.device(args[0].device):
+    with span("k1.launch", profiled=False), torch.cuda.device(args[0].device):
         err = _lib().nbody_direct_forces(
             *_kernel_args(*args, plan, partial),
             torch.cuda.current_stream().cuda_stream)

@@ -66,19 +66,23 @@ the exact-core rows (``direct_forces.force_acc``), with respect to
 positions, radii and gm. The box is formed from detached inputs (JAX's
 ``stop_gradient``), so rc and the cells carry no gradient.
 
-The stages run inside ``torch.profiler.record_function`` ranges named
-``p3m.*``, so a profile splits a substep by stage. Nothing here waits for
-the host: sizes are static and every data-dependent quantity stays on the
-device.
+The stages run inside ``utils.profiling.span`` ranges named ``p3m.*``,
+so a profile or the tracer splits a substep by stage; with the tracer on,
+each force evaluation also counts the rows it bins (``p3m.targets``,
+``p3m.sources``) and those past a full cell (``p3m.dropped_targets``,
+``p3m.dropped_sources``: device counters), which keep the mesh force
+alone. Nothing here waits for the host: sizes are static and every
+data-dependent quantity stays on the device.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from .. import forces
 from ..types import DTYPE, SOFTENING_FLOOR
+from ..utils import profiling
+from ..utils.profiling import span
 from . import direct_forces, p3m_pp
 from .collective import group_of
 from .pm_forces import (_bounds, _box, _cic_gather, _cic_scatter, _solve,
@@ -233,6 +237,21 @@ def p3m_bins(tgt_pos, tgt_radius, src_pos, src_gm, *, grid: int,
     }
 
 
+def _past(counts, cap: int) -> torch.Tensor:
+    """Rows past their cell's capacity, a 0-dim tensor on the device."""
+    return torch.clamp_min(counts - cap, 0).sum()
+
+
+def _count_rows(targets: int, sources: int, dropped_t, dropped_s) -> None:
+    """The tracer's counters of one force evaluation: the rows it bins
+    and those past a full cell, which the pair kernel leaves to the mesh
+    force."""
+    profiling.count("p3m.targets", targets)
+    profiling.count("p3m.sources", sources)
+    profiling.count("p3m.dropped_targets", dropped_t)
+    profiling.count("p3m.dropped_sources", dropped_s)
+
+
 def p3m_acc_from_bins(bins, tgt_pos, tgt_radius, src_pos, src_gm,
                       softening=2.0, *, grid: int, rc_cells: int,
                       cell_capacity: int, precise: bool = False):
@@ -245,24 +264,28 @@ def p3m_acc_from_bins(bins, tgt_pos, tgt_radius, src_pos, src_gm,
     eps2 = torch.as_tensor(softening, dtype=DTYPE, device=device) ** 2
     lo, h = bins["lo"], bins["h"]
     rc = rc_cells * h
+    if profiling.enabled():
+        _count_rows(tgt_pos.shape[0], src_gm.shape[0],
+                    _past(bins["counts_t"], cell_capacity),
+                    _past(bins["counts_s"], cell_capacity))
 
-    with record_function("p3m.cic_scatter"):
+    with span("p3m.cic_scatter"):
         rho = _cic_scatter(src_pos, src_gm, lo, 1.0 / h, grid)
-    with record_function("p3m.fft_solve"):
+    with span("p3m.fft_solve"):
         a_grid = _solve(rho, h, eps2, grid, rc=rc)
-    with record_function("p3m.cic_gather"):
+    with span("p3m.cic_gather"):
         acc = _cic_gather(a_grid, tgt_pos, lo, 1.0 / h, grid)
 
     order_t = bins["order_t"]
-    with record_function("p3m.pack"):
+    with span("p3m.pack"):
         trows = _cell_rows(tgt_pos, tgt_radius + SOFTENING_FLOOR, order_t)
         srows = _cell_rows(src_pos, src_gm, bins["order_s"])
-    with record_function("p3m.pair_kernel"):
+    with span("p3m.pair_kernel"):
         corr = p3m_pp.pp_cells(
             trows, srows, bins["start_t"], bins["counts_t"], bins["start_s"],
             bins["counts_s"], rc, eps2, cap_t=cell_capacity,
             cap_s=cell_capacity, precise=precise)
-    with record_function("p3m.unpack"):
+    with span("p3m.unpack"):
         # a target past its cell's capacity got 0 (mesh only)
         pp = torch.empty_like(corr)
         pp[order_t] = corr
@@ -270,7 +293,7 @@ def p3m_acc_from_bins(bins, tgt_pos, tgt_radius, src_pos, src_gm,
 
     big = bins["big"]
     if big.shape[0]:
-        with record_function("p3m.exact_rows"):
+        with span("p3m.exact_rows"):
             acc[big] = direct_forces.force_acc(
                 tgt_pos[big], tgt_radius[big], src_pos, src_gm,
                 precise=precise)
@@ -315,7 +338,7 @@ def p3m_cell_overflow(src_pos, src_gm, *, grid: int = 512, rc_cells: int = 4,
     cell = (grid * h) / gc
     _, _, _, counts = _cell_pack(src_pos, lo, 1.0 / cell, gc,
                                  priority=src_gm)
-    return torch.clamp(counts - cell_capacity, min=0).sum()
+    return _past(counts, cell_capacity)
 
 
 # --- the collective form: one tensor a shard of this process ---
@@ -457,12 +480,12 @@ def p3m_acc_collective_from_bins(bins: dict, tgt_pos: list, tgt_radius: list,
     rc = [rc_cells * h_k for h_k in h]
     a_grid = mesh_grid_collective(src_pos, src_gm, lo, h, eps2, grid, rc=rc,
                                   group=group)
-    with record_function("p3m.cic_gather"):
+    with span("p3m.cic_gather"):
         acc = [_cic_gather(a, t, lo_k, 1.0 / h_k, grid)
                for a, t, lo_k, h_k in zip(a_grid, tgt_pos, lo, h)]
 
     rows = group.source_rows(src_pos)
-    with record_function("p3m.pack"):
+    with span("p3m.pack"):
         xy = torch.cat(group.gather(src_pos, dev0, rows))
         w = torch.cat(group.gather(src_gm, dev0, rows))
         srows: dict = {}
@@ -472,20 +495,25 @@ def p3m_acc_collective_from_bins(bins: dict, tgt_pos: list, tgt_radius: list,
                                         bins["order_s"][k])
         trows = [_cell_rows(p, r + SOFTENING_FLOOR, o) for p, r, o in
                  zip(tgt_pos, tgt_radius, bins["order_t"])]
+    if profiling.enabled():
+        _count_rows(sum(p.shape[0] for p in tgt_pos), xy.shape[0],
+                    sum((c - t).sum().to(dev0) for c, t in
+                        zip(bins["counts_t"], bins["cut_t"])),
+                    _past(bins["counts_s"][0], cap))
     out = []
     for k, dev in enumerate(devices):
-        with record_function("p3m.pair_kernel"):
+        with span("p3m.pair_kernel"):
             corr = p3m_pp.pp_cells(
                 trows[k], srows[dev], bins["start_t"][k], bins["cut_t"][k],
                 bins["start_s"][k], bins["counts_s"][k], rc[k], eps2[k],
                 cap_t=cap, cap_s=cap, precise=precise)
-        with record_function("p3m.unpack"):
+        with span("p3m.unpack"):
             pp = torch.empty_like(corr)
             pp[bins["order_t"][k]] = corr
         out.append(acc[k] + pp)
 
     if "big_sel" in bins and bins["big_sel"].shape[0]:
-        with record_function("p3m.exact_rows"):
+        with span("p3m.exact_rows"):
             cand = torch.cat(group.gather(
                 [p[i] for p, i in zip(tgt_pos, bins["big_i_loc"])], dev0))
             big_pos = cand[bins["big_sel"]]

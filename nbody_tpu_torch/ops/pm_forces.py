@@ -42,10 +42,9 @@ from __future__ import annotations
 
 import torch
 
-from torch.profiler import record_function
-
 from ..forces import add_at
 from ..types import DTYPE
+from ..utils.profiling import span
 from .collective import group_of
 
 
@@ -214,7 +213,7 @@ def on_devices(x: torch.Tensor, devices: list) -> list:
 def shard_sum(xs: list, device) -> torch.Tensor:
     """The sum of the shards' tensors on ``device`` in shard order,
     ((x0 + x1) + x2) + ...: a collective's psum, in a fixed order."""
-    with record_function("shards.sum"):
+    with span("shards.sum"):
         out = xs[0].to(device)
         for x in xs[1:]:
             out = out + x.to(device)
@@ -267,8 +266,7 @@ def mesh_grid_collective(src_pos: list, src_gm: list, lo: list, h: list,
     one)."""
     group = group_of(group)
     devices = [p.device for p in src_pos]
-    with record_function("p3m.cic_scatter" if rc is not None
-                         else "pm.cic_scatter"):
+    with span("p3m.cic_scatter" if rc is not None else None):
         rhos = [_cic_scatter(s, g, lo_k, 1.0 / h_k, grid) if s.shape[0]
                 else None
                 for s, g, lo_k, h_k in zip(src_pos, src_gm, lo, h)]
@@ -280,8 +278,7 @@ def mesh_grid_collective(src_pos: list, src_gm: list, lo: list, h: list,
     rho = shard_sum(rhos, devices[0])
     solved: dict = {}
     out = []
-    with record_function("p3m.fft_solve" if rc is not None
-                         else "pm.fft_solve"):
+    with span("p3m.fft_solve" if rc is not None else None):
         for k, dev in enumerate(devices):
             if dev not in solved:
                 solved[dev] = _solve(rho.to(dev), h[k], eps2[k], grid,
@@ -315,6 +312,5 @@ def pm_acc_collective(
     lo, h = shard_box(tgt_pos, src_pos, src_gm, tgt_mask, grid, group)
     a_grid = mesh_grid_collective(src_pos, src_gm, lo, h, eps2, grid,
                                   group=group)
-    with record_function("pm.cic_gather"):
-        return [_cic_gather(a, t, lo_k, 1.0 / h_k, grid)
-                for a, t, lo_k, h_k in zip(a_grid, tgt_pos, lo, h)]
+    return [_cic_gather(a, t, lo_k, 1.0 / h_k, grid)
+            for a, t, lo_k, h_k in zip(a_grid, tgt_pos, lo, h)]

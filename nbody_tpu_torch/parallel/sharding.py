@@ -65,7 +65,6 @@ import operator
 from typing import Literal
 
 import torch
-from torch.profiler import record_function
 
 from .. import diagnostics, forces, integrators, world
 from ..interop import FIELDS
@@ -78,6 +77,7 @@ from ..ops.pm_forces import pm_acc_collective
 from ..ops.ring_forces import Ring, ring_force, ring_substep, source_pieces
 from ..trajectory import stack_frames
 from ..types import DEFAULT_SIM_CONFIG, DTYPE, Particles, SimConfig, round_up
+from ..utils.profiling import span
 from ..world import _scalar, partition_massive_first
 
 # Source shards align to 128 rows, as in nbody_tpu
@@ -696,7 +696,7 @@ class ShardedWorld:
 
     def _p3m_bins(self, ps, big) -> dict:
         cfg = self.config
-        with record_function("p3m.bins"):
+        with span("p3m.bins"):
             src, gm = self._sources(ps)
             return p3m_bins_collective(
                 list(ps), self.radius, src, gm, grid=cfg.pm_grid,

@@ -45,7 +45,6 @@ from __future__ import annotations
 from typing import Literal
 
 import torch
-from torch.profiler import record_function
 
 from . import diagnostics, forces, integrators
 from .ops.collisions import merge_pass
@@ -54,6 +53,7 @@ from .ops.p3m_forces import exact_core_rows, p3m_acc_from_bins, p3m_bins
 from .ops.pm_forces import pm_acc
 from .types import (DEFAULT_SIM_CONFIG, DTYPE, Particles, SimConfig,
                     astuple_shallow)
+from .utils.profiling import SUBSTEP, span
 
 Backend = Literal["torch", "cuda", "pm", "p3m", "auto"]
 BACKENDS = ("torch", "cuda", "pm", "p3m")
@@ -166,7 +166,7 @@ def _gravity(backend: str, radius, gm, config: SimConfig, *, bins=None,
 
 
 def _p3m_bins(pos, radius, mesh_gm, config: SimConfig, big):
-    with record_function("p3m.bins"):
+    with span("p3m.bins"):
         return p3m_bins(pos, radius, pos[:mesh_gm.shape[0]], mesh_gm,
                         grid=config.pm_grid, rc_cells=config.p3m_rc_cells,
                         exact_targets=config.p3m_exact_targets, big=big)
@@ -232,12 +232,14 @@ def update_state(state: Particles, gm: torch.Tensor, dt: float, n: int, *,
     dt = float(dt)
     if backend == "cuda" and extra_force is None:
         for _ in range(n):
-            state = _fused_step(state, gm, dt, config)
+            with span(SUBSTEP, profiled=False):
+                state = _fused_step(state, gm, dt, config)
         return state
     if backend != "p3m":
         gravity = _gravity(backend, state.radius, gm, config)
         for _ in range(n):
-            state = _step(state, gravity, dt, config, extra_force)
+            with span(SUBSTEP, profiled=False):
+                state = _step(state, gravity, dt, config, extra_force)
         return state
     state, _ = p3m_substeps(state, gm, dt, 0, n, None, config=config,
                             extra_force=extra_force)
@@ -261,11 +263,13 @@ def p3m_substeps(state: Particles, gm, dt, start: int, n: int, bins, *,
     if softening is None:
         softening = _scalar(config.pm_softening, state.pos.device)
     for i in range(start, start + n):
-        if bins is None or i % config.p3m_rebin_interval == 0:
-            bins = _p3m_bins(state.pos, state.radius, mesh_gm, config, big)
-        gravity = _gravity("p3m", state.radius, gm, config, bins=bins,
-                           softening=softening)
-        state = _step(state, gravity, dt, config, extra_force)
+        with span(SUBSTEP, profiled=False):
+            if bins is None or i % config.p3m_rebin_interval == 0:
+                bins = _p3m_bins(state.pos, state.radius, mesh_gm, config,
+                                 big)
+            gravity = _gravity("p3m", state.radius, gm, config, bins=bins,
+                               softening=softening)
+            state = _step(state, gravity, dt, config, extra_force)
     return state, bins
 
 
@@ -298,7 +302,7 @@ def merging_substep(state: Particles, gm: torch.Tensor, dt, *,
         st = _step(state, _gravity(backend, state.radius, gm, config,
                                    softening=softening),
                    dt, config, extra_force)
-    with record_function("merge_pass"):
+    with span("merge_pass"):
         pos, vel, radius, mass, gm = merge_pass(
             st.pos, st.vel, st.radius, st.mass, gm,
             factor=config.merge_factor, g=config.g)
@@ -319,9 +323,11 @@ def update_state_merging(state: Particles, gm: torch.Tensor, dt: float,
     dt = float(dt)
     softening = _scalar(config.pm_softening, state.pos.device)
     for _ in range(n):
-        state, gm = merging_substep(state, gm, dt, config=config,
-                                    backend=backend, extra_force=extra_force,
-                                    softening=softening)
+        with span(SUBSTEP, profiled=False):
+            state, gm = merging_substep(state, gm, dt, config=config,
+                                        backend=backend,
+                                        extra_force=extra_force,
+                                        softening=softening)
     return state, gm
 
 
@@ -450,19 +456,21 @@ class World:
         optionally adds a user acceleration field (external potential,
         drag, thrust) on top of self-gravity; it must return (N, 2). Under
         merging, see :func:`update_state_merging`."""
-        backend = self._resolve(backend or self.default_backend)
-        _check_backend(backend, self.device)
-        if n <= 0:
-            return self
-        if self.config.merge_collisions:
-            self.state, self.gm = update_state_merging(
-                self.state, self.gm, dt, n, config=self.config,
-                backend=backend, extra_force=extra_force)
-        else:
-            self.state = update_state(self.state, self.gm, dt, n,
-                                      config=self.config, backend=backend,
-                                      extra_force=extra_force)
-        self._host_cache = None
+        with span("world.update", profiled=False):
+            backend = self._resolve(backend or self.default_backend)
+            _check_backend(backend, self.device)
+            if n <= 0:
+                return self
+            if self.config.merge_collisions:
+                self.state, self.gm = update_state_merging(
+                    self.state, self.gm, dt, n, config=self.config,
+                    backend=backend, extra_force=extra_force)
+            else:
+                self.state = update_state(self.state, self.gm, dt, n,
+                                          config=self.config,
+                                          backend=backend,
+                                          extra_force=extra_force)
+            self._host_cache = None
         return self
 
     def update_adaptive(self, t_span: float, *, eta: float = 0.1,

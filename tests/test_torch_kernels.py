@@ -490,6 +490,59 @@ def test_mesh_world_two_runs_are_bit_equal(cuda, backend):
         assert torch.equal(got, getattr(runs[1], name)), name
 
 
+@pytest.mark.parametrize("backend", ["cuda", "p3m"])
+def test_tracer_on_the_card(cuda, backend):
+    """The tracer on the card: world.update > substep > k1.launch (the
+    fused substep; "p3m": under p3m.exact_rows), the loads in
+    _build.LOADED, no sync inside the traced update (the device counters
+    wait for collect()), and the P3M counters equal to a count from the
+    bins of the same positions."""
+    from nbody_tpu_torch import world as world_mod
+    from nbody_tpu_torch.ops import _build
+    from nbody_tpu_torch.utils import profiling
+
+    cfg = nt.SimConfig(pm_grid=256, p3m_cell_capacity=16)
+    w = nt.create_world(nt.make_galaxies(20_000, 2, seed=11037), config=cfg,
+                        default_backend=backend, device=cuda)
+    w.update(0.01, 1)
+    assert _build.LOADED and all(s > 0 for s in _build.LOADED.values())
+    st, s_rows = w.state, world_mod._mesh_sources(w.gm).shape[0]
+    bins = p3m_forces.p3m_bins(
+        st.pos, st.radius, st.pos[:s_rows], world_mod._mesh_sources(w.gm),
+        grid=cfg.pm_grid, rc_cells=cfg.p3m_rc_cells,
+        exact_targets=cfg.p3m_exact_targets)
+    torch.cuda.synchronize()
+    profiling.collect()
+    profiling.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w.update(0.01, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        profiling.disable()
+    rec = profiling.collect()
+    spans = rec["spans"]
+    path = {"cuda": ["world.update", "substep", "k1.launch"],
+            "p3m": ["world.update", "substep", "p3m.exact_rows",
+                    "k1.launch"]}[backend]
+    launch = next(s for s in spans if s.name == "k1.launch")
+    chain, s = [], launch
+    while True:
+        chain.append(s.name)
+        if s.parent < 0:
+            break
+        s = spans[s.parent]
+    assert chain[::-1] == path
+    assert launch.step == 0
+    if backend == "p3m":
+        def past(counts):
+            return int(torch.clamp_min(counts - 16, 0).sum())
+        assert rec["counts"] == {
+            "p3m.targets": w.total_len, "p3m.sources": s_rows,
+            "p3m.dropped_targets": past(bins["counts_t"]),
+            "p3m.dropped_sources": past(bins["counts_s"])}
+
+
 # --- K5a, K5g, K5d, K5h: the direct-force variants of the ablation path ---
 
 def _scene(device, n):
